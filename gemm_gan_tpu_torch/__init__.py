@@ -1,0 +1,20 @@
+"""gemm_gan_tpu_torch — the PyTorch / CUDA port of gemm_gan_tpu.
+
+Serves the flagship `film_cross_attention` generator on an NVIDIA H100. Its
+attention runs through hand-written CUDA flash-attention forward kernels
+(`kernels/csrc/flash_fwd.cu`), each with a plain PyTorch version that the
+CPU path takes. The JAX package `gemm_gan_tpu` stays the reference; this
+package imports nothing of it and no JAX.
+
+Entry points run on the CUDA card unless the caller passes device="cpu".
+"""
+
+__version__ = "0.1.0"
+
+from gemm_gan_tpu_torch.config import (  # noqa: F401
+    ExperimentConfig,
+    FusionConfig,
+    ModelConfig,
+    load_config,
+    variant_config,
+)

@@ -1,0 +1,125 @@
+"""Weight bridge between Flax param trees and the port's `state_dict`s.
+
+A JAX user hands the port a trained generator with
+
+    from gemm_gan_tpu_torch.convert import save_params_npz
+    save_params_npz(jax.device_get(state.g_params), "run/generator_params.npz")
+
+and `serving.GeneratorServer.load("run")` serves it. Nothing here imports
+flax or jax: the Flax side is a nested (or "/"-flattened) dict of numpy
+arrays.
+
+Mapping (Flax path -> torch key), applied to any subtree:
+  Dense `kernel` [in, out]            -> Linear `weight` [out, in]
+  LayerNorm `scale`                   -> `weight`
+  `bias`, `cls_token`                 -> kept
+  _PatchTransformer_0                 -> patch_transformer
+  TransformerEncoderLayer_{i}         -> layers.{i}
+  MaskedMultiHeadAttention_0          -> self_attn
+  (in a layer) LayerNorm_0/1, Dense_0/1 -> norm1/2, linear1/2
+  LinearBlock_{i}/Dense_0             -> blocks.{i}.linear
+  (trunk head) Dense_0                -> head
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_LAYER = r"TransformerEncoderLayer_(\d+)/"
+
+# (flax regex, torch replacement), applied in order to "/"-joined paths
+_TO_TORCH = [
+    (r"(^|/)_PatchTransformer_0/", r"\1patch_transformer/"),
+    (_LAYER + r"MaskedMultiHeadAttention_0/", r"layers/\1/self_attn/"),
+    (_LAYER + r"LayerNorm_0/", r"layers/\1/norm1/"),
+    (_LAYER + r"LayerNorm_1/", r"layers/\1/norm2/"),
+    (_LAYER + r"Dense_0/", r"layers/\1/linear1/"),
+    (_LAYER + r"Dense_1/", r"layers/\1/linear2/"),
+    (r"(^|/)LinearBlock_(\d+)/Dense_0/", r"\1blocks/\2/linear/"),
+    (r"(^|/)Dense_0/(kernel|bias)$", r"\1head/\2"),
+]
+_LAYERS = r"layers/(\d+)/"
+_TO_FLAX = [
+    (r"(^|/)patch_transformer/", r"\1_PatchTransformer_0/"),
+    (_LAYERS + r"self_attn/", r"TransformerEncoderLayer_\1/MaskedMultiHeadAttention_0/"),
+    (_LAYERS + r"norm1/", r"TransformerEncoderLayer_\1/LayerNorm_0/"),
+    (_LAYERS + r"norm2/", r"TransformerEncoderLayer_\1/LayerNorm_1/"),
+    (_LAYERS + r"linear1/", r"TransformerEncoderLayer_\1/Dense_0/"),
+    (_LAYERS + r"linear2/", r"TransformerEncoderLayer_\1/Dense_1/"),
+    (r"(^|/)blocks/(\d+)/linear/", r"\1LinearBlock_\2/Dense_0/"),
+    (r"(^|/)head/", r"\1Dense_0/"),
+]
+
+
+def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dict -> {"a/b/c": array}. A flat "/"-keyed dict passes through."""
+    flat = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            flat.update(flatten_params(val, path + "/"))
+        else:
+            flat[path] = np.asarray(val)
+    return flat
+
+
+def unflatten_params(flat: Mapping[str, np.ndarray]) -> Dict:
+    tree: Dict = {}
+    for path, val in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return tree
+
+
+def _rewrite(path: str, rules) -> str:
+    for pattern, repl in rules:
+        path = re.sub(pattern, repl, path)
+    return path
+
+
+def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax param tree (nested or "/"-flattened numpy) -> torch state_dict."""
+    sd = {}
+    for path, val in flatten_params(params).items():
+        path = _rewrite(path, _TO_TORCH)
+        *parents, leaf = path.split("/")
+        if leaf == "kernel":
+            leaf, val = "weight", val.T
+        elif leaf == "scale":
+            leaf = "weight"
+        sd[".".join([*parents, leaf])] = torch.tensor(np.asarray(val),
+                                                      dtype=torch.float32)
+    return sd
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """Inverse of :func:`flax_to_state_dict`: a nested Flax-layout dict of
+    numpy arrays."""
+    flat = {}
+    for key, val in state_dict.items():
+        *parents, leaf = key.split(".")
+        arr = val.detach().cpu().numpy()
+        if leaf == "weight":
+            leaf, arr = ("kernel", arr.T) if arr.ndim == 2 else ("scale", arr)
+        path = _rewrite("/".join([*parents, leaf]), _TO_FLAX)
+        flat[path] = np.ascontiguousarray(arr)
+    return unflatten_params(flat)
+
+
+def save_params_npz(params: Mapping, path: str) -> None:
+    """Write a Flax param tree (e.g. `jax.device_get(state.g_params)`) as an
+    .npz keyed by "/"-joined paths."""
+    np.savez(path, **flatten_params(params))
+
+
+def load_params_npz(path: str) -> Dict:
+    """Read an .npz written by :func:`save_params_npz` as a nested dict."""
+    with np.load(path) as data:
+        return unflatten_params({k: data[k] for k in data.files})

@@ -1,0 +1,110 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+The sources under `csrc/` have a plain C interface (no PyTorch headers), so
+one `nvcc` call compiles them in seconds into a shared library, which
+`ctypes` loads. Pointers and the stream cross as `c_void_p`, sizes as
+`c_int`. Every entry point returns `cudaGetLastError()` after its launch;
+:func:`launch` raises when that is not 0. A failed build raises with nvcc's
+output. There is no fallback: a caller that wants the kernel gets it or an
+exception.
+
+The library is built at first use into `build/` beside this file (listed in
+`.gitignore`), under a name keyed by a hash of the sources and flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is. Nothing
+here runs at import time: the CPU tests import this module on machines with
+no nvcc and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from typing import Tuple
+
+CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+SOURCES = ("flash_fwd.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# C entry points: (q, k, v, mask, o, lse, batch, lq, lk, heads, head_dim, stream)
+ENTRY_POINTS = ("flash_fwd_ble", "flash_fwd_bhld")
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin; the "
+                       "CUDA kernels need the CUDA toolkit to build")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libgemm_gan_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> Tuple[str, float, str]:
+    """Compile the sources unless this exact build exists.
+
+    Returns (library path, seconds spent, nvcc's output: ptxas register and
+    spill lines; empty when the library was already built)."""
+    path = library_path()
+    if os.path.exists(path):
+        return path, 0.0, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)  # atomic: a concurrent build leaves one good file
+    return path, seconds, proc.stdout + proc.stderr
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build()[0])
+            for name in ENTRY_POINTS:
+                fn = getattr(lib, name)
+                fn.argtypes = _ARGTYPES
+                fn.restype = ctypes.c_int
+            lib.gemm_gan_error_string.argtypes = [ctypes.c_int]
+            lib.gemm_gan_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call entry point `name` and raise if its launch was refused."""
+    lib = load()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.gemm_gan_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err} ({msg})")

@@ -1,0 +1,251 @@
+"""Masked multi-head attention: hand-written CUDA forward kernels + plain PyTorch.
+
+Counterpart of `gemm_gan_tpu/kernels/flash_attention.py`. Masks are boolean
+with **True = valid**; rows with no valid key return 0 (torch's own
+attention would return NaN).
+
+Two forward kernels live in `csrc/flash_fwd.cu`:
+
+* `flash_fwd_ble` (replaces the TPU's `_fwd_kernel_ble`): q, k, v in the
+  raw projection layout [B, L, E = H*D], heads split by column offset inside
+  the kernel. `masked_mha(layout="ble")` takes it for
+  MIN_PALLAS_LQ <= Lq <= BLE_MAX_L and Lk <= BLE_MAX_L (the canonical
+  257-token patch self-attention).
+* `flash_fwd_bhld` (replaces the TPU's blocked `_fwd_kernel`): q, k, v as
+  [B, H, L, D], for longer sequences (whole-slide patch counts).
+
+Each has a **plain PyTorch version** (`*_plain`) with the same arithmetic
+contract, returning `(o, lse)` with lse [B, H, Lq] f32. A kernel wrapper
+runs the plain version only for tensors on the CPU; for a CUDA tensor it
+launches the kernel or raises. Each wrapper counts its launches in a plain
+int attribute (`flash_fwd_ble.launches`, `flash_fwd_bhld.launches`), so a
+run can show that its path went through the kernels.
+
+Only the forward exists: wrappers raise for inputs that require grad. The
+`use_pallas` name is kept from the JAX config so `config.json` files load;
+here it selects the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gemm_gan_tpu_torch.kernels import build
+
+_NEG_INF = -1e30
+MIN_PALLAS_LQ = 128   # below this the plain reference serves (CLS queries)
+BLE_MAX_L = 512       # the ble kernel serves single-block shapes up to this
+# sequences at least this long take the blocked reference when the kernels
+# are off, so the [Lq, Lk] logits are never materialized whole
+BLOCKED_REF_MIN_LK = 2048
+_REF_BLOCK_Q = 128    # query rows per block of `mha_reference_blocked`
+_PLAIN_BLOCK_Q = 512  # query rows per chunk of the plain classic version
+HEAD_DIMS = (8, 16, 32, 64, 128)  # the kernels' template instantiations
+
+
+def mha_reference(q, k, v, kv_mask=None, scale=None):
+    """softmax(QK^T * scale + mask)V in plain PyTorch.
+
+    q: [B, H, Lq, D]; k, v: [B, H, Lk, D]; kv_mask: [B, Lk] bool True=valid.
+    Fully-masked query rows return 0."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if kv_mask is not None:
+        valid = kv_mask[:, None, None, :]
+        logits = torch.where(valid, logits, _NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    unnorm = torch.exp(logits - m)
+    if kv_mask is not None:
+        unnorm = torch.where(valid, unnorm, 0.0)
+    denom = unnorm.sum(dim=-1, keepdim=True)
+    weights = unnorm / denom.clamp_min(1e-30)
+    return torch.einsum("bhqk,bhkd->bhqd", weights, v)
+
+
+def mha_reference_blocked(q, k, v, kv_mask=None, scale=None):
+    """`mha_reference` one block of query rows at a time: the peak extra
+    memory is one [B, H, _REF_BLOCK_Q, Lk] block instead of the whole
+    logits matrix."""
+    return torch.cat([mha_reference(q[:, :, s:s + _REF_BLOCK_Q], k, v, kv_mask, scale)
+                      for s in range(0, q.shape[2], _REF_BLOCK_Q)], dim=2)
+
+
+# ------------------------------------------------------------ plain versions
+def _softmax_fwd(q, k, v, valid):
+    """The kernels' contract on pre-scaled q [..., Lq, D], k/v [..., Lk, D],
+    `valid` broadcastable to the logits: returns (o, lse [..., Lq])."""
+    s = torch.where(valid, q @ k.transpose(-1, -2), _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)  # masked columns: exp(-1e30 - m) == 0 unless all are
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.where(m <= 0.5 * _NEG_INF, 0.0, (p @ v) / l)
+    return o, (m + torch.log(l)).squeeze(-1)
+
+
+def flash_fwd_ble_plain(q, k, v, kv_mask, num_heads: int):
+    """Plain version of `flash_fwd_ble`: q [B, Lq, E], k/v [B, Lk, E] (q
+    already scaled), kv_mask [B, Lk] -> (o [B, Lq, E], lse [B, H, Lq])."""
+    B, Lq, E = q.shape
+    D = E // num_heads
+
+    def split(x):
+        return x.reshape(B, x.shape[1], num_heads, D).transpose(1, 2)
+
+    o, lse = _softmax_fwd(split(q), split(k), split(v), kv_mask[:, None, None, :])
+    return o.transpose(1, 2).reshape(B, Lq, E), lse
+
+
+def flash_fwd_bhld_plain(q, k, v, kv_mask):
+    """Plain version of `flash_fwd_bhld`: q [B, H, Lq, D], k/v [B, H, Lk, D]
+    (q already scaled) -> (o [B, H, Lq, D], lse [B, H, Lq]). Runs in chunks
+    of query rows so whole-slide lengths never hold the full logits."""
+    valid = kv_mask[:, None, None, :]
+    parts = [_softmax_fwd(q[:, :, s:s + _PLAIN_BLOCK_Q], k, v, valid)
+             for s in range(0, q.shape[2], _PLAIN_BLOCK_Q)]
+    return (torch.cat([p[0] for p in parts], dim=2),
+            torch.cat([p[1] for p in parts], dim=2))
+
+
+# ------------------------------------------------------------ kernel wrappers
+def _check_inputs(name, q, k, v, kv_mask, kv_shape, head_dim):
+    """Raise on anything the kernel does not take. q's own shape defines
+    B, Lq and the width; k and v must have `kv_shape`, whose first and
+    second-to-last entries are B and Lk in both layouts."""
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name}: {n} is on {t.device}; the kernel takes "
+                             f"CUDA tensors on one device")
+        if t.dtype != torch.float32:
+            raise NotImplementedError(f"{name}: {n} is {t.dtype}; the kernel takes float32")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {n} must be contiguous and 16-byte aligned")
+        if t.requires_grad:
+            raise NotImplementedError(
+                f"{name}: {n} requires grad; only the forward kernel exists")
+    if tuple(k.shape) != kv_shape or tuple(v.shape) != kv_shape:
+        raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} "
+                         f"must both be {kv_shape} for q {tuple(q.shape)}")
+    if q.numel() == 0 or k.numel() == 0:
+        raise ValueError(f"{name}: empty input q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {head_dim} not in {HEAD_DIMS}")
+    mask_shape = (kv_shape[0], kv_shape[-2])
+    if (kv_mask.dtype != torch.bool or kv_mask.device != q.device
+            or not kv_mask.is_contiguous() or tuple(kv_mask.shape) != mask_shape):
+        raise ValueError(f"{name}: kv_mask must be a contiguous bool "
+                         f"{mask_shape} tensor on {q.device}")
+
+
+def flash_fwd_ble(q, k, v, kv_mask, num_heads: int):
+    """Kernel `flash_fwd_ble` on pre-scaled q [B, Lq, E], k/v [B, Lk, E] and
+    kv_mask [B, Lk] bool -> (o [B, Lq, E], lse [B, H, Lq] f32)."""
+    if q.device.type == "cpu":
+        return flash_fwd_ble_plain(q, k, v, kv_mask, num_heads)
+    B, Lq, E = q.shape
+    Lk = k.shape[1]
+    if E % num_heads:
+        raise ValueError(f"E={E} not divisible by num_heads={num_heads}")
+    D = E // num_heads
+    _check_inputs("flash_fwd_ble", q, k, v, kv_mask, (B, Lk, E), D)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, num_heads, Lq), dtype=torch.float32, device=q.device)
+    build.launch("flash_fwd_ble", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 kv_mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                 B, Lq, Lk, num_heads, D,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    flash_fwd_ble.launches += 1
+    return o, lse
+
+
+flash_fwd_ble.launches = 0
+
+
+def flash_fwd_bhld(q, k, v, kv_mask):
+    """Kernel `flash_fwd_bhld` on pre-scaled q [B, H, Lq, D], k/v
+    [B, H, Lk, D] and kv_mask [B, Lk] bool -> (o [B, H, Lq, D], lse
+    [B, H, Lq] f32)."""
+    if q.device.type == "cpu":
+        return flash_fwd_bhld_plain(q, k, v, kv_mask)
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    _check_inputs("flash_fwd_bhld", q, k, v, kv_mask, (B, H, Lk, D), D)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    build.launch("flash_fwd_bhld", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 kv_mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                 B, Lq, Lk, H, D,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    flash_fwd_bhld.launches += 1
+    return o, lse
+
+
+flash_fwd_bhld.launches = 0
+
+
+def reset_launch_counts() -> None:
+    flash_fwd_ble.launches = 0
+    flash_fwd_bhld.launches = 0
+
+
+def _full_mask(kv_mask, B, Lk, device):
+    if kv_mask is None:
+        return torch.ones((B, Lk), dtype=torch.bool, device=device)
+    return kv_mask.contiguous()
+
+
+def flash_mha_ble(q, k, v, kv_mask=None, scale=None, num_heads: int = 4):
+    """E-layout flash attention: q [B, Lq, E], k/v [B, Lk, E] -> [B, Lq, E].
+    The softmax scale is folded into q before the kernel."""
+    E = q.shape[-1]
+    if E % num_heads:
+        raise ValueError(f"E={E} not divisible by num_heads={num_heads}")
+    if scale is None:
+        scale = (E // num_heads) ** -0.5
+    mask = _full_mask(kv_mask, q.shape[0], k.shape[1], q.device)
+    return flash_fwd_ble(q * scale, k, v, mask, num_heads)[0]
+
+
+def flash_mha(q, k, v, kv_mask=None, scale=None):
+    """Classic-layout flash attention: q [B, H, Lq, D], k/v [B, H, Lk, D] ->
+    [B, H, Lq, D]. The softmax scale is folded into q before the kernel."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    mask = _full_mask(kv_mask, q.shape[0], k.shape[2], q.device)
+    return flash_fwd_bhld(q * scale, k, v, mask)[0]
+
+
+def masked_mha(q, k, v, kv_mask=None, scale=None, use_pallas: bool = True,
+               layout: str = "bhld", num_heads: int = None):
+    """Dispatch, as the JAX package's `masked_mha`: the kernels for
+    non-tiny query lengths when `use_pallas`, else the plain references.
+
+    `layout="ble"` (requires `num_heads`): q/k/v and the output are
+    [B, L, E]. Single-block shapes (MIN_PALLAS_LQ <= Lq, both L <=
+    BLE_MAX_L) take `flash_mha_ble`; other shapes split heads and go
+    through the classic dispatch below."""
+    if layout == "ble":
+        if num_heads is None:
+            raise ValueError("layout='ble' requires num_heads")
+        B, Lq, E = q.shape
+        Lk = k.shape[1]
+        if (use_pallas and MIN_PALLAS_LQ <= Lq <= BLE_MAX_L
+                and Lk <= BLE_MAX_L):
+            return flash_mha_ble(q, k, v, kv_mask, scale=scale,
+                                 num_heads=num_heads)
+        D = E // num_heads
+
+        def split(x):
+            return x.reshape(B, x.shape[1], num_heads, D).transpose(1, 2)
+
+        out = masked_mha(split(q), split(k), split(v), kv_mask, scale=scale,
+                         use_pallas=use_pallas)
+        return out.transpose(1, 2).reshape(B, Lq, E)
+    if layout != "bhld":
+        raise ValueError(f"unknown layout {layout!r}")
+    if use_pallas and q.shape[2] >= MIN_PALLAS_LQ:
+        return flash_mha(q.contiguous(), k.contiguous(), v.contiguous(),
+                         kv_mask, scale=scale)
+    if q.shape[2] >= BLOCKED_REF_MIN_LK or k.shape[2] >= BLOCKED_REF_MIN_LK:
+        return mha_reference_blocked(q, k, v, kv_mask, scale=scale)
+    return mha_reference(q, k, v, kv_mask, scale=scale)

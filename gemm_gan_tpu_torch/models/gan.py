@@ -1,0 +1,102 @@
+"""WGAN-GP generator.
+
+Counterpart of `gemm_gan_tpu/models/gan.py`: a fusion module (selected by
+config) and an MLP trunk over [z ∥ cond]. The `embed_cond` / `score` split
+is kept, so one condition embedding can serve every z drawn for it
+(`serving.GeneratorServer.sample_all`).
+
+Initialisation follows Flax's distributions (the bits cannot match):
+lecun-normal kernels (truncated normal, std sqrt(1/fan_in) corrected for
+the truncation at two standard deviations), zero biases, unit LayerNorm
+scales, and a truncated-normal(0.02) CLS token.
+
+This slice serves f32 only: `compute_dtype` other than "float32",
+`fusion.flash_mxu_bf16=True`, `fusion.sequence_parallel=True` and fusion
+kinds other than `film_xattn` / `none` raise `NotImplementedError`. The
+Critic comes with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from gemm_gan_tpu_torch.config import ModelConfig
+from gemm_gan_tpu_torch.fusion.modules import build_fusion, cond_dim_of
+from gemm_gan_tpu_torch.ops.mlp import MLPTrunk
+from gemm_gan_tpu_torch.utils.device import DeviceLike, resolve_device
+
+# standard deviation of a unit normal truncated to [-2, 2]
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise `NotImplementedError` for settings this slice does not serve."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r}: the port serves float32 only")
+    if cfg.fusion.flash_mxu_bf16:
+        raise NotImplementedError("fusion.flash_mxu_bf16=True is not ported")
+    if cfg.fusion.sequence_parallel:
+        raise NotImplementedError("fusion.sequence_parallel=True is not ported")
+
+
+def init_flax_like_(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """Re-initialise `module` in place with Flax's default distributions."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Linear):
+                std = m.in_features ** -0.5 / _TRUNCATED_STD
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.LayerNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+        for name, p in module.named_parameters():
+            if name.endswith("cls_token"):
+                nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=generator)
+
+
+class Generator(nn.Module):
+    """z [B, latent] (+ cond dict) -> gene-expression vector [B, n_genes].
+
+    Built on `device` (CUDA unless "cpu" is asked for) in eval mode, with
+    Flax-like random weights drawn from `generator` (a CPU
+    `torch.Generator`; the default RNG when None)."""
+
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_supported(cfg)
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.fusion = build_fusion(cfg.fusion)
+        self.trunk = MLPTrunk(cfg.latent_dim + cond_dim_of(cfg.fusion),
+                              cfg.gen_dims, cfg.n_genes,
+                              negative_slope=cfg.negative_slope,
+                              use_batchnorm=cfg.use_batchnorm)
+        init_flax_like_(self, generator)
+        self.to(dev)
+        self.eval()
+
+    def embed_cond(self, cond: Optional[Dict[str, torch.Tensor]]) -> Optional[torch.Tensor]:
+        """Fusion half: conditioning dict -> [B, cond_dim] f32 (or None)."""
+        if self.fusion is None:
+            return None
+        if cond is None:
+            raise ValueError(
+                f"fusion kind {self.cfg.fusion.kind!r} requires conditioning inputs "
+                f"(batch keys like 'tokens'/'patches'), got none")
+        return self.fusion(cond)
+
+    def score(self, z: torch.Tensor, cvec: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Trunk half: latent [B, latent] (+ fixed cond vector) -> [B, n_genes]."""
+        x = z if cvec is None else torch.cat([z, cvec], dim=-1)
+        return self.trunk(x)
+
+    def forward(self, z: torch.Tensor,
+                cond: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        return self.score(z, self.embed_cond(cond))

@@ -1,0 +1,149 @@
+"""Serving a trained generator on the card.
+
+Counterpart of `gemm_gan_tpu/serving.py` and of the engine's sampling paths
+(`WGANGPEngine.generate_samples` / `generate_samples_all`). A run dir holds
+the JAX run's `config.json` and the generator's Flax params as
+`generator_params.npz` (written by `convert.save_params_npz`);
+:meth:`GeneratorServer.load` rebuilds the generator from them.
+
+The server is the pure function ``(z, cond) -> profiles`` of the JAX
+artifact: the caller draws z, or hands a `torch.Generator` to
+:meth:`GeneratorServer.sample`. Everything runs under
+`torch.inference_mode()`.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gemm_gan_tpu_torch.config import ExperimentConfig, ModelConfig, load_config
+from gemm_gan_tpu_torch.convert import flax_to_state_dict, load_params_npz
+from gemm_gan_tpu_torch.models.gan import Generator
+from gemm_gan_tpu_torch.utils.device import DeviceLike
+
+CONFIG_FILE = "config.json"
+PARAMS_FILE = "generator_params.npz"
+
+# conditioning keys each fusion kind reads, in call order
+_KIND_KEYS = {
+    "none": (),
+    "concat": None,  # depends on condition_type, resolved below
+    "attention": ("text_emb", "patches", "patch_mask"),
+    "img_transformer": ("patches", "patch_mask"),
+    "film": ("text_emb", "patches", "patch_mask"),
+    "xattn": ("tokens", "token_mask", "patches", "patch_mask"),
+    "film_xattn": ("tokens", "token_mask", "patches", "patch_mask"),
+    "labels": ("disease", "site"),
+}
+
+
+def cond_keys_for(fusion_cfg) -> Tuple[str, ...]:
+    """The conditioning keys a fusion config consumes, in call order."""
+    keys = _KIND_KEYS.get(fusion_cfg.kind)
+    if keys is not None:
+        return keys
+    if fusion_cfg.kind == "concat":
+        return (("text_emb",) if fusion_cfg.condition_type == "text"
+                else ("patches", "patch_mask"))
+    raise ValueError(f"unknown fusion kind {fusion_cfg.kind!r}")
+
+
+class GeneratorServer:
+    """A generator with fixed weights on one device.
+
+    `__call__(z, cond)` -> profiles [B, n_genes] (a tensor on the device);
+    `sample` draws z; `sample_all` serves a list of batches, embedding each
+    batch's conditioning once for all its repeats."""
+
+    def __init__(self, cfg: ModelConfig, state_dict: Mapping[str, torch.Tensor],
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        self.gen = Generator(cfg, device=device)
+        self.gen.load_state_dict(state_dict)
+        self.device = next(self.gen.parameters()).device
+        self.keys = cond_keys_for(cfg.fusion)
+
+    @classmethod
+    def from_flax(cls, cfg: ModelConfig, params: Mapping,
+                  device: DeviceLike = None) -> "GeneratorServer":
+        return cls(cfg, flax_to_state_dict(params), device=device)
+
+    @classmethod
+    def load(cls, run_dir: str, device: DeviceLike = None) -> "GeneratorServer":
+        """Read `config.json` and `generator_params.npz` from `run_dir`."""
+        cfg: ExperimentConfig = load_config(os.path.join(run_dir, CONFIG_FILE))
+        params = load_params_npz(os.path.join(run_dir, PARAMS_FILE))
+        return cls.from_flax(cfg.model, params, device=device)
+
+    def cond_tensors(self, cond: Optional[Mapping[str, Any]]
+                     ) -> Optional[Dict[str, torch.Tensor]]:
+        """The conditioning arrays this generator reads (numpy or torch), as
+        tensors on its device; None when it reads none."""
+        if not self.keys:
+            return None
+        if cond is None:
+            raise ValueError(f"the generator requires conditioning inputs "
+                             f"{list(self.keys)}, got none")
+        missing = [k for k in self.keys if k not in cond]
+        if missing:
+            raise ValueError(f"conditioning lacks keys {missing}")
+        return {k: torch.as_tensor(cond[k], device=self.device) for k in self.keys}
+
+    def _z(self, n: int, generator: torch.Generator) -> torch.Tensor:
+        z = torch.randn(n, self.cfg.latent_dim, generator=generator,
+                        device=generator.device)
+        return z.to(self.device)
+
+    def __call__(self, z, cond: Optional[Mapping[str, Any]] = None) -> torch.Tensor:
+        """z [B, latent] (+ cond dict) -> profiles [B, n_genes]."""
+        with torch.inference_mode():
+            z = torch.as_tensor(z, dtype=torch.float32, device=self.device)
+            return self.gen(z, self.cond_tensors(cond))
+
+    def sample(self, cond: Optional[Mapping[str, Any]], generator: torch.Generator,
+               n: Optional[int] = None) -> torch.Tensor:
+        """Draw z ~ N(0, 1) from `generator` and generate. `n` defaults to the
+        conditioning batch size (required when the generator is
+        unconditional)."""
+        with torch.inference_mode():
+            c = self.cond_tensors(cond)
+            if n is None:
+                if c is None:
+                    raise ValueError("unconditional generator: pass n")
+                n = next(iter(c.values())).shape[0]
+            return self.gen(self._z(n, generator), c)
+
+    def sample_all(self, batches: Iterable[Mapping[str, Any]], num_repeats: int,
+                   generator: torch.Generator) -> Dict[str, np.ndarray]:
+        """Fakes for every batch and repeat, as the JAX engine's
+        `generate_samples_all(scan=True)`: each batch's condition embedding
+        is computed once and reused by all `num_repeats` z draws. z for
+        (batch k, repeat r) is drawn in batch-major order from `generator`.
+
+        Returns numpy arrays ordered repeat-major (all batches of repeat 0,
+        then repeat 1, ...): "fake" [R * N, n_genes], plus "real",
+        "disease" and "site" when the batches carry "genes", "disease" and
+        "site"."""
+        batches = list(batches)
+        per_batch = []
+        with torch.inference_mode():
+            for batch in batches:
+                c = self.cond_tensors(batch)
+                n = (next(iter(c.values())).shape[0] if c is not None
+                     else batch["genes"].shape[0])
+                cvec = self.gen.embed_cond(c)
+                fakes = torch.stack([self.gen.score(self._z(n, generator), cvec)
+                                     for _ in range(num_repeats)])
+                per_batch.append(fakes.cpu().numpy())  # [R, n, n_genes]
+        out = {"fake": np.concatenate([f[r] for r in range(num_repeats)
+                                       for f in per_batch])}
+        for key, name in (("genes", "real"), ("disease", "disease"), ("site", "site")):
+            if batches and all(key in b for b in batches):
+                out[name] = np.concatenate([np.asarray(b[key])
+                                            for _ in range(num_repeats)
+                                            for b in batches])
+        return out
