@@ -5,24 +5,37 @@
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and nvcc;
 imports nothing of JAX or of the JAX package. Phases:
 
-1. Build the CUDA kernels from `gemm_gan_tpu_torch/kernels/csrc/` (nvcc into
-   the ignored build dir) and print the build time, nvcc's register/spill
-   report, and the card's name and power limit.
+1. Build the CUDA kernels from `gemm_gan_tpu_torch/kernels/csrc/` (one nvcc
+   per source, in parallel, into the ignored build dir) and print the build
+   time, nvcc's register/spill report, and the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes the serving paths give it plus ragged and fully-masked cases, and
-   time kernel, plain version and `scaled_dot_product_attention` (a
-   yardstick only: the port never calls it).
-3. The main path: `GeneratorServer.sample_all` with the flagship
+   shapes the serving and training paths give it plus ragged and
+   fully-masked cases, and time kernel, plain version and the library's
+   `scaled_dot_product_attention` (forward, or its backward through
+   `torch.autograd.grad`; a yardstick only: the port never calls it).
+3. Serving, the main path: `GeneratorServer.sample_all` with the flagship
    `film_cross_attention` generator at canonical widths (random weights from
    a seeded numpy tree in Flax layout, carried over by `convert.py`),
    4 batches of 8 with 256 x 1024 patches and 300 x 768 tokens, 2 repeats.
    Checks shape and finiteness, that the patch self-attention went through
    `flash_fwd_ble` 2 layers x 4 batches times, and one batch against the same
    server on the CPU.
-4. Whole-slide conditioning (4,096 patches per sample, batch 8): the patch
+4. Whole-slide serving (4,096 patches per sample, batch 8): the patch
    self-attention goes through `flash_fwd_bhld`.
-5. Prints one `{"kernels": [...]}` JSON line, then the contract line
-   `{"ok": true, "device": {...}}` last.
+5. Training, the main path: `WGANGPEngine.step` of the flagship at canonical
+   widths with `cond_embed_reuse="per_update"` and `batched_scores` (the
+   production setting), batch 8, n_critic 5, clipping D <= 10 / G <= 2,
+   dropout 0.1, both nets from seeded Flax-layout trees. One warm-up step,
+   then TRAIN_STEPS timed steps; checks finite metrics, that the params
+   moved, and the per-step launches of `flash_fwd_ble` and `flash_bwd_ble`;
+   one dropout-free step on the card against the same step on the CPU; a
+   CUDA-event split of one step.
+6. Whole-slide training (4,096 patches, batch 8): `flash_fwd_bhld`,
+   `flash_bwd_dq` and `flash_bwd_dkv`.
+7. Canonical training with `fusion.flash_layout="bhld"`: `flash_fwd_bhld`
+   and `flash_bwd_bhld_fused`.
+8. Prints one `{"kernels": [...]}` JSON line, the card's line, then the
+   contract line `{"ok": true, "device": {...}}` last.
 
 Any failed check raises, so the exit code is non-zero and the last line is
 not printed. TF32 is switched off for matmuls and cuDNN, so every f32
@@ -41,8 +54,21 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "gemm_gan_tpu_torch/kernels/csrc/flash_fwd.cu"
+CSRC = "gemm_gan_tpu_torch/kernels/csrc/"
 TPU_KERNELS = "gemm_gan_tpu/kernels/flash_attention.py"
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "flash_fwd_ble": (CSRC + "flash_fwd.cu", f"{TPU_KERNELS}:290"),
+    "flash_fwd_bhld": (CSRC + "flash_fwd.cu", f"{TPU_KERNELS}:84"),
+    "flash_bwd_ble": (CSRC + "flash_bwd.cu", f"{TPU_KERNELS}:317"),
+    "flash_bwd_dq": (CSRC + "flash_bwd.cu", f"{TPU_KERNELS}:142"),
+    "flash_bwd_dkv": (CSRC + "flash_bwd.cu", f"{TPU_KERNELS}:220"),
+    "flash_bwd_bhld_fused": (CSRC + "flash_bwd.cu", f"{TPU_KERNELS}:179"),
+}
+# FLOP per (query, valid key, head-dim element) of each backward kernel:
+# s = q.k, dp = dO.v, then dv, dq, dk, 2 FLOP per multiply-add each
+BWD_FLOP = {"flash_bwd_ble": 10, "flash_bwd_bhld_fused": 10,
+            "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
 # H100 SXM data sheet: f32 outside the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -52,6 +78,24 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 E2E_RTOL, E2E_ATOL = 1e-4, 1e-4
 BATCH, N_BATCHES, REPEATS = 8, 4, 2
 WHOLE_SLIDE_PATCHES = 4096
+TRAIN_STEPS, WS_TRAIN_STEPS = 4, 2
+# one dropout-free training step, card (kernels, cuBLAS) vs CPU (plain
+# versions): metrics within STEP_RTOL / STEP_ATOL, and the params.
+# RMSprop's first update is +-10 lr sign(g), so an entry whose gradient is
+# mostly rounding (the k projection's bias, which the softmax cancels; the
+# critic head's bias, which the Wasserstein loss cancels) may move
+# differently on the two devices. Unlike tests/test_torch_train.py (two
+# updates per net), the accumulator cannot tell these entries apart here:
+# over the critic's n_critic updates an entry whose first gradient was
+# rounding may still end with a clear RMS. So at most MAX_LOOSE entries may
+# miss PARAM_ATOL (a wrong dk in one layer would flip ~10^5 k_proj
+# updates), and every entry stays within RMSprop's bound of 10 lr per
+# update. The summary counts the misses whose RMS by the CPU run's
+# accumulator is above NEGLIGIBLE_GRAD times their net's.
+STEP_RTOL, STEP_ATOL = 1e-4, 1e-4
+PARAM_ATOL = 5e-5  # 1% of RMSprop's largest single update (10 lr, lr 5e-4)
+NEGLIGIBLE_GRAD = 1e-4
+MAX_LOOSE = 200
 
 
 def card_line() -> str:
@@ -163,6 +207,92 @@ def time_kernel(fa, layout, H, Lq, D, q, k, v, mask):
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+def bwd_args(fa, name, H, q, k, v, mask, seed):
+    """The positional args of backward kernel `name` (and its plain
+    version): the inputs, a random dO and the plain forward's o and lse."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    do = torch.randn(q.shape, device="cuda", generator=g)
+    if name == "flash_bwd_ble":
+        o, lse = fa.flash_fwd_ble_plain(q, k, v, mask, H)
+        return (q, k, v, mask, o, lse, do, H)
+    o, lse = fa.flash_fwd_bhld_plain(q, k, v, mask)
+    return (q, k, v, mask, do, lse, (do * o).sum(-1))
+
+
+def check_bwd_kernel(fa, name, layout, B, H, Lq, Lk, D, ragged, seed):
+    """Backward kernel vs its plain version on one input; returns (max
+    |err| over its outputs, args)."""
+    import torch
+
+    q, k, v, mask = attention_inputs(layout, B, H, Lq, Lk, D, ragged, seed)
+    args = bwd_args(fa, name, H, q, k, v, mask, seed + 1000)
+    got = getattr(fa, name)(*args)
+    want = getattr(fa, name + "_plain")(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+        err = max(err, float((a - b).abs().max()))
+    if ragged:  # sample 0 has no valid key: dq = 0 there, dk = dv = 0 at masked keys
+        for a in got:
+            assert float(a[0].abs().max()) == 0.0, f"{name}: sample 0 not 0"
+        if name != "flash_bwd_dq":
+            for a in got[-2:]:  # dk, dv as [B, Lk, ...]
+                x = a if layout == "ble" else a.transpose(1, 2)
+                assert float(x[~mask].abs().max()) == 0.0, f"{name}: masked keys not 0"
+    scale = max(float(b.abs().max()) for b in want)
+    print(f"  {name:20s} B={B} H={H} Lq={Lq} Lk={Lk} D={D} "
+          f"{'ragged' if ragged else 'full  '} max|err|={err:.3e} (max|grad|={scale:.3e})",
+          flush=True)
+    return err, args
+
+
+def time_bwd_kernel(fa, name, layout, H, args):
+    """CUDA-event times of backward kernel `name`, its plain version, and the
+    backward of `scaled_dot_product_attention` with the same boolean mask
+    through `torch.autograd.grad` over a retained graph (w.r.t. q for dq,
+    k and v for dk/dv, all three otherwise), with its bound."""
+    import torch
+    from torch.nn import functional as F
+
+    q, k, v, mask = args[:4]
+    do = args[4] if name != "flash_bwd_ble" else args[6]
+    if layout == "ble":
+        B, L, E = q.shape
+        D = E // H
+
+        def heads(x):
+            return x.view(B, x.shape[1], H, D).transpose(1, 2)
+    else:
+        D = q.shape[-1]
+
+        def heads(x):
+            return x
+    qs, ks, vs = (heads(x).detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask[:, None, None, :],
+                                         scale=1.0)
+    wrt = {"flash_bwd_dq": (qs,), "flash_bwd_dkv": (ks, vs)}.get(name, (qs, ks, vs))
+    dout = heads(do)
+    kernel = getattr(fa, name)
+    plain = getattr(fa, name + "_plain")
+    ms = cuda_ms(lambda: kernel(*args))
+    plain_ms = cuda_ms(lambda: plain(*args), iters=5)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(out, wrt, dout, retain_graph=True))
+    Lq = q.shape[1] if layout == "ble" else q.shape[2]
+    flops = BWD_FLOP[name] * H * Lq * D * int(mask.sum())
+    reads = [x for x in args if isinstance(x, torch.Tensor)]
+    writes = {"flash_bwd_dq": [q], "flash_bwd_dkv": [k, v]}.get(name, [q, k, v])
+    nbytes = sum(x.numel() * x.element_size() for x in reads + writes)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms}
+
+
 def device_breakdown(server, batch) -> dict:
     """CUDA-event times (ms) of the serving path's parts for one batch: the
     conditioning's copy to the card, the condition embedding (fusion stack,
@@ -182,9 +312,10 @@ def device_breakdown(server, batch) -> dict:
                 "to_host": cuda_ms(lambda: fake.cpu(), iters=10)}
 
 
-def flax_param_tree(m, seed: int) -> dict:
-    """Random generator params in the Flax layout, with the paths that
-    `gemm_gan_tpu.models.gan.Generator.init` gives them."""
+def flax_param_tree(m, seed: int, critic: bool = False) -> dict:
+    """Random generator (or critic) params in the Flax layout, with the
+    paths that `gemm_gan_tpu.models.gan.Generator.init` (`Critic.init`)
+    gives them."""
     rng = np.random.RandomState(seed)
     f = m.fusion
     E = f.cond_dim
@@ -214,11 +345,152 @@ def flax_param_tree(m, seed: int) -> dict:
         "patch2text_attention": mha(),
         "text2patch_attention": mha(),
     }
-    dims = [m.latent_dim + E, *m.gen_dims]
+    if critic:
+        dims, out = [m.n_genes + E, *m.disc_dims], 1
+    else:
+        dims, out = [m.latent_dim + E, *m.gen_dims], m.n_genes
     trunk = {f"LinearBlock_{i}": {"Dense_0": dense(a, b)}
              for i, (a, b) in enumerate(zip(dims[:-1], dims[1:]))}
-    trunk["Dense_0"] = dense(dims[-1], m.n_genes)
+    trunk["Dense_0"] = dense(dims[-1], out)
     return {"fusion": fusion, "trunk": trunk}
+
+
+def train_cfg(cfg, **fusion):
+    """`cfg` with the production step setting and the given fusion fields."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg,
+        model=dataclasses.replace(cfg.model, fusion=dataclasses.replace(
+            cfg.model.fusion, **fusion)),
+        train=dataclasses.replace(cfg.train, cond_embed_reuse="per_update",
+                                  batched_scores=True))
+
+
+def step_launches(cfg) -> dict:
+    """Launches of one fused per_update step, from `train/wgan.py`: the patch
+    self-attention runs once per layer in every fusion forward: the
+    generator's embedding (1), each critic update's (n_critic, with grad),
+    the generator update's critic embedding (1) and generator forward (1,
+    with grad). Returns (forwards, backwards)."""
+    layers, n_critic = cfg.model.fusion.num_layers, cfg.train.n_critic
+    return layers * (n_critic + 3), layers * (n_critic + 1)
+
+
+def random_draws(cfg, seed):
+    rng = np.random.RandomState(seed)
+    t, m = cfg.train, cfg.model
+    return {"z": rng.randn(t.n_critic, BATCH, m.latent_dim).astype(np.float32),
+            "alpha": rng.rand(t.n_critic, BATCH, 1).astype(np.float32),
+            "z_gen": rng.randn(BATCH, m.latent_dim).astype(np.float32)}
+
+
+def run_steps(engine, state, batches, n_steps, fa):
+    """One warm-up step, then `n_steps` timed ones (host clock, ending in a
+    synchronise). Returns (state, seconds, launch counts, last metrics)."""
+    import torch
+
+    state, _ = engine.step(state, batches[0])
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        state, metrics = engine.step(state, batches[(i + 1) % len(batches)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    metrics = {k: float(v) for k, v in metrics.items()}
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    return state, seconds, fa.launch_counts(), metrics
+
+
+def compare_step(cfg, g_params, d_params, batch, draws):
+    """One dropout-free step on the card and on the CPU from the same params
+    and draws: metrics within STEP_RTOL/STEP_ATOL; at most MAX_LOOSE param
+    entries beyond PARAM_ATOL, all within RMSprop's bound. Returns a summary
+    dict."""
+    import torch
+
+    from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        engine = WGANGPEngine(cfg, steps_per_epoch=1, device=dev)
+        state = engine.state_from_flax(g_params, d_params)
+        state, metrics = engine.step(state, batch, draws=draws)
+        out[dev] = (state, {k: float(v) for k, v in metrics.items()})
+    (card, m_card), (cpu, m_cpu) = out["cuda"], out["cpu"]
+    loose = loose_clear = negligible = total = 0
+    max_err, beyond_bound = 0.0, False
+    for opt_card, opt_cpu in ((card.g_opt, cpu.g_opt), (card.d_opt, cpu.d_opt)):
+        bound = 10 * opt_cpu.base_lr * opt_cpu.count
+        rms = [opt_cpu.rmsprop.state[p]["square_avg"].sqrt() for p in opt_cpu.params]
+        net_rms = float(torch.cat([r.flatten() for r in rms]).square().mean().sqrt())
+        for p_card, p_cpu, r in zip(opt_card.params, opt_cpu.params, rms):
+            diff = (p_card.detach().cpu() - p_cpu.detach()).abs()
+            clear = r > NEGLIGIBLE_GRAD * net_rms
+            loose += int((diff > PARAM_ATOL).sum())
+            loose_clear += int((diff[clear] > PARAM_ATOL).sum())
+            negligible += int((~clear).sum())
+            total += diff.numel()
+            max_err = max(max_err, float(diff.max()))
+            beyond_bound |= float(diff.max()) > 2 * bound
+    summary = {"metrics_card": m_card, "metrics_cpu": m_cpu, "params": total,
+               "params_negligible_grad": negligible, "params_beyond_atol": loose,
+               "clear_grad_beyond_atol": loose_clear, "max_param_err": max_err}
+    for key in m_cpu:
+        assert abs(m_card[key] - m_cpu[key]) <= STEP_ATOL + STEP_RTOL * abs(m_cpu[key]), \
+            (key, summary)
+    assert not beyond_bound, ("a param moved beyond RMSprop's bound", summary)
+    assert loose <= MAX_LOOSE, summary
+    return summary
+
+
+def device_busy(engine, state, batch) -> dict:
+    """Device time of one step from `torch.profiler` (the sum of the device
+    time of its kernels, copies and memsets), the number of aten ops the
+    host ran, and the five kernels that took most; None when the profiler
+    records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.step(state, batch)
+        torch.cuda.synchronize()
+    # device-side events only (kernels, copies, memsets): a host op's own
+    # device time, or a user annotation's span (the optimizer's step), would
+    # count its kernels twice
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)]
+    if not events:
+        return None
+    events.sort(key=lambda e: -e.self_device_time_total)
+    aten_ops = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU and e.key.startswith("aten::"))
+    return {"device_ms": sum(e.self_device_time_total for e in events) / 1e3,
+            "aten_ops": aten_ops,
+            "top": [(e.key[:60], e.count, e.self_device_time_total / 1e3)
+                    for e in events[:5]]}
+
+
+def step_breakdown(engine, state, batch) -> dict:
+    """CUDA-event times (ms) of one step's parts: the generator's condition
+    embedding, one critic update, and the generator update."""
+    import torch
+
+    real, cond = engine._tensors(batch)
+    state.gen.train()
+    state.critic.train()
+    g_cvec = engine.embed_generator(state, cond)
+    z = torch.randn(BATCH, engine.cfg.model.latent_dim, device=engine.device)
+    alpha = torch.rand(BATCH, 1, device=engine.device)
+    return {"embed_generator": cuda_ms(lambda: engine.embed_generator(state, cond), iters=5),
+            "critic_update": cuda_ms(lambda: engine.critic_update(
+                state, real, cond, g_cvec, z, alpha), iters=5),
+            "generator_update": cuda_ms(lambda: engine.generator_update(state, cond, z),
+                                        iters=5)}
 
 
 def main() -> int:
@@ -238,6 +510,7 @@ def main() -> int:
     from gemm_gan_tpu_torch.kernels import build
     from gemm_gan_tpu_torch.kernels import flash_attention as fa
     from gemm_gan_tpu_torch.serving import GeneratorServer
+    from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -250,16 +523,23 @@ def main() -> int:
     _, build_s, log = build.build()
     build.load()
     print(f"[1] built kernels in {build_s:.1f} s", flush=True)
-    for line in log.splitlines():  # ptxas -v, one entry per head-dim instantiation
-        head_dim = re.search(r"Compiling entry function .*kernelILi(\d+)E", line)
-        if head_dim:
-            print(f"    D={head_dim.group(1)}:")
+    # the backward template's <kDq, kDkv, kDeltaHere> flags name its entry point
+    bwd_entry = {"111": "flash_bwd_ble", "110": "flash_bwd_bhld_fused",
+                 "100": "flash_bwd_dq", "010": "flash_bwd_dkv"}
+    for line in log.splitlines():  # ptxas -v, one entry per template instantiation
+        entry = re.search(r"Compiling entry function '\w*?(flash_(fwd|bwd)_kernel)ILi(\d+)E"
+                          r"((?:Lb[01]E)*)", line)
+        if entry:
+            flags = "".join(re.findall(r"Lb([01])E", entry.group(4)))
+            name = (bwd_entry[flags] if entry.group(2) == "bwd"
+                    else "flash_fwd_ble / flash_fwd_bhld")
+            print(f"    {name} D={entry.group(3)}:")
         elif "registers" in line or "spill" in line:
             print("      " + line.replace("ptxas info    :", "").strip())
 
     # ---- 2. kernels against their plain versions
     print(f"[2] kernels vs plain (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})", flush=True)
-    errs = {"flash_fwd_ble": 0.0, "flash_fwd_bhld": 0.0}
+    errs = {name: 0.0 for name in KERNELS}
     cases = [("ble", 8, 4, 257, 257, 64), ("ble", 2, 2, 130, 260, 64),
              ("bhld", 8, 4, 4097, 4097, 64), ("bhld", 2, 2, 130, 260, 64),
              ("bhld", 2, 2, 136, 600, 64), ("bhld", 2, 2, 136, 600, 8),
@@ -267,7 +547,17 @@ def main() -> int:
     for i, case in enumerate(cases):
         name = "flash_fwd_" + case[0]
         errs[name] = max(errs[name], check_kernel(fa, *case, True, seed=i)[0])
-    # the serving paths' shapes with all-valid masks (structured data): checked and timed
+    bwd_cases = [("flash_bwd_ble", ("ble", 8, 4, 257, 257, 64)),
+                 ("flash_bwd_ble", ("ble", 2, 2, 130, 260, 64)),
+                 ("flash_bwd_bhld_fused", ("bhld", 8, 4, 257, 257, 64)),
+                 ("flash_bwd_bhld_fused", ("bhld", 2, 2, 130, 260, 64))]
+    bwd_cases += [(name, ("bhld", 8, 4, 4097, 4097, 64))
+                  for name in ("flash_bwd_dq", "flash_bwd_dkv")]
+    bwd_cases += [(name, ("bhld", 2, 2, 136, 600, D))
+                  for name in ("flash_bwd_dq", "flash_bwd_dkv") for D in (8, 64, 128)]
+    for i, (name, case) in enumerate(bwd_cases):
+        errs[name] = max(errs[name], check_bwd_kernel(fa, name, *case, True, seed=20 + i)[0])
+    # the main paths' shapes with all-valid masks (structured data): checked and timed
     timed = {}
     for name, case in (("flash_fwd_ble", ("ble", 8, 4, 257, 257, 64)),
                        ("flash_fwd_bhld", ("bhld", 8, 4, 4097, 4097, 64))):
@@ -277,10 +567,20 @@ def main() -> int:
         timed[name] = time_kernel(fa, layout, H, Lq, D, q, k, v, mask)
         print(f"  {name}: {json.dumps(timed[name])}", flush=True)
         del q, k, v, mask
+    for name, case in (("flash_bwd_ble", ("ble", 8, 4, 257, 257, 64)),
+                       ("flash_bwd_bhld_fused", ("bhld", 8, 4, 257, 257, 64)),
+                       ("flash_bwd_dq", ("bhld", 8, 4, 4097, 4097, 64)),
+                       ("flash_bwd_dkv", ("bhld", 8, 4, 4097, 4097, 64))):
+        err, args = check_bwd_kernel(fa, name, *case, False, seed=200)
+        errs[name] = max(errs[name], err)
+        timed[name] = time_bwd_kernel(fa, name, case[0], case[2], args)
+        print(f"  {name}: {json.dumps(timed[name])}", flush=True)
+        del args
     torch.cuda.empty_cache()
 
-    # ---- 3. the main path at full width
-    cfg = variant_config("film_cross_attention").model
+    # ---- 3. serving, the main path at full width
+    exp = variant_config("film_cross_attention")
+    cfg = exp.model
     params = flax_param_tree(cfg, seed=0)
     server = GeneratorServer.from_flax(cfg, params)
     keys = server.keys
@@ -294,15 +594,14 @@ def main() -> int:
     out = server.sample_all(batches, REPEATS, torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    main_launches = {"flash_fwd_ble": fa.flash_fwd_ble.launches,
-                     "flash_fwd_bhld": fa.flash_fwd_bhld.launches}
+    launches = {"serving": fa.launch_counts()}
     n_profiles = BATCH * N_BATCHES * REPEATS
-    print(f"[3] main path: {N_BATCHES} batches x {BATCH} x {REPEATS} repeats -> "
-          f"{out['fake'].shape}; launches {main_launches}", flush=True)
+    print(f"[3] serving: {N_BATCHES} batches x {BATCH} x {REPEATS} repeats -> "
+          f"{out['fake'].shape}; launches {launches['serving']}", flush=True)
     assert out["fake"].shape == (n_profiles, cfg.n_genes), out["fake"].shape
     assert np.isfinite(out["fake"]).all(), "non-finite profiles"
-    assert main_launches["flash_fwd_ble"] == cfg.fusion.num_layers * N_BATCHES, main_launches
-    assert main_launches["flash_fwd_bhld"] == 0, main_launches
+    assert launches["serving"] == {**dict.fromkeys(KERNELS, 0), "flash_fwd_ble":
+                                   cfg.fusion.num_layers * N_BATCHES}, launches
     print(f"    {n_profiles / main_s:.1f} profiles/s ({main_s * 1e3:.1f} ms for "
           f"{n_profiles} profiles, host data to host profiles) on {card}", flush=True)
     print(f"    device ms per batch of {BATCH}: {json.dumps(device_breakdown(server, batches[0]))}",
@@ -317,11 +616,11 @@ def main() -> int:
           f"(max|out|={float(on_cpu.abs().max()):.3f}; rtol {E2E_RTOL}, "
           f"atol {E2E_ATOL})", flush=True)
     torch.testing.assert_close(on_card, on_cpu, rtol=E2E_RTOL, atol=E2E_ATOL)
-    del cpu_server, data, batches
+    del cpu_server
 
-    # ---- 4. whole-slide conditioning
+    # ---- 4. whole-slide serving
     ws = structured_dataset(n=BATCH, n_genes=cfg.n_genes, num_patches=WHOLE_SLIDE_PATCHES)
-    ws_batch = {k: ws[k] for k in keys}
+    ws_batch = {k: ws[k] for k in (*keys, "genes")}
     server.sample_all([ws_batch], 1, torch.Generator().manual_seed(1))  # warm-up
     torch.cuda.synchronize()
     fa.reset_launch_counts()
@@ -329,27 +628,97 @@ def main() -> int:
     ws_out = server.sample_all([ws_batch], 1, torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
     ws_s = time.perf_counter() - t0
-    ws_launches = {"flash_fwd_ble": fa.flash_fwd_ble.launches,
-                   "flash_fwd_bhld": fa.flash_fwd_bhld.launches}
-    print(f"[4] whole-slide: {WHOLE_SLIDE_PATCHES} patches x batch {BATCH} -> "
-          f"{ws_out['fake'].shape}; launches {ws_launches}; "
+    launches["whole_slide_serving"] = fa.launch_counts()
+    print(f"[4] whole-slide serving: {WHOLE_SLIDE_PATCHES} patches x batch {BATCH} -> "
+          f"{ws_out['fake'].shape}; launches {launches['whole_slide_serving']}; "
           f"{BATCH / ws_s:.1f} profiles/s ({ws_s * 1e3:.1f} ms) on {card}", flush=True)
     assert ws_out["fake"].shape == (BATCH, cfg.n_genes)
     assert np.isfinite(ws_out["fake"]).all(), "non-finite whole-slide profiles"
-    assert ws_launches["flash_fwd_bhld"] == cfg.fusion.num_layers, ws_launches
-    assert ws_launches["flash_fwd_ble"] == 0, ws_launches
+    assert launches["whole_slide_serving"] == {
+        **dict.fromkeys(KERNELS, 0), "flash_fwd_bhld": cfg.fusion.num_layers}, launches
+    del server
 
-    # ---- 5. report
-    replaces = {"flash_fwd_ble": f"{TPU_KERNELS}:290", "flash_fwd_bhld": f"{TPU_KERNELS}:84"}
-    paths = {"flash_fwd_ble": ("main", main_launches),
-             "flash_fwd_bhld": ("whole_slide", ws_launches)}
+    # ---- 5. training, the main path at full width
+    tcfg = train_cfg(exp)
+    d_params = flax_param_tree(cfg, seed=1, critic=True)
+    engine = WGANGPEngine(tcfg, steps_per_epoch=len(batches))
+    state = engine.state_from_flax(params, d_params)
+    before = [p.detach().clone() for p in (state.gen.trunk.head.weight,
+                                           state.critic.trunk.head.weight)]
+    state, train_s, launches["training"], metrics = run_steps(
+        engine, state, batches, TRAIN_STEPS, fa)
+    n_fwd, n_bwd = step_launches(tcfg)
+    print(f"[5] training: {TRAIN_STEPS} steps of batch {BATCH}, n_critic "
+          f"{tcfg.train.n_critic}, per_update + batched_scores; launches "
+          f"{launches['training']}; last metrics {json.dumps(metrics)}", flush=True)
+    assert launches["training"] == {**dict.fromkeys(KERNELS, 0),
+                                    "flash_fwd_ble": n_fwd * TRAIN_STEPS,
+                                    "flash_bwd_ble": n_bwd * TRAIN_STEPS}, launches
+    for old, new in zip(before, (state.gen.trunk.head.weight, state.critic.trunk.head.weight)):
+        assert not torch.equal(old, new.detach()), "params did not move"
+    print(f"    {TRAIN_STEPS / train_s:.2f} steps/s ({train_s * 1e3 / TRAIN_STEPS:.1f} ms "
+          f"per step, host clock) on {card}", flush=True)
+    busy = device_busy(engine, state, batches[0])
+    if busy is None:
+        print("    device busy share: not measured (the profiler saw no device time)")
+    else:
+        step_ms = train_s * 1e3 / TRAIN_STEPS
+        print(f"    device busy share: {busy['device_ms']:.2f} ms of device time per step "
+              f"(torch.profiler) / {step_ms:.1f} ms per step = "
+              f"{busy['device_ms'] / step_ms:.3f}; {busy['aten_ops']} aten ops on the "
+              f"host (nested ones included); top kernels (name, calls, ms): "
+              f"{json.dumps(busy['top'])}", flush=True)
+    print(f"    device ms of one step's parts: "
+          f"{json.dumps(step_breakdown(engine, state, batches[0]))}", flush=True)
+    del engine, state
+    cmp = compare_step(train_cfg(exp, dropout=0.0), params, d_params, batches[0],
+                       random_draws(tcfg, seed=5))
+    print(f"    card vs CPU, one step at dropout 0: {json.dumps(cmp)} (metrics rtol "
+          f"{STEP_RTOL}, atol {STEP_ATOL}; at most {MAX_LOOSE} params beyond atol "
+          f"{PARAM_ATOL})", flush=True)
+
+    # ---- 6. whole-slide training
+    engine = WGANGPEngine(tcfg, steps_per_epoch=1)
+    state = engine.state_from_flax(params, d_params)
+    state, ws_train_s, launches["whole_slide_training"], metrics = run_steps(
+        engine, state, [ws_batch], WS_TRAIN_STEPS, fa)
+    print(f"[6] whole-slide training: {WS_TRAIN_STEPS} steps, {WHOLE_SLIDE_PATCHES} "
+          f"patches x batch {BATCH}; launches {launches['whole_slide_training']}; "
+          f"{WS_TRAIN_STEPS / ws_train_s:.3f} steps/s "
+          f"({ws_train_s * 1e3 / WS_TRAIN_STEPS:.1f} ms per step) on {card}", flush=True)
+    assert launches["whole_slide_training"] == {
+        **dict.fromkeys(KERNELS, 0), "flash_fwd_bhld": n_fwd * WS_TRAIN_STEPS,
+        "flash_bwd_dq": n_bwd * WS_TRAIN_STEPS,
+        "flash_bwd_dkv": n_bwd * WS_TRAIN_STEPS}, launches
+    del engine, state, ws, ws_batch
+    torch.cuda.empty_cache()
+
+    # ---- 7. canonical training in the classic layout
+    bcfg = train_cfg(exp, flash_layout="bhld")
+    engine = WGANGPEngine(bcfg, steps_per_epoch=len(batches))
+    state = engine.state_from_flax(params, d_params)
+    fa.reset_launch_counts()
+    state, metrics = engine.step(state, batches[0])
+    torch.cuda.synchronize()
+    launches["bhld_training"] = fa.launch_counts()
+    print(f"[7] bhld training: one step; launches {launches['bhld_training']}; "
+          f"metrics {json.dumps({k: float(v) for k, v in metrics.items()})}", flush=True)
+    assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
+    assert launches["bhld_training"] == {
+        **dict.fromkeys(KERNELS, 0), "flash_fwd_bhld": n_fwd,
+        "flash_bwd_bhld_fused": n_bwd}, launches
+
+    # ---- 8. report
+    paths = {"flash_fwd_ble": "serving", "flash_fwd_bhld": "whole_slide_serving",
+             "flash_bwd_ble": "training", "flash_bwd_dq": "whole_slide_training",
+             "flash_bwd_dkv": "whole_slide_training",
+             "flash_bwd_bhld_fused": "bhld_training"}
     kernels = []
-    for name in ("flash_fwd_ble", "flash_fwd_bhld"):
-        path, launches = paths[name]
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": replaces[name], "path": path,
-                        "launches": launches[name], "max_abs_err": errs[name],
-                        **timed[name]})
+    for name, (source, replaces) in KERNELS.items():
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "path": paths[name],
+                        "launches": launches[paths[name]][name],
+                        "max_abs_err": errs[name], **timed[name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """gemm_gan_tpu_torch — the PyTorch / CUDA port of gemm_gan_tpu.
 
-Serves the flagship `film_cross_attention` generator on an NVIDIA H100. Its
-attention runs through hand-written CUDA flash-attention forward kernels
-(`kernels/csrc/flash_fwd.cu`), each with a plain PyTorch version that the
-CPU path takes. The JAX package `gemm_gan_tpu` stays the reference; this
+Serves the flagship `film_cross_attention` generator on an NVIDIA H100
+(`serving.GeneratorServer`) and trains it with the fused WGAN-GP step
+(`train.wgan.WGANGPEngine`). Its attention runs through hand-written CUDA
+flash-attention kernels, forward and backward (`kernels/csrc/`), each with
+a plain PyTorch version that the CPU path takes. The JAX package `gemm_gan_tpu` stays the reference; this
 package imports nothing of it and no JAX.
 
 Entry points run on the CUDA card unless the caller passes device="cpu".

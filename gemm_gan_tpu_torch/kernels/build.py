@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-The sources under `csrc/` have a plain C interface (no PyTorch headers), so
-one `nvcc` call compiles them in seconds into a shared library, which
+The sources under `csrc/` have a plain C interface (no PyTorch headers).
+One `nvcc -c` per source, all started together, compiles them in parallel;
+one more `nvcc -shared` links the objects into a shared library, which
 `ctypes` loads. Pointers and the stream cross as `c_void_p`, sizes as
 `c_int`. Every entry point returns `cudaGetLastError()` after its launch;
 :func:`launch` raises when that is not 0. A failed build raises with nvcc's
@@ -29,12 +30,24 @@ from typing import Tuple
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-SOURCES = ("flash_fwd.cu",)
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# C entry points: (q, k, v, mask, o, lse, batch, lq, lk, heads, head_dim, stream)
-ENTRY_POINTS = ("flash_fwd_ble", "flash_fwd_bhld")
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# C entry points and their arguments: pointers (and the stream last) cross
+# as c_void_p, sizes as c_int
+_FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# (q, k, v, mask, o, dout, lse, delta, dq, dk, dv, batch, lq, lk, heads,
+#  head_dim, stream)
+_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+ENTRY_POINTS = {
+    # (q, k, v, mask, o, lse, batch, lq, lk, heads, head_dim, stream)
+    "flash_fwd_ble": _FWD_ARGS,
+    "flash_fwd_bhld": _FWD_ARGS,
+    "flash_bwd_ble": _BWD_ARGS,
+    "flash_bwd_bhld_fused": _BWD_ARGS,
+    "flash_bwd_dq": _BWD_ARGS,
+    "flash_bwd_dkv": _BWD_ARGS,
+}
 
 _lock = threading.Lock()
 _lib = None
@@ -61,6 +74,19 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libgemm_gan_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise with the output of the first that
+    fails. Returns their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {p.returncode}:\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Tuple[str, float, str]:
     """Compile the sources unless this exact build exists.
 
@@ -70,19 +96,15 @@ def build() -> Tuple[str, float, str]:
     if os.path.exists(path):
         return path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent build leaves one good file
-    return path, seconds, proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        log = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, s)]
+                    for s, obj in zip(SOURCES, objs)])
+        lib = os.path.join(tmp, "lib.so")
+        _run([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, path)  # atomic: a concurrent build leaves one good file
+    return path, time.perf_counter() - t0, log
 
 
 def load() -> ctypes.CDLL:
@@ -91,9 +113,9 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build()[0])
-            for name in ENTRY_POINTS:
+            for name, argtypes in ENTRY_POINTS.items():
                 fn = getattr(lib, name)
-                fn.argtypes = _ARGTYPES
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             lib.gemm_gan_error_string.argtypes = [ctypes.c_int]
             lib.gemm_gan_error_string.restype = ctypes.c_char_p

@@ -21,14 +21,32 @@ launches the kernel or raises. Each wrapper counts its launches in a plain
 int attribute (`flash_fwd_ble.launches`, `flash_fwd_bhld.launches`), so a
 run can show that its path went through the kernels.
 
-Only the forward exists: wrappers raise for inputs that require grad. The
-`use_pallas` name is kept from the JAX config so `config.json` files load;
-here it selects the kernels.
+Four backward kernels live in `csrc/flash_bwd.cu`, each with a plain
+version and a launch counter of its own:
+
+* `flash_bwd_ble` (replaces `_bwd_kernel_ble`): dq, dk, dv of the ble
+  layout in one launch, delta = rowsum(dO * O) computed in the kernel.
+* `flash_bwd_bhld_fused` (replaces `_bwd_fused_kernel`): dq, dk, dv of the
+  classic layout in one launch, for single-block shapes (`single_block`).
+* `flash_bwd_dq` and `flash_bwd_dkv` (replace `_bwd_dq_kernel` and
+  `_bwd_dkv_kernel`): the blocked classic backward, two launches.
+
+`flash_mha_ble` and `flash_mha` run through a `torch.autograd.Function`
+per layout (`FlashAttentionBLE`, `FlashAttentionBHLD`) whose backward is
+one of these kernels, dispatched as the JAX package's custom VJPs do. The
+softmax scale is folded into q outside the Function, so autograd applies
+it to dq. First order only (`once_differentiable`): the training engine
+never differentiates attention twice. Called directly, a forward wrapper
+raises for inputs that require grad while grad mode is on, since its
+output would silently drop the gradient. The `use_pallas` name is kept
+from the JAX config so `config.json` files load; here it selects the
+kernels.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from gemm_gan_tpu_torch.kernels import build
 
@@ -41,6 +59,10 @@ BLOCKED_REF_MIN_LK = 2048
 _REF_BLOCK_Q = 128    # query rows per block of `mha_reference_blocked`
 _PLAIN_BLOCK_Q = 512  # query rows per chunk of the plain classic version
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the kernels' template instantiations
+# the JAX package's classic blocking (`flash_mha` defaults): a shape is one
+# block, and takes the fused backward, when both padded lengths fit these
+SINGLE_BLOCK_Q = 512
+SINGLE_BLOCK_K = 512
 
 
 def mha_reference(q, k, v, kv_mask=None, scale=None):
@@ -107,6 +129,65 @@ def flash_fwd_bhld_plain(q, k, v, kv_mask):
             torch.cat([p[1] for p in parts], dim=2))
 
 
+def _bwd_probs(q, k, valid, lse):
+    """p = exp(s - lse) over the valid keys, exactly 0 elsewhere."""
+    s = torch.where(valid, q @ k.transpose(-1, -2), _NEG_INF)
+    return torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+
+
+def flash_bwd_dq_plain(q, k, v, kv_mask, do, lse, delta):
+    """Plain version of `flash_bwd_dq`: q/do [B, H, Lq, D], k/v
+    [B, H, Lk, D], lse/delta [B, H, Lq] -> dq [B, H, Lq, D], in chunks of
+    query rows."""
+    valid = kv_mask[:, None, None, :]
+    parts = []
+    for s in range(0, q.shape[2], _PLAIN_BLOCK_Q):
+        rows = slice(s, s + _PLAIN_BLOCK_Q)
+        p = _bwd_probs(q[:, :, rows], k, valid, lse[:, :, rows])
+        ds = p * (do[:, :, rows] @ v.transpose(-1, -2) - delta[:, :, rows, None])
+        parts.append(ds @ k)
+    return torch.cat(parts, dim=2)
+
+
+def flash_bwd_dkv_plain(q, k, v, kv_mask, do, lse, delta):
+    """Plain version of `flash_bwd_dkv`: same inputs as `flash_bwd_dq_plain`
+    -> (dk, dv) [B, H, Lk, D], summed over chunks of query rows."""
+    valid = kv_mask[:, None, None, :]
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for s in range(0, q.shape[2], _PLAIN_BLOCK_Q):
+        rows = slice(s, s + _PLAIN_BLOCK_Q)
+        qc, doc = q[:, :, rows], do[:, :, rows]
+        p = _bwd_probs(qc, k, valid, lse[:, :, rows])
+        ds = p * (doc @ v.transpose(-1, -2) - delta[:, :, rows, None])
+        dv += p.transpose(-1, -2) @ doc
+        dk += ds.transpose(-1, -2) @ qc
+    return dk, dv
+
+
+def flash_bwd_bhld_fused_plain(q, k, v, kv_mask, do, lse, delta):
+    """Plain version of `flash_bwd_bhld_fused` -> (dq, dk, dv)."""
+    return (flash_bwd_dq_plain(q, k, v, kv_mask, do, lse, delta),
+            *flash_bwd_dkv_plain(q, k, v, kv_mask, do, lse, delta))
+
+
+def flash_bwd_ble_plain(q, k, v, kv_mask, o, lse, do, num_heads: int):
+    """Plain version of `flash_bwd_ble`: q/o/do [B, Lq, E], k/v [B, Lk, E],
+    lse [B, H, Lq] -> (dq, dk, dv) in the same layout; delta from o, do."""
+    B, Lq, E = q.shape
+    D = E // num_heads
+
+    def split(x):
+        return x.reshape(B, x.shape[1], num_heads, D).transpose(1, 2)
+
+    def merge(x):
+        return x.transpose(1, 2).reshape(B, x.shape[2], E)
+
+    delta = (split(do) * split(o)).sum(-1)
+    grads = flash_bwd_bhld_fused_plain(split(q), split(k), split(v), kv_mask,
+                                       split(do), lse, delta)
+    return tuple(merge(g) for g in grads)
+
+
 # ------------------------------------------------------------ kernel wrappers
 def _check_inputs(name, q, k, v, kv_mask, kv_shape, head_dim):
     """Raise on anything the kernel does not take. q's own shape defines
@@ -120,9 +201,11 @@ def _check_inputs(name, q, k, v, kv_mask, kv_shape, head_dim):
             raise NotImplementedError(f"{name}: {n} is {t.dtype}; the kernel takes float32")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {n} must be contiguous and 16-byte aligned")
-        if t.requires_grad:
+        if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
-                f"{name}: {n} requires grad; only the forward kernel exists")
+                f"{name}: {n} requires grad, and the kernel's output would drop "
+                f"it; call flash_mha / flash_mha_ble, whose autograd.Function "
+                f"runs the backward kernel")
     if tuple(k.shape) != kv_shape or tuple(v.shape) != kv_shape:
         raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} "
                          f"must both be {kv_shape} for q {tuple(q.shape)}")
@@ -183,9 +266,172 @@ def flash_fwd_bhld(q, k, v, kv_mask):
 flash_fwd_bhld.launches = 0
 
 
+def _check_grad_inputs(name, q, named):
+    """Raise on anything a backward kernel does not take, beyond what
+    `_check_inputs` checks: `named` maps each extra operand's name to
+    (tensor, shape)."""
+    for n, (t, shape) in named.items():
+        if (t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.data_ptr() % 16 or tuple(t.shape) != tuple(shape)):
+            raise ValueError(f"{name}: {n} must be a contiguous, 16-byte aligned "
+                             f"float32 {tuple(shape)} tensor on {q.device}; got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _launch_bwd(name, q, k, v, kv_mask, o, do, lse, delta, dq, dk, dv,
+                B, Lq, Lk, H, D):
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    build.launch(name, *(ptr(t) for t in (q, k, v, kv_mask, o, do, lse, delta,
+                                          dq, dk, dv)),
+                 B, Lq, Lk, H, D, torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_bwd_ble(q, k, v, kv_mask, o, lse, do, num_heads: int):
+    """Kernel `flash_bwd_ble`: the forward's inputs (q pre-scaled), its
+    outputs o [B, Lq, E] and lse [B, H, Lq], and dO [B, Lq, E] -> (dq, dk,
+    dv) in the [B, L, E] layout."""
+    if q.device.type == "cpu":
+        return flash_bwd_ble_plain(q, k, v, kv_mask, o, lse, do, num_heads)
+    B, Lq, E = q.shape
+    Lk = k.shape[1]
+    D = E // num_heads
+    _check_inputs("flash_bwd_ble", q, k, v, kv_mask, (B, Lk, E), D)
+    _check_grad_inputs("flash_bwd_ble", q, {
+        "o": (o, q.shape), "do": (do, q.shape), "lse": (lse, (B, num_heads, Lq))})
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_bwd_ble", q, k, v, kv_mask, o, do, lse, None, dq, dk, dv,
+                B, Lq, Lk, num_heads, D)
+    flash_bwd_ble.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd_ble.launches = 0
+
+
+def _bhld_bwd_checks(name, q, k, v, kv_mask, do, lse, delta):
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    _check_inputs(name, q, k, v, kv_mask, (B, H, Lk, D), D)
+    _check_grad_inputs(name, q, {
+        "do": (do, q.shape), "lse": (lse, (B, H, Lq)), "delta": (delta, (B, H, Lq))})
+    return B, H, Lq, Lk, D
+
+
+def flash_bwd_bhld_fused(q, k, v, kv_mask, do, lse, delta):
+    """Kernel `flash_bwd_bhld_fused`: q/do [B, H, Lq, D], k/v [B, H, Lk, D],
+    lse and delta = rowsum(dO * O) [B, H, Lq] -> (dq, dk, dv), one launch.
+    Meant for single-block shapes (`single_block`), as on the TPU; right
+    for any shape."""
+    if q.device.type == "cpu":
+        return flash_bwd_bhld_fused_plain(q, k, v, kv_mask, do, lse, delta)
+    B, H, Lq, Lk, D = _bhld_bwd_checks("flash_bwd_bhld_fused", q, k, v, kv_mask,
+                                       do, lse, delta)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_bwd_bhld_fused", q, k, v, kv_mask, None, do, lse, delta,
+                dq, dk, dv, B, Lq, Lk, H, D)
+    flash_bwd_bhld_fused.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd_bhld_fused.launches = 0
+
+
+def flash_bwd_dq(q, k, v, kv_mask, do, lse, delta):
+    """Kernel `flash_bwd_dq`: inputs as `flash_bwd_bhld_fused` -> dq."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, kv_mask, do, lse, delta)
+    B, H, Lq, Lk, D = _bhld_bwd_checks("flash_bwd_dq", q, k, v, kv_mask, do, lse, delta)
+    dq = torch.empty_like(q)
+    _launch_bwd("flash_bwd_dq", q, k, v, kv_mask, None, do, lse, delta,
+                dq, None, None, B, Lq, Lk, H, D)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta):
+    """Kernel `flash_bwd_dkv`: inputs as `flash_bwd_bhld_fused` -> (dk, dv)."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, kv_mask, do, lse, delta)
+    B, H, Lq, Lk, D = _bhld_bwd_checks("flash_bwd_dkv", q, k, v, kv_mask, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_bwd_dkv", q, k, v, kv_mask, None, do, lse, delta,
+                None, dk, dv, B, Lq, Lk, H, D)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+KERNELS = (flash_fwd_ble, flash_fwd_bhld, flash_bwd_ble, flash_bwd_bhld_fused,
+           flash_bwd_dq, flash_bwd_dkv)
+
+
 def reset_launch_counts() -> None:
-    flash_fwd_ble.launches = 0
-    flash_fwd_bhld.launches = 0
+    for kernel in KERNELS:
+        kernel.launches = 0
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last `reset_launch_counts`}."""
+    return {kernel.__name__: kernel.launches for kernel in KERNELS}
+
+
+def single_block(Lq: int, Lk: int) -> bool:
+    """Whether the JAX package's blocking (`_prep` with block_q 512,
+    block_k 256) makes one block of each axis: Lq padded to 8 and Lk padded
+    to 128 both fit 512. Such shapes take the fused backward."""
+    return -(-Lq // 8) * 8 <= SINGLE_BLOCK_Q and -(-Lk // 128) * 128 <= SINGLE_BLOCK_K
+
+
+class FlashAttentionBLE(torch.autograd.Function):
+    """o = flash_fwd_ble(q, k, v) with `flash_bwd_ble` as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, num_heads):
+        o, lse = flash_fwd_ble(q, k, v, kv_mask, num_heads)
+        ctx.save_for_backward(q, k, v, kv_mask, o, lse)
+        ctx.num_heads = num_heads
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, kv_mask, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd_ble(q, k, v, kv_mask, o, lse, do.contiguous(),
+                                   ctx.num_heads)
+        return dq, dk, dv, None, None
+
+
+class FlashAttentionBHLD(torch.autograd.Function):
+    """o = flash_fwd_bhld(q, k, v) with the JAX package's backward dispatch:
+    `flash_bwd_bhld_fused` for single-block shapes, else `flash_bwd_dq` and
+    `flash_bwd_dkv`. delta = rowsum(dO * O) is a plain tensor op here, as
+    on the TPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask):
+        o, lse = flash_fwd_bhld(q, k, v, kv_mask)
+        ctx.save_for_backward(q, k, v, kv_mask, o, lse)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, kv_mask, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do * o).sum(-1)
+        args = (q, k, v, kv_mask, do, lse, delta)
+        if single_block(q.shape[2], k.shape[2]):
+            dq, dk, dv = flash_bwd_bhld_fused(*args)
+        else:
+            dq = flash_bwd_dq(*args)
+            dk, dv = flash_bwd_dkv(*args)
+        return dq, dk, dv, None
 
 
 def _full_mask(kv_mask, B, Lk, device):
@@ -196,23 +442,25 @@ def _full_mask(kv_mask, B, Lk, device):
 
 def flash_mha_ble(q, k, v, kv_mask=None, scale=None, num_heads: int = 4):
     """E-layout flash attention: q [B, Lq, E], k/v [B, Lk, E] -> [B, Lq, E].
-    The softmax scale is folded into q before the kernel."""
+    The softmax scale is folded into q before the kernel; differentiable
+    through `FlashAttentionBLE`."""
     E = q.shape[-1]
     if E % num_heads:
         raise ValueError(f"E={E} not divisible by num_heads={num_heads}")
     if scale is None:
         scale = (E // num_heads) ** -0.5
     mask = _full_mask(kv_mask, q.shape[0], k.shape[1], q.device)
-    return flash_fwd_ble(q * scale, k, v, mask, num_heads)[0]
+    return FlashAttentionBLE.apply(q * scale, k, v, mask, num_heads)
 
 
 def flash_mha(q, k, v, kv_mask=None, scale=None):
     """Classic-layout flash attention: q [B, H, Lq, D], k/v [B, H, Lk, D] ->
-    [B, H, Lq, D]. The softmax scale is folded into q before the kernel."""
+    [B, H, Lq, D]. The softmax scale is folded into q before the kernel;
+    differentiable through `FlashAttentionBHLD`."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     mask = _full_mask(kv_mask, q.shape[0], k.shape[2], q.device)
-    return flash_fwd_bhld(q * scale, k, v, mask)[0]
+    return FlashAttentionBHLD.apply(q * scale, k, v, mask)
 
 
 def masked_mha(q, k, v, kv_mask=None, scale=None, use_pallas: bool = True,

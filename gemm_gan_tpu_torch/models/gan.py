@@ -1,19 +1,22 @@
-"""WGAN-GP generator.
+"""WGAN-GP generator and critic.
 
-Counterpart of `gemm_gan_tpu/models/gan.py`: a fusion module (selected by
-config) and an MLP trunk over [z ∥ cond]. The `embed_cond` / `score` split
+Counterpart of `gemm_gan_tpu/models/gan.py`: each owns a fusion module
+(selected by config) and an MLP trunk over [z ∥ cond] (generator) or
+[x ∥ cond] (critic, one score per sample). The `embed_cond` / `score` split
 is kept, so one condition embedding can serve every z drawn for it
-(`serving.GeneratorServer.sample_all`).
+(`serving.GeneratorServer.sample_all`), and the gradient penalty
+differentiates only the critic's trunk twice (`train/wgan.py`).
 
 Initialisation follows Flax's distributions (the bits cannot match):
 lecun-normal kernels (truncated normal, std sqrt(1/fan_in) corrected for
 the truncation at two standard deviations), zero biases, unit LayerNorm
 scales, and a truncated-normal(0.02) CLS token.
 
-This slice serves f32 only: `compute_dtype` other than "float32",
+The port runs f32 only: `compute_dtype` other than "float32",
 `fusion.flash_mxu_bf16=True`, `fusion.sequence_parallel=True` and fusion
-kinds other than `film_xattn` / `none` raise `NotImplementedError`. The
-Critic comes with the training slice.
+kinds other than `film_xattn` / `none` raise `NotImplementedError`.
+Modules are built in train mode (dropout active), as `nn.Module`s are;
+`GeneratorServer` switches its generator to eval mode.
 """
 
 from __future__ import annotations
@@ -60,27 +63,25 @@ def init_flax_like_(module: nn.Module, generator: Optional[torch.Generator] = No
                 nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=generator)
 
 
-class Generator(nn.Module):
-    """z [B, latent] (+ cond dict) -> gene-expression vector [B, n_genes].
+class _Conditioned(nn.Module):
+    """Shared base: a fusion module and an MLP trunk over [x ∥ cond], built
+    on `device` (CUDA unless "cpu" is asked for) with Flax-like random
+    weights drawn from `generator` (a CPU `torch.Generator`; the default
+    RNG when None)."""
 
-    Built on `device` (CUDA unless "cpu" is asked for) in eval mode, with
-    Flax-like random weights drawn from `generator` (a CPU
-    `torch.Generator`; the default RNG when None)."""
-
-    def __init__(self, cfg: ModelConfig, device: DeviceLike = None,
+    def __init__(self, cfg: ModelConfig, in_features: int, hidden_dims, out_dim: int,
+                 device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         self.fusion = build_fusion(cfg.fusion)
-        self.trunk = MLPTrunk(cfg.latent_dim + cond_dim_of(cfg.fusion),
-                              cfg.gen_dims, cfg.n_genes,
-                              negative_slope=cfg.negative_slope,
+        self.trunk = MLPTrunk(in_features + cond_dim_of(cfg.fusion), hidden_dims,
+                              out_dim, negative_slope=cfg.negative_slope,
                               use_batchnorm=cfg.use_batchnorm)
         init_flax_like_(self, generator)
         self.to(dev)
-        self.eval()
 
     def embed_cond(self, cond: Optional[Dict[str, torch.Tensor]]) -> Optional[torch.Tensor]:
         """Fusion half: conditioning dict -> [B, cond_dim] f32 (or None)."""
@@ -92,11 +93,33 @@ class Generator(nn.Module):
                 f"(batch keys like 'tokens'/'patches'), got none")
         return self.fusion(cond)
 
-    def score(self, z: torch.Tensor, cvec: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Trunk half: latent [B, latent] (+ fixed cond vector) -> [B, n_genes]."""
-        x = z if cvec is None else torch.cat([z, cvec], dim=-1)
-        return self.trunk(x)
+    def score(self, x: torch.Tensor, cvec: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Trunk half: [B, in_features] (+ fixed cond vector) -> [B, out_dim]."""
+        h = x if cvec is None else torch.cat([x, cvec], dim=-1)
+        return self.trunk(h)
 
-    def forward(self, z: torch.Tensor,
+    def forward(self, x: torch.Tensor,
                 cond: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        return self.score(z, self.embed_cond(cond))
+        return self.score(x, self.embed_cond(cond))
+
+
+class Generator(_Conditioned):
+    """z [B, latent] (+ cond dict) -> gene-expression vector [B, n_genes]."""
+
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, cfg.latent_dim, cfg.gen_dims, cfg.n_genes,
+                         device=device, generator=generator)
+
+
+class Critic(_Conditioned):
+    """Gene-expression vector [B, n_genes] (+ cond dict) -> score [B, 1].
+
+    The gradient penalty differentiates w.r.t. the expression only, so the
+    engine calls `embed_cond` once outside the penalty's inner grad and only
+    the trunk is differentiated twice."""
+
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, cfg.n_genes, cfg.disc_dims, 1,
+                         device=device, generator=generator)

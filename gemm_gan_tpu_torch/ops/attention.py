@@ -6,9 +6,10 @@ ReLU feed-forward. LayerNorm eps is 1e-6, Flax's value (torch's default is
 `kernels.flash_attention.masked_mha`, which takes the CUDA kernels on the
 card when `use_pallas` (the JAX config's name, kept so run dirs load).
 
-Dropout sits where the JAX modules put it and is inactive in `eval()` mode,
-the only mode the serving path uses. Ring (sequence-parallel) attention is
-not ported.
+Dropout sits where the JAX modules put it (the attention output, after the
+FFN ReLU and after the FFN output) and is active in `train()` mode, as the
+JAX modules' `deterministic=False`; the serving path runs in `eval()` mode.
+Ring (sequence-parallel) attention is not ported.
 """
 
 from __future__ import annotations

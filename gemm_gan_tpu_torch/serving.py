@@ -61,11 +61,23 @@ class GeneratorServer:
 
     def __init__(self, cfg: ModelConfig, state_dict: Mapping[str, torch.Tensor],
                  device: DeviceLike = None):
+        gen = Generator(cfg, device=device)
+        gen.load_state_dict(state_dict)
+        self._wrap(cfg, gen)
+
+    def _wrap(self, cfg: ModelConfig, gen: Generator) -> None:
         self.cfg = cfg
-        self.gen = Generator(cfg, device=device)
-        self.gen.load_state_dict(state_dict)
-        self.device = next(self.gen.parameters()).device
+        self.gen = gen.eval()
+        self.device = next(gen.parameters()).device
         self.keys = cond_keys_for(cfg.fusion)
+
+    @classmethod
+    def for_module(cls, gen: Generator) -> "GeneratorServer":
+        """Serve an existing generator (a training run's) as it stands,
+        sharing its weights. Switches it to eval mode."""
+        server = cls.__new__(cls)
+        server._wrap(gen.cfg, gen)
+        return server
 
     @classmethod
     def from_flax(cls, cfg: ModelConfig, params: Mapping,

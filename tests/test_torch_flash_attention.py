@@ -10,6 +10,7 @@ plain versions on the card by chip_smoke.py.
 
 import os
 import stat
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -190,6 +191,9 @@ def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
     assert first.startswith(str(tmp_path)) and first == build.library_path()
     src = tmp_path / "csrc"
     src.mkdir()
-    (src / build.SOURCES[0]).write_text("// changed\n")
+    for name in build.SOURCES:
+        (src / name).write_text((Path(build.CSRC_DIR) / name).read_text())
     monkeypatch.setattr(build, "CSRC_DIR", str(src))
+    assert build.library_path() == first  # same sources, same library
+    (src / build.SOURCES[-1]).write_text("// changed\n")
     assert build.library_path() != first
