@@ -7,12 +7,15 @@ imports nothing of JAX or of the JAX package. Phases:
 
 1. Build the CUDA kernels from `gemm_gan_tpu_torch/kernels/csrc/` (one nvcc
    per source, in parallel, into the ignored build dir) and print the build
-   time, nvcc's register/spill report, and the card's name and power limit.
+   time, nvcc's register/spill/shared-memory report for every kernel and
+   head dim, the tensor-core kernels' dynamic shared memory and blocks per
+   SM, and the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it plus ragged and
    fully-masked cases, and time kernel, plain version and the library's
    `scaled_dot_product_attention` (forward, or its backward through
-   `torch.autograd.grad`; a yardstick only: the port never calls it).
+   `torch.autograd.grad`; a yardstick only: the port never calls it), with
+   the names of the CUDA kernels the library ran (torch.profiler).
 3. Serving, the main path: `GeneratorServer.sample_all` with the flagship
    `film_cross_attention` generator at canonical widths (random weights from
    a seeded numpy tree in Flax layout, carried over by `convert.py`),
@@ -21,7 +24,9 @@ imports nothing of JAX or of the JAX package. Phases:
    `flash_fwd_ble` 2 layers x 4 batches times, and one batch against the same
    server on the CPU.
 4. Whole-slide serving (4,096 patches per sample, batch 8): the patch
-   self-attention goes through `flash_fwd_bhld`.
+   self-attention goes through `flash_fwd_bhld`; one batch against the same
+   weights with `fusion.use_pallas=False` (the blocked reference), both on
+   the card.
 5. Training, the main path: `WGANGPEngine.step` of the flagship at canonical
    widths with `cond_embed_reuse="per_update"` and `batched_scores` (the
    production setting), batch 8, n_critic 5, clipping D <= 10 / G <= 2,
@@ -31,7 +36,9 @@ imports nothing of JAX or of the JAX package. Phases:
    one dropout-free step on the card against the same step on the CPU; a
    CUDA-event split of one step.
 6. Whole-slide training (4,096 patches, batch 8): `flash_fwd_bhld`,
-   `flash_bwd_dq` and `flash_bwd_dkv`.
+   `flash_bwd_dq` and `flash_bwd_dkv`; one dropout-free step against the
+   same step with `fusion.use_pallas=False`, both on the card, gated by
+   how far the kernels' plain versions on the card land from the same.
 7. Canonical training with `fusion.flash_layout="bhld"`: `flash_fwd_bhld`
    and `flash_bwd_bhld_fused`.
 8. Prints one `{"kernels": [...]}` JSON line, the card's line, then the
@@ -44,6 +51,7 @@ product on the card is full f32.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -59,18 +67,22 @@ TPU_KERNELS = "gemm_gan_tpu/kernels/flash_attention.py"
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "flash_fwd_ble": (CSRC + "flash_fwd.cu", f"{TPU_KERNELS}:290"),
-    "flash_fwd_bhld": (CSRC + "flash_fwd.cu", f"{TPU_KERNELS}:84"),
+    "flash_fwd_bhld": (CSRC + "flash_fwd_bhld.cu", f"{TPU_KERNELS}:84"),
     "flash_bwd_ble": (CSRC + "flash_bwd.cu", f"{TPU_KERNELS}:317"),
     "flash_bwd_dq": (CSRC + "flash_bwd.cu", f"{TPU_KERNELS}:142"),
-    "flash_bwd_dkv": (CSRC + "flash_bwd.cu", f"{TPU_KERNELS}:220"),
+    "flash_bwd_dkv": (CSRC + "flash_bwd_dkv.cu", f"{TPU_KERNELS}:220"),
     "flash_bwd_bhld_fused": (CSRC + "flash_bwd.cu", f"{TPU_KERNELS}:179"),
 }
 # FLOP per (query, valid key, head-dim element) of each backward kernel:
 # s = q.k, dp = dO.v, then dv, dq, dk, 2 FLOP per multiply-add each
 BWD_FLOP = {"flash_bwd_ble": 10, "flash_bwd_bhld_fused": 10,
             "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
-# H100 SXM data sheet: f32 outside the tensor cores, and HBM3 bandwidth
+# H100 SXM data sheet: f32 outside the tensor cores, dense TF32 on the
+# tensor cores, and HBM3 bandwidth. `bound_tc_ms` counts 3 TF32 products per
+# f32 product (3xTF32, as flash_fwd_bhld.cu / flash_bwd_dkv.cu compute and
+# as the library's f32 attention on sm80+ does).
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 # kernel vs its plain version, f32 on the card (different summation order)
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
@@ -96,6 +108,15 @@ STEP_RTOL, STEP_ATOL = 1e-4, 1e-4
 PARAM_ATOL = 5e-5  # 1% of RMSprop's largest single update (10 lr, lr 5e-4)
 NEGLIGIBLE_GRAD = 1e-4
 MAX_LOOSE = 200
+# The whole-slide step (phase 6), kernels vs use_pallas=False on the card:
+# there the critic's first-layer q/k projections get gradients that are
+# mostly rounding (a near-uniform softmax over 4,097 keys), and any f32
+# reordering flips ~10^4 of their RMSprop updates: the kernels' own plain
+# versions on the card, same dispatch, cuBLAS arithmetic, miss PARAM_ATOL on
+# ~36,000 entries there. So each net may miss it on at most
+# PLAIN_LOOSE_FACTOR times as many entries as the plain versions do on the
+# same step (or MAX_LOOSE, if more), besides the metrics and bound gates.
+PLAIN_LOOSE_FACTOR = 2
 
 
 def card_line() -> str:
@@ -143,16 +164,41 @@ def attention_inputs(layout, B, H, Lq, Lk, D, ragged, seed):
     return q, k, v, mask
 
 
-def bound(H, Lq, D, q, k, v, mask):
-    """Least time (ms) for the work: the bytes each input read once and each
-    output written once, against the operations that the valid keys need
-    (q.k and p.v, 2 FLOP per multiply-add), at the card's f32 peak."""
+def bounds(flops, nbytes) -> dict:
+    """Least time (ms) for `flops` over `nbytes`: `bound_ms` at the f32
+    CUDA-core peak, `bound_tc_ms` in 3xTF32 on the tensor cores, each the
+    larger of its operations time and the bytes time."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_F32_FLOPS
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_tc_ms": 1e3 * max(3 * flops / PEAK_TF32_FLOPS, t_bytes)}
+
+
+def bound(H, Lq, D, q, k, v, mask) -> dict:
+    """Bounds of a forward: the bytes each input read once and each output
+    written once, against the operations that the valid keys need (q.k and
+    p.v, 2 FLOP per multiply-add)."""
     valid = int(mask.sum())
     flops = 4 * H * Lq * D * valid
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel()) + mask.numel() \
         + 4 * q.shape[0] * H * Lq  # q, k, v, o, mask, lse
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return bounds(flops, nbytes)
+
+
+def device_kernels(fn) -> list:
+    """Names of the CUDA kernels one call of `fn` ran, from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:90] for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)})
 
 
 def check_kernel(fa, layout, B, H, Lq, Lk, D, ragged, seed):
@@ -202,9 +248,9 @@ def time_kernel(fa, layout, H, Lq, D, q, k, v, mask):
         ms = cuda_ms(kernel)
         plain_ms = cuda_ms(plain, iters=5)
         library_ms = cuda_ms(library)
-    bound_ms, bound_by = bound(H, Lq, D, q, k, v, mask)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+        print(f"  library forward ran: {device_kernels(library)}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, **bound(H, Lq, D, q, k, v, mask),
+            "library_ms": library_ms}
 
 
 def bwd_args(fa, name, H, q, k, v, mask, seed):
@@ -281,15 +327,15 @@ def time_bwd_kernel(fa, name, layout, H, args):
     plain = getattr(fa, name + "_plain")
     ms = cuda_ms(lambda: kernel(*args))
     plain_ms = cuda_ms(lambda: plain(*args), iters=5)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(out, wrt, dout, retain_graph=True))
+    library = lambda: torch.autograd.grad(out, wrt, dout, retain_graph=True)  # noqa: E731
+    library_ms = cuda_ms(library)
+    print(f"  library backward ran: {device_kernels(library)}", flush=True)
     Lq = q.shape[1] if layout == "ble" else q.shape[2]
     flops = BWD_FLOP[name] * H * Lq * D * int(mask.sum())
     reads = [x for x in args if isinstance(x, torch.Tensor)]
     writes = {"flash_bwd_dq": [q], "flash_bwd_dkv": [k, v]}.get(name, [q, k, v])
     nbytes = sum(x.numel() * x.element_size() for x in reads + writes)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    return {"ms": ms, "plain_ms": plain_ms, **bounds(flops, nbytes),
             "library_ms": library_ms}
 
 
@@ -357,8 +403,6 @@ def flax_param_tree(m, seed: int, critic: bool = False) -> dict:
 
 def train_cfg(cfg, **fusion):
     """`cfg` with the production step setting and the given fusion fields."""
-    import dataclasses
-
     return dataclasses.replace(
         cfg,
         model=dataclasses.replace(cfg.model, fusion=dataclasses.replace(
@@ -403,46 +447,73 @@ def run_steps(engine, state, batches, n_steps, fa):
     return state, seconds, fa.launch_counts(), metrics
 
 
-def compare_step(cfg, g_params, d_params, batch, draws):
-    """One dropout-free step on the card and on the CPU from the same params
-    and draws: metrics within STEP_RTOL/STEP_ATOL; at most MAX_LOOSE param
-    entries beyond PARAM_ATOL, all within RMSprop's bound. Returns a summary
-    dict."""
-    import torch
-
+def run_step(cfg, device, g_params, d_params, batch, draws):
+    """One step from the Flax-layout params with the given draws ->
+    (state, metrics)."""
     from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
 
-    out = {}
-    for dev in ("cuda", "cpu"):
-        engine = WGANGPEngine(cfg, steps_per_epoch=1, device=dev)
-        state = engine.state_from_flax(g_params, d_params)
-        state, metrics = engine.step(state, batch, draws=draws)
-        out[dev] = (state, {k: float(v) for k, v in metrics.items()})
-    (card, m_card), (cpu, m_cpu) = out["cuda"], out["cpu"]
-    loose = loose_clear = negligible = total = 0
+    engine = WGANGPEngine(cfg, steps_per_epoch=1, device=device)
+    state = engine.state_from_flax(g_params, d_params)
+    state, metrics = engine.step(state, batch, draws=draws)
+    return state, {k: float(v) for k, v in metrics.items()}
+
+
+def step_diff(test, ref, max_loose=None) -> dict:
+    """Hold a step (state, metrics) against a reference one: metrics within
+    STEP_RTOL/STEP_ATOL; every param within RMSprop's bound; at most
+    `max_loose` ({net: n}; {} counts without a limit; None: MAX_LOOSE over
+    both nets) entries beyond PARAM_ATOL. Returns a summary dict."""
+    import torch
+
+    (got, m_got), (want, m_want) = test, ref
+    loose_by_net, loose_clear, negligible, total = {}, 0, 0, 0
     max_err, beyond_bound = 0.0, False
-    for opt_card, opt_cpu in ((card.g_opt, cpu.g_opt), (card.d_opt, cpu.d_opt)):
-        bound = 10 * opt_cpu.base_lr * opt_cpu.count
-        rms = [opt_cpu.rmsprop.state[p]["square_avg"].sqrt() for p in opt_cpu.params]
+    for net, opt_got, opt_want in (("G", got.g_opt, want.g_opt), ("D", got.d_opt, want.d_opt)):
+        bound = 10 * opt_want.base_lr * opt_want.count
+        rms = [opt_want.rmsprop.state[p]["square_avg"].sqrt().cpu() for p in opt_want.params]
         net_rms = float(torch.cat([r.flatten() for r in rms]).square().mean().sqrt())
-        for p_card, p_cpu, r in zip(opt_card.params, opt_cpu.params, rms):
-            diff = (p_card.detach().cpu() - p_cpu.detach()).abs()
+        loose_by_net[net] = 0
+        for p_got, p_want, r in zip(opt_got.params, opt_want.params, rms):
+            diff = (p_got.detach().cpu() - p_want.detach().cpu()).abs()
             clear = r > NEGLIGIBLE_GRAD * net_rms
-            loose += int((diff > PARAM_ATOL).sum())
+            loose_by_net[net] += int((diff > PARAM_ATOL).sum())
             loose_clear += int((diff[clear] > PARAM_ATOL).sum())
             negligible += int((~clear).sum())
             total += diff.numel()
             max_err = max(max_err, float(diff.max()))
             beyond_bound |= float(diff.max()) > 2 * bound
-    summary = {"metrics_card": m_card, "metrics_cpu": m_cpu, "params": total,
+    loose = sum(loose_by_net.values())
+    summary = {"metrics_test": m_got, "metrics_ref": m_want, "params": total,
                "params_negligible_grad": negligible, "params_beyond_atol": loose,
+               "beyond_atol_by_net": loose_by_net,
                "clear_grad_beyond_atol": loose_clear, "max_param_err": max_err}
-    for key in m_cpu:
-        assert abs(m_card[key] - m_cpu[key]) <= STEP_ATOL + STEP_RTOL * abs(m_cpu[key]), \
+    for key in m_want:
+        assert abs(m_got[key] - m_want[key]) <= STEP_ATOL + STEP_RTOL * abs(m_want[key]), \
             (key, summary)
     assert not beyond_bound, ("a param moved beyond RMSprop's bound", summary)
-    assert loose <= MAX_LOOSE, summary
+    if max_loose is None:
+        assert loose <= MAX_LOOSE, summary
+    else:
+        assert all(loose_by_net[n] <= max_loose[n] for n in max_loose), (max_loose, summary)
     return summary
+
+
+class plain_kernels:
+    """Within this context every kernel wrapper of `fa` runs its plain
+    PyTorch version, also on CUDA tensors (a yardstick: the kernels' own
+    contract in cuBLAS arithmetic, through the same dispatch)."""
+
+    def __init__(self, fa):
+        self.fa = fa
+        self.saved = {k.__name__: k for k in fa.KERNELS}
+
+    def __enter__(self):
+        for name in self.saved:
+            setattr(self.fa, name, getattr(self.fa, name + "_plain"))
+
+    def __exit__(self, *exc):
+        for name, kernel in self.saved.items():
+            setattr(self.fa, name, kernel)
 
 
 def device_busy(engine, state, batch) -> dict:
@@ -523,19 +594,24 @@ def main() -> int:
     _, build_s, log = build.build()
     build.load()
     print(f"[1] built kernels in {build_s:.1f} s", flush=True)
-    # the backward template's <kDq, kDkv, kDeltaHere> flags name its entry point
-    bwd_entry = {"111": "flash_bwd_ble", "110": "flash_bwd_bhld_fused",
-                 "100": "flash_bwd_dq", "010": "flash_bwd_dkv"}
+    # kernel template -> entry point; flash_bwd.cu's template is named by its
+    # <kDq, kDkv, kDeltaHere> flags
+    entries = {"flash_fwd_kernel": "flash_fwd_ble", "flash_fwd_bhld_kernel": "flash_fwd_bhld",
+               "flash_bwd_dkv_kernel": "flash_bwd_dkv", "111": "flash_bwd_ble",
+               "110": "flash_bwd_bhld_fused", "100": "flash_bwd_dq"}
     for line in log.splitlines():  # ptxas -v, one entry per template instantiation
-        entry = re.search(r"Compiling entry function '\w*?(flash_(fwd|bwd)_kernel)ILi(\d+)E"
-                          r"((?:Lb[01]E)*)", line)
+        entry = re.search(r"Compiling entry function '\w*?(flash_(?:fwd|bwd)(?:_bhld|_dkv)?"
+                          r"_kernel)ILi(\d+)E((?:Lb[01]E)*)", line)
         if entry:
-            flags = "".join(re.findall(r"Lb([01])E", entry.group(4)))
-            name = (bwd_entry[flags] if entry.group(2) == "bwd"
-                    else "flash_fwd_ble / flash_fwd_bhld")
-            print(f"    {name} D={entry.group(3)}:")
+            flags = "".join(re.findall(r"Lb([01])E", entry.group(3)))
+            print(f"    {entries[flags or entry.group(1)]} D={entry.group(2)}:")
         elif "registers" in line or "spill" in line:
             print("      " + line.replace("ptxas info    :", "").strip())
+    for name in ("flash_fwd_bhld", "flash_bwd_dkv"):  # dynamic shared memory
+        for D in fa.HEAD_DIMS:
+            smem, blocks = build.occupancy(name, D)
+            print(f"    {name} D={D}: {smem} bytes of dynamic shared memory per block, "
+                  f"{blocks} blocks per SM", flush=True)
 
     # ---- 2. kernels against their plain versions
     print(f"[2] kernels vs plain (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})", flush=True)
@@ -636,7 +712,18 @@ def main() -> int:
     assert np.isfinite(ws_out["fake"]).all(), "non-finite whole-slide profiles"
     assert launches["whole_slide_serving"] == {
         **dict.fromkeys(KERNELS, 0), "flash_fwd_bhld": cfg.fusion.num_layers}, launches
-    del server
+    ref_cfg = dataclasses.replace(cfg, fusion=dataclasses.replace(cfg.fusion, use_pallas=False))
+    ref_server = GeneratorServer.from_flax(ref_cfg, params)
+    z = torch.randn(BATCH, cfg.latent_dim, generator=torch.Generator().manual_seed(4))
+    with_kernels = server(z, ws_batch).cpu()
+    with_reference = ref_server(z, ws_batch).cpu()
+    ws_err = float((with_kernels - with_reference).abs().max())
+    print(f"    kernels vs use_pallas=False (blocked reference), both on the card, one "
+          f"whole-slide batch: max|err|={ws_err:.3e} (max|out|="
+          f"{float(with_reference.abs().max()):.3f}; rtol {E2E_RTOL}, atol {E2E_ATOL})",
+          flush=True)
+    torch.testing.assert_close(with_kernels, with_reference, rtol=E2E_RTOL, atol=E2E_ATOL)
+    del server, ref_server
 
     # ---- 5. training, the main path at full width
     tcfg = train_cfg(exp)
@@ -671,8 +758,9 @@ def main() -> int:
     print(f"    device ms of one step's parts: "
           f"{json.dumps(step_breakdown(engine, state, batches[0]))}", flush=True)
     del engine, state
-    cmp = compare_step(train_cfg(exp, dropout=0.0), params, d_params, batches[0],
-                       random_draws(tcfg, seed=5))
+    step_args = (params, d_params, batches[0], random_draws(tcfg, seed=5))
+    cmp = step_diff(run_step(train_cfg(exp, dropout=0.0), "cuda", *step_args),
+                    run_step(train_cfg(exp, dropout=0.0), "cpu", *step_args))
     print(f"    card vs CPU, one step at dropout 0: {json.dumps(cmp)} (metrics rtol "
           f"{STEP_RTOL}, atol {STEP_ATOL}; at most {MAX_LOOSE} params beyond atol "
           f"{PARAM_ATOL})", flush=True)
@@ -690,7 +778,21 @@ def main() -> int:
         **dict.fromkeys(KERNELS, 0), "flash_fwd_bhld": n_fwd * WS_TRAIN_STEPS,
         "flash_bwd_dq": n_bwd * WS_TRAIN_STEPS,
         "flash_bwd_dkv": n_bwd * WS_TRAIN_STEPS}, launches
-    del engine, state, ws, ws_batch
+    del engine, state
+    step_args = ("cuda", params, d_params, ws_batch, random_draws(tcfg, seed=6))
+    ref = run_step(train_cfg(exp, dropout=0.0, use_pallas=False), *step_args)
+    with plain_kernels(fa):
+        plain = step_diff(run_step(train_cfg(exp, dropout=0.0), *step_args), ref,
+                          max_loose={})
+    max_loose = {net: max(MAX_LOOSE, PLAIN_LOOSE_FACTOR * n)
+                 for net, n in plain["beyond_atol_by_net"].items()}
+    cmp = step_diff(run_step(train_cfg(exp, dropout=0.0), *step_args), ref, max_loose)
+    print(f"    kernels vs use_pallas=False (blocked reference), both on the card, one "
+          f"whole-slide step at dropout 0: {json.dumps(cmp)}; the plain versions on the "
+          f"card vs the same: {json.dumps(plain)} (metrics rtol {STEP_RTOL}, atol "
+          f"{STEP_ATOL}; params beyond atol {PARAM_ATOL} per net at most {max_loose})",
+          flush=True)
+    del ref, ws, ws_batch
     torch.cuda.empty_cache()
 
     # ---- 7. canonical training in the classic layout

@@ -1,19 +1,19 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 The sources under `csrc/` have a plain C interface (no PyTorch headers).
-One `nvcc -c` per source, all started together, compiles them in parallel;
-one more `nvcc -shared` links the objects into a shared library, which
-`ctypes` loads. Pointers and the stream cross as `c_void_p`, sizes as
+One `nvcc -c` per `.cu` file there, all started together, compiles them in
+parallel; one more `nvcc -shared` links the objects into a shared library,
+which `ctypes` loads. Pointers and the stream cross as `c_void_p`, sizes as
 `c_int`. Every entry point returns `cudaGetLastError()` after its launch;
 :func:`launch` raises when that is not 0. A failed build raises with nvcc's
 output. There is no fallback: a caller that wants the kernel gets it or an
 exception.
 
 The library is built at first use into `build/` beside this file (listed in
-`.gitignore`), under a name keyed by a hash of the sources and flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. Nothing
-here runs at import time: the CPU tests import this module on machines with
-no nvcc and no card.
+`.gitignore`), under a name keyed by a hash of every file under `csrc/`
+(headers included) and the flags, so an edited source or header is rebuilt
+and an unchanged tree is loaded as it is. Nothing here runs at import time:
+the CPU tests import this module on machines with no nvcc and no card.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ from typing import Tuple
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # C entry points and their arguments: pointers (and the stream last) cross
@@ -47,6 +46,9 @@ ENTRY_POINTS = {
     "flash_bwd_bhld_fused": _BWD_ARGS,
     "flash_bwd_dq": _BWD_ARGS,
     "flash_bwd_dkv": _BWD_ARGS,
+    # (head_dim, *smem_bytes, *blocks_per_sm) of the tensor-core kernels
+    "flash_fwd_bhld_occupancy": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    "flash_bwd_dkv_occupancy": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
 }
 
 _lock = threading.Lock()
@@ -65,9 +67,14 @@ def _nvcc() -> str:
                        "CUDA kernels need the CUDA toolkit to build")
 
 
+def sources() -> list:
+    """The `.cu` files under `csrc/`, each compiled by its own nvcc."""
+    return sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cu"))
+
+
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in sorted(os.listdir(CSRC_DIR)):
         h.update(name.encode())
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(f.read())
@@ -98,9 +105,10 @@ def build() -> Tuple[str, float, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        srcs = sources()
+        objs = [os.path.join(tmp, s + ".o") for s in srcs]
         log = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, s)]
-                    for s, obj in zip(SOURCES, objs)])
+                    for s, obj in zip(srcs, objs)])
         lib = os.path.join(tmp, "lib.so")
         _run([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
         os.replace(lib, path)  # atomic: a concurrent build leaves one good file
@@ -130,3 +138,15 @@ def launch(name: str, *args) -> None:
     if err != 0:
         msg = lib.gemm_gan_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err} ({msg})")
+
+
+def occupancy(name: str, head_dim: int) -> Tuple[int, int]:
+    """(dynamic shared memory bytes per block, resident blocks per SM) of
+    tensor-core kernel `name` at `head_dim`, from the CUDA runtime."""
+    lib = load()
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = getattr(lib, name + "_occupancy")(head_dim, ctypes.byref(smem), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"{name} occupancy query failed: error {err} "
+                           f"({lib.gemm_gan_error_string(err).decode()})")
+    return smem.value, blocks.value

@@ -1,16 +1,14 @@
-// Masked flash-attention forward for Hopper (sm_90a), f32.
+// Masked flash-attention forward for Hopper (sm_90a), f32, projection layout.
 //
-// Replaces the two Pallas TPU forward kernels of
-// gemm_gan_tpu/kernels/flash_attention.py:
-//   flash_fwd_ble   <- _fwd_kernel_ble (:290), reached via flash_mha_ble.
-//                      q, k, v [B, L, E = H*D]; head h is the column slice
-//                      [h*D, (h+1)*D); o is written in the same layout.
-//   flash_fwd_bhld  <- _fwd_kernel (:84), reached via flash_mha.
-//                      q, k, v [B*H, L, D].
-// Both write lse as [B, H, Lq] f32; the TPU kernels broadcast it across 128
-// lanes to satisfy their (8, 128) tiling, which nothing here needs.
+// flash_fwd_ble replaces the Pallas TPU kernel `_fwd_kernel_ble`
+// (gemm_gan_tpu/kernels/flash_attention.py:290), reached via flash_mha_ble:
+// q, k, v [B, L, E = H*D]; head h is the column slice [h*D, (h+1)*D); o is
+// written in the same layout, lse as [B, H, Lq] f32 (the TPU kernel
+// broadcasts it across 128 lanes to satisfy its (8, 128) tiling, which
+// nothing here needs). The classic layout's forward, flash_fwd_bhld, is in
+// flash_fwd_bhld.cu.
 //
-// What each computes, per (batch, head, query row), with q already scaled:
+// What it computes, per (batch, head, query row), with q already scaled:
 //   s_j = q . k_j over the keys whose mask[b, j] is true (masked keys take
 //   no part: the TPU's exp(-1e30 - m) is exactly 0 for them);
 //   m = max_j s_j, l = sum_j exp(s_j - m);
@@ -18,10 +16,9 @@
 //   A row with no valid key gets o = 0 and lse = -1e30, as on the TPU.
 //
 // What bounds it on an H100: the canonical patch self-attention
-// (B=8, L=257, E=256, H=4) is ~0.54 GFLOP over ~8.4 MB per launch, and the
-// whole-slide one (B=8, H=4, L=4097, D=64) ~137 GFLOP over ~34 MB. Both are
-// far above the f32 ridge point (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte),
-// so operations, not bytes, bound them.
+// (B=8, L=257, E=256, H=4) is ~0.54 GFLOP over ~8.4 MB per launch, far
+// above the f32 ridge point (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte), so
+// operations, not bytes, bound it.
 //
 // Design, simple and correct first: one block of 64 threads per (64-row q
 // tile, head, batch). Each thread owns one query row and keeps q, acc[D], m
@@ -31,10 +28,8 @@
 // conflicts). The online softmax rescales acc once per chunk of 16 keys.
 // Ragged edges (Lq, Lk not multiples of a tile) are masked here, so the
 // caller pads nothing. All arithmetic is f32 FMA on the CUDA cores, so the
-// f32 peak of 67 TFLOP/s is this kernel's ceiling. A faster kernel would
-// run both products on the tensor cores (wgmma) with tiles fed by TMA and
-// mbarriers; that needs operands narrower than f32 (tf32 or bf16), which
-// is the JAX package's opt-in `flash_mxu_bf16` and not this slice's default.
+// f32 peak of 67 TFLOP/s is this kernel's ceiling; flash_fwd_bhld.cu shows
+// the tensor-core (3xTF32) design that would lift it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -184,19 +179,6 @@ extern "C" int flash_fwd_ble(const float* q, const float* k, const float* v,
   const Args a{q, k, v, mask, o, lse,
                lq * e, head_dim, e,
                lk * e, head_dim, e,
-               lq, lk, heads};
-  return dispatch(a, head_dim, batch, static_cast<cudaStream_t>(stream));
-}
-
-// q [B*H, Lq, D], k, v [B*H, Lk, D]; mask [B, Lk]; o like q; lse [B, H, Lq].
-extern "C" int flash_fwd_bhld(const float* q, const float* k, const float* v,
-                              const uint8_t* mask, float* o, float* lse,
-                              int batch, int lq, int lk, int heads, int head_dim,
-                              void* stream) {
-  const int64_t d = head_dim;
-  const Args a{q, k, v, mask, o, lse,
-               heads * (lq * d), lq * d, d,
-               heads * (lk * d), lk * d, d,
                lq, lk, heads};
   return dispatch(a, head_dim, batch, static_cast<cudaStream_t>(stream));
 }

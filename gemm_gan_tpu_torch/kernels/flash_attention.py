@@ -4,15 +4,17 @@ Counterpart of `gemm_gan_tpu/kernels/flash_attention.py`. Masks are boolean
 with **True = valid**; rows with no valid key return 0 (torch's own
 attention would return NaN).
 
-Two forward kernels live in `csrc/flash_fwd.cu`:
+Two forward kernels:
 
 * `flash_fwd_ble` (replaces the TPU's `_fwd_kernel_ble`): q, k, v in the
   raw projection layout [B, L, E = H*D], heads split by column offset inside
   the kernel. `masked_mha(layout="ble")` takes it for
   MIN_PALLAS_LQ <= Lq <= BLE_MAX_L and Lk <= BLE_MAX_L (the canonical
-  257-token patch self-attention).
+  257-token patch self-attention); `csrc/flash_fwd.cu`, f32 on the CUDA
+  cores.
 * `flash_fwd_bhld` (replaces the TPU's blocked `_fwd_kernel`): q, k, v as
-  [B, H, L, D], for longer sequences (whole-slide patch counts).
+  [B, H, L, D], for longer sequences (whole-slide patch counts);
+  `csrc/flash_fwd_bhld.cu`, on the tensor cores in 3xTF32 (f32-grade).
 
 Each has a **plain PyTorch version** (`*_plain`) with the same arithmetic
 contract, returning `(o, lse)` with lse [B, H, Lq] f32. A kernel wrapper
@@ -21,8 +23,9 @@ launches the kernel or raises. Each wrapper counts its launches in a plain
 int attribute (`flash_fwd_ble.launches`, `flash_fwd_bhld.launches`), so a
 run can show that its path went through the kernels.
 
-Four backward kernels live in `csrc/flash_bwd.cu`, each with a plain
-version and a launch counter of its own:
+Four backward kernels, each with a plain version and a launch counter of
+its own, in `csrc/flash_bwd.cu` (f32 on the CUDA cores) but for
+`flash_bwd_dkv`, which is `csrc/flash_bwd_dkv.cu` (tensor cores, 3xTF32):
 
 * `flash_bwd_ble` (replaces `_bwd_kernel_ble`): dq, dk, dv of the ble
   layout in one launch, delta = rowsum(dO * O) computed in the kernel.

@@ -191,9 +191,16 @@ def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
     assert first.startswith(str(tmp_path)) and first == build.library_path()
     src = tmp_path / "csrc"
     src.mkdir()
-    for name in build.SOURCES:
+    names = sorted(os.listdir(build.CSRC_DIR))
+    for name in names:
         (src / name).write_text((Path(build.CSRC_DIR) / name).read_text())
     monkeypatch.setattr(build, "CSRC_DIR", str(src))
     assert build.library_path() == first  # same sources, same library
-    (src / build.SOURCES[-1]).write_text("// changed\n")
-    assert build.library_path() != first
+    assert build.sources() == [n for n in names if n.endswith(".cu")]
+    assert {"flash_fwd_bhld.cu", "flash_bwd_dkv.cu"} <= set(build.sources())
+    # a header is part of the key: editing it must not load a stale library
+    (src / "tf32x3.cuh").write_text("// changed\n")
+    header_changed = build.library_path()
+    assert header_changed != first
+    (src / build.sources()[-1]).write_text("// changed\n")
+    assert build.library_path() not in (first, header_changed)
