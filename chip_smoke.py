@@ -8,14 +8,16 @@ imports nothing of JAX or of the JAX package. Phases:
 1. Build the CUDA kernels from `gemm_gan_tpu_torch/kernels/csrc/` (one nvcc
    per source, in parallel, into the ignored build dir) and print the build
    time, nvcc's register/spill/shared-memory report for every kernel and
-   head dim, the tensor-core kernels' dynamic shared memory and blocks per
-   SM, and the card's name and power limit.
+   head dim (a kernel template it cannot name raises), the tensor-core
+   kernels' dynamic shared memory and blocks per SM, and the card's name
+   and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it plus ragged and
-   fully-masked cases, and time kernel, plain version and the library's
-   `scaled_dot_product_attention` (forward, or its backward through
-   `torch.autograd.grad`; a yardstick only: the port never calls it), with
-   the names of the CUDA kernels the library ran (torch.profiler).
+   fully-masked cases and D 8 / 128, and time kernel, plain version and the
+   library's `scaled_dot_product_attention` (forward, or its backward
+   through `torch.autograd.grad`; a yardstick only: the port never calls
+   it) by CUDA events, kernel and library also by their device time
+   (torch.profiler), with the names of the CUDA kernels the library ran.
 3. Serving, the main path: `GeneratorServer.sample_all` with the flagship
    `film_cross_attention` generator at canonical widths (random weights from
    a seeded numpy tree in Flax layout, carried over by `convert.py`),
@@ -40,7 +42,8 @@ imports nothing of JAX or of the JAX package. Phases:
    same step with `fusion.use_pallas=False`, both on the card, gated by
    how far the kernels' plain versions on the card land from the same.
 7. Canonical training with `fusion.flash_layout="bhld"`: `flash_fwd_bhld`
-   and `flash_bwd_bhld_fused`.
+   and `flash_bwd_bhld_fused`; one dropout-free step against the same step
+   with `fusion.use_pallas=False`, both on the card, gated as in phase 6.
 8. Prints one `{"kernels": [...]}` JSON line, the card's line, then the
    contract line `{"ok": true, "device": {...}}` last.
 
@@ -67,11 +70,11 @@ TPU_KERNELS = "gemm_gan_tpu/kernels/flash_attention.py"
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "flash_fwd_ble": (CSRC + "flash_fwd.cu", f"{TPU_KERNELS}:290"),
-    "flash_fwd_bhld": (CSRC + "flash_fwd_bhld.cu", f"{TPU_KERNELS}:84"),
+    "flash_fwd_bhld": (CSRC + "flash_fwd.cu", f"{TPU_KERNELS}:84"),
     "flash_bwd_ble": (CSRC + "flash_bwd.cu", f"{TPU_KERNELS}:317"),
     "flash_bwd_dq": (CSRC + "flash_bwd.cu", f"{TPU_KERNELS}:142"),
     "flash_bwd_dkv": (CSRC + "flash_bwd_dkv.cu", f"{TPU_KERNELS}:220"),
-    "flash_bwd_bhld_fused": (CSRC + "flash_bwd.cu", f"{TPU_KERNELS}:179"),
+    "flash_bwd_bhld_fused": (CSRC + "flash_bwd_fused.cu", f"{TPU_KERNELS}:179"),
 }
 # FLOP per (query, valid key, head-dim element) of each backward kernel:
 # s = q.k, dp = dO.v, then dv, dq, dk, 2 FLOP per multiply-add each
@@ -79,8 +82,9 @@ BWD_FLOP = {"flash_bwd_ble": 10, "flash_bwd_bhld_fused": 10,
             "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
 # H100 SXM data sheet: f32 outside the tensor cores, dense TF32 on the
 # tensor cores, and HBM3 bandwidth. `bound_tc_ms` counts 3 TF32 products per
-# f32 product (3xTF32, as flash_fwd_bhld.cu / flash_bwd_dkv.cu compute and
-# as the library's f32 attention on sm80+ does).
+# f32 product (3xTF32, as flash_fwd.cu, flash_bwd_dkv.cu and
+# flash_bwd_fused.cu compute and as the library's f32 attention on sm80+
+# does).
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -117,6 +121,27 @@ MAX_LOOSE = 200
 # PLAIN_LOOSE_FACTOR times as many entries as the plain versions do on the
 # same step (or MAX_LOOSE, if more), besides the metrics and bound gates.
 PLAIN_LOOSE_FACTOR = 2
+
+
+# (kernel template, its bool template arguments) -> entry point
+PTXAS_ENTRIES = {("flash_fwd_kernel", (1,)): "flash_fwd_ble",
+                 ("flash_fwd_kernel", (0,)): "flash_fwd_bhld",
+                 ("flash_bwd_kernel", (1, 1, 1)): "flash_bwd_ble",  # <kDq, kDkv, kDeltaHere>
+                 ("flash_bwd_kernel", (1, 0, 0)): "flash_bwd_dq",
+                 ("flash_bwd_dkv_kernel", ()): "flash_bwd_dkv",
+                 ("flash_bwd_fused_kernel", ()): "flash_bwd_bhld_fused"}
+
+
+def ptxas_entry(mangled: str):
+    """(entry point, head dim) of the kernel template instantiation that
+    ptxas names `mangled`; raises on a kernel that PTXAS_ENTRIES does not
+    know, so that none goes unreported."""
+    m = re.search(r"\d(flash_\w+?_kernel)I((?:L[ib]\d+E)+)E", mangled)
+    args = re.findall(r"L([ib])(\d+)E", m.group(2)) if m else []
+    key = (m.group(1), tuple(int(v) for kind, v in args if kind == "b")) if m else None
+    if key not in PTXAS_ENTRIES:
+        raise ValueError(f"ptxas reports a kernel chip_smoke does not know: {mangled}")
+    return PTXAS_ENTRIES[key], int(args[0][1])
 
 
 def card_line() -> str:
@@ -186,6 +211,26 @@ def bound(H, Lq, D, q, k, v, mask) -> dict:
     return bounds(flops, nbytes)
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time (ms) per call of `fn`: the sum of the device time of the
+    kernels, copies and memsets that `iters` calls ran, by torch.profiler,
+    over `iters` (after one warm-up call). Unlike `cuda_ms` it leaves out
+    the host's time between launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3 / iters
+
+
 def device_kernels(fn) -> list:
     """Names of the CUDA kernels one call of `fn` ran, from torch.profiler."""
     import torch
@@ -249,8 +294,9 @@ def time_kernel(fa, layout, H, Lq, D, q, k, v, mask):
         plain_ms = cuda_ms(plain, iters=5)
         library_ms = cuda_ms(library)
         print(f"  library forward ran: {device_kernels(library)}", flush=True)
+        device = {"device_ms": device_ms(kernel), "library_device_ms": device_ms(library)}
     return {"ms": ms, "plain_ms": plain_ms, **bound(H, Lq, D, q, k, v, mask),
-            "library_ms": library_ms}
+            "library_ms": library_ms, **device}
 
 
 def bwd_args(fa, name, H, q, k, v, mask, seed):
@@ -330,13 +376,15 @@ def time_bwd_kernel(fa, name, layout, H, args):
     library = lambda: torch.autograd.grad(out, wrt, dout, retain_graph=True)  # noqa: E731
     library_ms = cuda_ms(library)
     print(f"  library backward ran: {device_kernels(library)}", flush=True)
+    device = {"device_ms": device_ms(lambda: kernel(*args)),
+              "library_device_ms": device_ms(library)}
     Lq = q.shape[1] if layout == "ble" else q.shape[2]
     flops = BWD_FLOP[name] * H * Lq * D * int(mask.sum())
     reads = [x for x in args if isinstance(x, torch.Tensor)]
     writes = {"flash_bwd_dq": [q], "flash_bwd_dkv": [k, v]}.get(name, [q, k, v])
     nbytes = sum(x.numel() * x.element_size() for x in reads + writes)
     return {"ms": ms, "plain_ms": plain_ms, **bounds(flops, nbytes),
-            "library_ms": library_ms}
+            "library_ms": library_ms, **device}
 
 
 def device_breakdown(server, batch) -> dict:
@@ -498,6 +546,22 @@ def step_diff(test, ref, max_loose=None) -> dict:
     return summary
 
 
+def relative_step_gate(fa, cfg_of, step_args):
+    """One step with the kernels against the same step with
+    `use_pallas=False`, both on the card (`cfg_of(**fusion)` gives the
+    config), gated by how far the kernels' own plain versions land from the
+    same reference: per net at most PLAIN_LOOSE_FACTOR times their count of
+    entries beyond PARAM_ATOL (or MAX_LOOSE, if more), besides the metrics
+    and bound gates of `step_diff`. Returns (kernels' summary, plain
+    versions' summary, the limits)."""
+    ref = run_step(cfg_of(use_pallas=False), *step_args)
+    with plain_kernels(fa):
+        plain = step_diff(run_step(cfg_of(), *step_args), ref, max_loose={})
+    max_loose = {net: max(MAX_LOOSE, PLAIN_LOOSE_FACTOR * n)
+                 for net, n in plain["beyond_atol_by_net"].items()}
+    return step_diff(run_step(cfg_of(), *step_args), ref, max_loose), plain, max_loose
+
+
 class plain_kernels:
     """Within this context every kernel wrapper of `fa` runs its plain
     PyTorch version, also on CUDA tensors (a yardstick: the kernels' own
@@ -594,20 +658,13 @@ def main() -> int:
     _, build_s, log = build.build()
     build.load()
     print(f"[1] built kernels in {build_s:.1f} s", flush=True)
-    # kernel template -> entry point; flash_bwd.cu's template is named by its
-    # <kDq, kDkv, kDeltaHere> flags
-    entries = {"flash_fwd_kernel": "flash_fwd_ble", "flash_fwd_bhld_kernel": "flash_fwd_bhld",
-               "flash_bwd_dkv_kernel": "flash_bwd_dkv", "111": "flash_bwd_ble",
-               "110": "flash_bwd_bhld_fused", "100": "flash_bwd_dq"}
     for line in log.splitlines():  # ptxas -v, one entry per template instantiation
-        entry = re.search(r"Compiling entry function '\w*?(flash_(?:fwd|bwd)(?:_bhld|_dkv)?"
-                          r"_kernel)ILi(\d+)E((?:Lb[01]E)*)", line)
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            flags = "".join(re.findall(r"Lb([01])E", entry.group(3)))
-            print(f"    {entries[flags or entry.group(1)]} D={entry.group(2)}:")
+            print("    {} D={}:".format(*ptxas_entry(entry.group(1))))
         elif "registers" in line or "spill" in line:
             print("      " + line.replace("ptxas info    :", "").strip())
-    for name in ("flash_fwd_bhld", "flash_bwd_dkv"):  # dynamic shared memory
+    for name in build.TENSOR_CORE_KERNELS:  # dynamic shared memory
         for D in fa.HEAD_DIMS:
             smem, blocks = build.occupancy(name, D)
             print(f"    {name} D={D}: {smem} bytes of dynamic shared memory per block, "
@@ -617,6 +674,7 @@ def main() -> int:
     print(f"[2] kernels vs plain (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})", flush=True)
     errs = {name: 0.0 for name in KERNELS}
     cases = [("ble", 8, 4, 257, 257, 64), ("ble", 2, 2, 130, 260, 64),
+             ("ble", 2, 2, 136, 260, 8), ("ble", 2, 2, 136, 260, 128),
              ("bhld", 8, 4, 4097, 4097, 64), ("bhld", 2, 2, 130, 260, 64),
              ("bhld", 2, 2, 136, 600, 64), ("bhld", 2, 2, 136, 600, 8),
              ("bhld", 2, 2, 136, 600, 128)]
@@ -627,6 +685,7 @@ def main() -> int:
                  ("flash_bwd_ble", ("ble", 2, 2, 130, 260, 64)),
                  ("flash_bwd_bhld_fused", ("bhld", 8, 4, 257, 257, 64)),
                  ("flash_bwd_bhld_fused", ("bhld", 2, 2, 130, 260, 64))]
+    bwd_cases += [("flash_bwd_bhld_fused", ("bhld", 2, 2, 136, 260, D)) for D in (8, 128)]
     bwd_cases += [(name, ("bhld", 8, 4, 4097, 4097, 64))
                   for name in ("flash_bwd_dq", "flash_bwd_dkv")]
     bwd_cases += [(name, ("bhld", 2, 2, 136, 600, D))
@@ -779,20 +838,15 @@ def main() -> int:
         "flash_bwd_dq": n_bwd * WS_TRAIN_STEPS,
         "flash_bwd_dkv": n_bwd * WS_TRAIN_STEPS}, launches
     del engine, state
-    step_args = ("cuda", params, d_params, ws_batch, random_draws(tcfg, seed=6))
-    ref = run_step(train_cfg(exp, dropout=0.0, use_pallas=False), *step_args)
-    with plain_kernels(fa):
-        plain = step_diff(run_step(train_cfg(exp, dropout=0.0), *step_args), ref,
-                          max_loose={})
-    max_loose = {net: max(MAX_LOOSE, PLAIN_LOOSE_FACTOR * n)
-                 for net, n in plain["beyond_atol_by_net"].items()}
-    cmp = step_diff(run_step(train_cfg(exp, dropout=0.0), *step_args), ref, max_loose)
+    cmp, plain, max_loose = relative_step_gate(
+        fa, lambda **kw: train_cfg(exp, dropout=0.0, **kw),
+        ("cuda", params, d_params, ws_batch, random_draws(tcfg, seed=6)))
     print(f"    kernels vs use_pallas=False (blocked reference), both on the card, one "
           f"whole-slide step at dropout 0: {json.dumps(cmp)}; the plain versions on the "
           f"card vs the same: {json.dumps(plain)} (metrics rtol {STEP_RTOL}, atol "
           f"{STEP_ATOL}; params beyond atol {PARAM_ATOL} per net at most {max_loose})",
           flush=True)
-    del ref, ws, ws_batch
+    del ws, ws_batch
     torch.cuda.empty_cache()
 
     # ---- 7. canonical training in the classic layout
@@ -809,6 +863,14 @@ def main() -> int:
     assert launches["bhld_training"] == {
         **dict.fromkeys(KERNELS, 0), "flash_fwd_bhld": n_fwd,
         "flash_bwd_bhld_fused": n_bwd}, launches
+    del engine, state
+    cmp, plain, max_loose = relative_step_gate(
+        fa, lambda **kw: train_cfg(exp, dropout=0.0, flash_layout="bhld", **kw),
+        ("cuda", params, d_params, batches[0], random_draws(bcfg, seed=7)))
+    print(f"    kernels vs use_pallas=False (plain reference), both on the card, one bhld "
+          f"step at dropout 0: {json.dumps(cmp)}; the plain versions on the card vs the "
+          f"same: {json.dumps(plain)} (metrics rtol {STEP_RTOL}, atol {STEP_ATOL}; params "
+          f"beyond atol {PARAM_ATOL} per net at most {max_loose})", flush=True)
 
     # ---- 8. report
     paths = {"flash_fwd_ble": "serving", "flash_fwd_bhld": "whole_slide_serving",

@@ -46,10 +46,13 @@ ENTRY_POINTS = {
     "flash_bwd_bhld_fused": _BWD_ARGS,
     "flash_bwd_dq": _BWD_ARGS,
     "flash_bwd_dkv": _BWD_ARGS,
-    # (head_dim, *smem_bytes, *blocks_per_sm) of the tensor-core kernels
-    "flash_fwd_bhld_occupancy": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
-    "flash_bwd_dkv_occupancy": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
 }
+# the tensor-core kernels, each with an entry `<name>_occupancy(head_dim,
+# *smem_bytes, *blocks_per_sm)`
+TENSOR_CORE_KERNELS = ("flash_fwd_ble", "flash_fwd_bhld", "flash_bwd_bhld_fused",
+                       "flash_bwd_dkv")
+ENTRY_POINTS.update({name + "_occupancy": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                     for name in TENSOR_CORE_KERNELS})
 
 _lock = threading.Lock()
 _lib = None

@@ -1,15 +1,14 @@
-// Masked flash-attention backward for Hopper (sm_90a), f32.
+// Masked flash-attention backward for Hopper (sm_90a), f32, on the CUDA cores.
 //
-// Replaces three of the four Pallas TPU backward kernels of
-// gemm_gan_tpu/kernels/flash_attention.py (the fourth, _bwd_dkv_kernel
-// (:220), is flash_bwd_dkv in flash_bwd_dkv.cu, on the tensor cores):
+// Replaces two of the four Pallas TPU backward kernels of
+// gemm_gan_tpu/kernels/flash_attention.py (the other two run on the tensor
+// cores: _bwd_dkv_kernel (:220) is flash_bwd_dkv in flash_bwd_dkv.cu,
+// _bwd_fused_kernel (:179) flash_bwd_bhld_fused in flash_bwd_fused.cu):
 //   flash_bwd_ble         <- _bwd_kernel_ble (:317). q, k, v, o, dO, dq, dk,
 //                            dv in the projection layout [B, L, E = H*D];
 //                            delta = rowsum(dO * O) is computed in-kernel.
-//   flash_bwd_bhld_fused  <- _bwd_fused_kernel (:179), the single-block
-//                            case (n_q == n_k == 1) of the classic layout
-//                            [B*H, L, D]; delta given.
-//   flash_bwd_dq          <- _bwd_dq_kernel (:142), blocked dq; delta given.
+//   flash_bwd_dq          <- _bwd_dq_kernel (:142), blocked dq of the
+//                            classic layout [B*H, L, D]; delta given.
 // lse and delta are [B, H, Lq] f32 (no TPU lane broadcast).
 //
 // What each computes, per (batch, head), with q already scaled and lse the
@@ -24,7 +23,7 @@
 // What bounds it on an H100: the canonical patch self-attention (B=8, H=4,
 // L=257, D=64) needs 10*B*H*L*L*D = 1.35 GFLOP (s, dp, dv, dq, dk) over
 // ~14 MB, the whole-slide dq pass (L=4097) 206 GFLOP (6 per element) over
-// ~34 MB: all far above the f32 ridge point (20 FLOP/byte), so operations
+// ~34 MB: both far above the f32 ridge point (20 FLOP/byte), so operations
 // bound them.
 //
 // Design, simple and correct first. Every kernel is one template over two
@@ -39,9 +38,8 @@
 //    row, each holding 16-wide slices of k, v, dk and dv (64 floats).
 //    Queries, dO, lse and delta are staged through shared memory in tiles
 //    of 64 (32 at D=128).
-// flash_bwd_dq launches only dq tiles, and the single-block kernels (ble,
-// bhld_fused) both kinds in ONE launch: the
-// grid is (n_dq_tiles + n_dkv_tiles, H, B). Nothing passes between tiles,
+// flash_bwd_dq launches only dq tiles, and the single-block ble kernel both
+// kinds in ONE launch: the grid is (n_dq_tiles + n_dkv_tiles, H, B). Nothing passes between tiles,
 // so the ble kernel's dk/dv tiles compute delta for their staged queries
 // themselves (Lq*D FMAs, small beside the tile's 4*Lq*rows*D). At the
 // canonical shape that gives (5 + 9) * 32 = 448 blocks, not the B*H = 32
@@ -332,9 +330,9 @@ Args bhld_args(const float* q, const float* k, const float* v, const uint8_t* ma
 
 }  // namespace
 
-// All backward entry points (flash_bwd_dkv.cu's too) take the same
-// arguments; each reads or writes only the pointers it names below and
-// ignores the rest (pass null).
+// All backward entry points (flash_bwd_dkv.cu's and flash_bwd_fused.cu's
+// too) take the same arguments; each reads or writes only the pointers it
+// names below and ignores the rest (pass null).
 #define FLASH_BWD_PARAMS                                                          \
   const float *q, const float *k, const float *v, const uint8_t *mask,            \
       const float *o, const float *dout, const float *lse, const float *delta,    \
@@ -346,13 +344,6 @@ extern "C" int flash_bwd_ble(FLASH_BWD_PARAMS) {
   const Args a = ble_args(q, k, v, mask, o, dout, lse, nullptr, dq, dk, dv, lq, lk,
                           heads, head_dim);
   return dispatch<true, true, true>(a, head_dim, batch, static_cast<cudaStream_t>(stream));
-}
-
-// [B*H, L, D], single block; reads delta, writes dq, dk, dv.
-extern "C" int flash_bwd_bhld_fused(FLASH_BWD_PARAMS) {
-  const Args a = bhld_args(q, k, v, mask, nullptr, dout, lse, delta, dq, dk, dv, lq, lk,
-                           heads, head_dim);
-  return dispatch<true, true, false>(a, head_dim, batch, static_cast<cudaStream_t>(stream));
 }
 
 // [B*H, L, D]; reads delta, writes dq.

@@ -33,10 +33,16 @@ constexpr float kNegInf = -1e30f;
 // column of C fragment -> column of the product it holds (see above)
 __device__ __forceinline__ int perm(int n) { return (n >> 1) + ((n & 1) << 2); }
 
+// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+// from zero, as cvt.rna.tf32.f32 rounds: half a TF32 ulp added to the
+// magnitude bits, then the low 13 bits cleared (a carry into the exponent
+// is the right result). Two integer operations instead of the cvt, whose
+// throughput set the pace of the 3xTF32 splits: the same results, and
+// 11-15% off flash_fwd_ble, flash_fwd_bhld and flash_bwd_dkv, a third off
+// flash_bwd_bhld_fused, on an NVIDIA H100 80GB HBM3 at a 700 W limit
+// (scripts/torch_kernel_variants.py, variants *_cvt_rna; PERF.md).
 __device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
@@ -103,16 +109,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// Stage rows [r0, r0 + R) of a dense [*, D] f32 operand into a swizzled
-// [R, D] tile with 16-byte cp.async copies; rows >= n_rows are zero-filled.
+// Stage rows [r0, r0 + R) of an f32 operand whose rows hold D contiguous
+// floats `stride` floats apart (D for a dense [*, D] array; H * D for one
+// head's columns of a [*, H * D] one) into a swizzled [R, D] tile with
+// 16-byte cp.async copies; rows >= n_rows are zero-filled.
 template <int D, int R, int kThreads>
-__device__ __forceinline__ void stage_rows(float* tile, const float* src, int r0, int n_rows) {
+__device__ __forceinline__ void stage_rows(float* tile, const float* src, int r0, int n_rows,
+                                           int64_t stride = D) {
   constexpr int V4 = D / 4;
   for (int i = threadIdx.x; i < R * V4; i += kThreads) {
     const int r = i / V4;
     const int c = (i % V4) * 4;
     const bool live = r0 + r < n_rows;
-    cp_async16(tile + swz<D>(r, c), src + static_cast<int64_t>(live ? r0 + r : 0) * D + c, live);
+    cp_async16(tile + swz<D>(r, c), src + (live ? r0 + r : 0) * stride + c, live);
   }
 }
 

@@ -1,20 +1,19 @@
-"""Masked multi-head attention: hand-written CUDA forward kernels + plain PyTorch.
+"""Masked multi-head attention: hand-written CUDA kernels + plain PyTorch.
 
 Counterpart of `gemm_gan_tpu/kernels/flash_attention.py`. Masks are boolean
 with **True = valid**; rows with no valid key return 0 (torch's own
 attention would return NaN).
 
-Two forward kernels:
+Two forward kernels, one CUDA template on the tensor cores in 3xTF32
+(f32-grade), `csrc/flash_fwd.cu`:
 
 * `flash_fwd_ble` (replaces the TPU's `_fwd_kernel_ble`): q, k, v in the
   raw projection layout [B, L, E = H*D], heads split by column offset inside
   the kernel. `masked_mha(layout="ble")` takes it for
   MIN_PALLAS_LQ <= Lq <= BLE_MAX_L and Lk <= BLE_MAX_L (the canonical
-  257-token patch self-attention); `csrc/flash_fwd.cu`, f32 on the CUDA
-  cores.
+  257-token patch self-attention).
 * `flash_fwd_bhld` (replaces the TPU's blocked `_fwd_kernel`): q, k, v as
-  [B, H, L, D], for longer sequences (whole-slide patch counts);
-  `csrc/flash_fwd_bhld.cu`, on the tensor cores in 3xTF32 (f32-grade).
+  [B, H, L, D], for longer sequences (whole-slide patch counts).
 
 Each has a **plain PyTorch version** (`*_plain`) with the same arithmetic
 contract, returning `(o, lse)` with lse [B, H, Lq] f32. A kernel wrapper
@@ -24,15 +23,19 @@ int attribute (`flash_fwd_ble.launches`, `flash_fwd_bhld.launches`), so a
 run can show that its path went through the kernels.
 
 Four backward kernels, each with a plain version and a launch counter of
-its own, in `csrc/flash_bwd.cu` (f32 on the CUDA cores) but for
-`flash_bwd_dkv`, which is `csrc/flash_bwd_dkv.cu` (tensor cores, 3xTF32):
+its own:
 
 * `flash_bwd_ble` (replaces `_bwd_kernel_ble`): dq, dk, dv of the ble
-  layout in one launch, delta = rowsum(dO * O) computed in the kernel.
+  layout in one launch, delta = rowsum(dO * O) computed in the kernel;
+  `csrc/flash_bwd.cu`, f32 on the CUDA cores.
 * `flash_bwd_bhld_fused` (replaces `_bwd_fused_kernel`): dq, dk, dv of the
-  classic layout in one launch, for single-block shapes (`single_block`).
+  classic layout in one launch, for single-block shapes (`single_block`);
+  `csrc/flash_bwd_fused.cu`, tensor cores (3xTF32).
 * `flash_bwd_dq` and `flash_bwd_dkv` (replace `_bwd_dq_kernel` and
-  `_bwd_dkv_kernel`): the blocked classic backward, two launches.
+  `_bwd_dkv_kernel`): the blocked classic backward, two launches;
+  `csrc/flash_bwd.cu` (CUDA cores) and `csrc/flash_bwd_dkv.cu` (tensor
+  cores, 3xTF32). The tensor-core backward kernels share the dq and dk/dv
+  tiles of `csrc/flash_bwd_tc.cuh`.
 
 `flash_mha_ble` and `flash_mha` run through a `torch.autograd.Function`
 per layout (`FlashAttentionBLE`, `FlashAttentionBHLD`) whose backward is

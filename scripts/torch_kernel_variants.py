@@ -1,23 +1,34 @@
 """Build variants of the port's tensor-core attention kernels, hold each
 against its plain PyTorch version and time it, on the card.
 
-    python3 scripts/torch_kernel_variants.py [variant ...]
+    python3 scripts/torch_kernel_variants.py [--parent CSRC] [variant ...]
 
-Needs one CUDA card (an H100: sm_90a) and nvcc. Each variant is a copy of
-`flash_fwd_bhld.cu` or `flash_bwd_dkv.cu` (and of `tf32x3.cuh`) with text
-substitutions, compiled by its own nvcc into a library under
-`gemm_gan_tpu_torch/kernels/build/variants/` (ignored by git) and called
-through ctypes with the entry point's usual arguments. For each variant it
-prints ptxas' registers and spills at D = 64, the dynamic shared memory and
-blocks per SM, then, at the whole-slide shape (B 8, H 4, L 4,097, D 64),
-the largest |kernel - plain version| on all-valid and ragged masks and the
-kernel's time by CUDA events (20 launches after 3 warm-up). With no
-argument it runs every variant in VARIANTS. A measuring tool for tuning
-only: the port builds and calls the sources as they are.
+Needs one CUDA card (an H100: sm_90a) and nvcc. A variant is a copy of one
+source under `gemm_gan_tpu_torch/kernels/csrc/` (with the headers there),
+or, for the `*_parent` variants, under `--parent`: the `csrc/` directory of
+another commit, unpacked beside the repository (for example with
+`git archive <commit> gemm_gan_tpu_torch/kernels/csrc | tar -x -C DIR`), so
+that the two trees are timed in one run on one card. Text substitutions
+are applied to the copy, which its own nvcc compiles (all in parallel) into
+a library under `gemm_gan_tpu_torch/kernels/build/variants/` (ignored by
+git), called through ctypes with the entry point's usual arguments.
+
+For each variant it prints ptxas' registers and spills at D = 64, the
+dynamic shared memory and blocks per SM; then, at the entry point's main
+path shape (whole-slide B 8, H 4, L 4,097, D 64 for flash_fwd_bhld and
+flash_bwd_dkv; canonical B 8, H 4, L 257, D 64 for flash_fwd_ble and
+flash_bwd_bhld_fused), the largest |kernel - plain version| on all-valid
+and ragged masks, and on the all-valid one the kernel's time by CUDA events
+(20 launches after 3 warm-up) and its device time by torch.profiler. The
+variants are timed in the order given, and a name may be given more than
+once (parent, change, change, parent). With no name it runs every variant
+in VARIANTS (the `*_parent` ones only with `--parent`). A measuring tool for tuning only: the port
+builds and calls the sources as they are.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import re
@@ -27,7 +38,6 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(HERE, "gemm_gan_tpu_torch", "kernels", "csrc")
 OUT = os.path.join(HERE, "gemm_gan_tpu_torch", "kernels", "build", "variants")
-LB = "__launch_bounds__(kThreads)"
 # the fresh per-tile accumulators of tf32x3::weight_rows, undone: the
 # product accumulates straight into acc, as the first version did
 DIRECT = [("for (int n = 0; n < NC; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;",
@@ -36,23 +46,90 @@ DIRECT = [("for (int n = 0; n < NC; ++n) part[n][0] = part[n][1] = part[n][2] = 
            "part[n][3] = acc[n0 + n][3] * scale_hi; }"),
           (re.compile(r"fmaf\(acc\[n0 \+ n\]\[(\d)\], scale_\w+, part\[n\]\[\d\]\)"),
            r"part[n][\1]")]
-# name -> (source, substitutions of the source, substitutions of tf32x3.cuh)
+FAST_EXP = [(re.compile(r"\bexpf\("), "__expf(")]
+# TF32 rounding by the cvt.rna.tf32.f32 instruction in place of
+# tf32x3::to_tf32's integer arithmetic (the same results)
+CVT_RNA = [("return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;",
+            'uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));\n  return r;')]
+# lo passed on unrounded (the tensor cores read its top 19 bits: truncation)
+LO_RAW = [("lo = to_tf32(x - __uint_as_float(hi));",
+           "lo = __float_as_uint(x - __uint_as_float(hi));")]
+NO_WARP_SKIP = [("if (__any_sync(0xffffffffu, key_ok[0] || key_ok[1])) {", "if (true) {")]
+FWD_LB = "__launch_bounds__(kThreads)"
+BWD_LB = "__launch_bounds__(Cfg<D>::kThreads)"
+DKV_BQ32 = ("kQueries = D <= 64 ? 64 : 32;", "kQueries = 32;")
+# Q6 with 32-row tiles: 2 warps, and 32-query dk/dv tiles
+FUSED_2_WARPS = ("constexpr int kWarps = 4;", "constexpr int kWarps = 2;")
+FUSED_BQ32 = DKV_BQ32
+
+
+def warps(n: int):  # the forward's warps per block, both layouts
+    return ("constexpr int kWarps = 4;", f"constexpr int kWarps = {n};")
+
+
+# name -> (tree: "new" or "parent", source, entry point,
+#          {file under csrc/: substitutions})
 VARIANTS = {
-    "fwd": ("flash_fwd_bhld.cu", [], []),
-    "fwd_direct_acc": ("flash_fwd_bhld.cu", [], DIRECT),
-    "fwd_bk64": ("flash_fwd_bhld.cu", [("int BK = 32;", "int BK = 64;")], []),
-    "fwd_3_blocks": ("flash_fwd_bhld.cu", [(LB, "__launch_bounds__(kThreads, 3)")], []),
-    "fwd_q_raw": ("flash_fwd_bhld.cu", [("kQSplit = D <= 64;", "kQSplit = false;")], []),
-    "fwd_fast_exp": ("flash_fwd_bhld.cu", [(re.compile(r"\bexpf\("), "__expf(")], []),
-    "dkv": ("flash_bwd_dkv.cu", [], []),
-    "dkv_fast_exp": ("flash_bwd_dkv.cu", [(re.compile(r"\bexpf\("), "__expf(")], []),
-    "dkv_direct_acc": ("flash_bwd_dkv.cu", [], DIRECT),
-    "dkv_bq32": ("flash_bwd_dkv.cu", [("BQ = D <= 64 ? 64 : 32;", "BQ = 32;")], []),
-    "dkv_bq32_3_blocks": ("flash_bwd_dkv.cu", [("BQ = D <= 64 ? 64 : 32;", "BQ = 32;"),
-                                               (LB, "__launch_bounds__(kThreads, 3)")], []),
+    # flash_fwd_bhld (Q3), whole-slide
+    "fwd_parent": ("parent", "flash_fwd_bhld.cu", "flash_fwd_bhld", {}),
+    "fwd": ("new", "flash_fwd.cu", "flash_fwd_bhld", {}),
+    "fwd_direct_acc": ("new", "flash_fwd.cu", "flash_fwd_bhld", {"tf32x3.cuh": DIRECT}),
+    "fwd_bk64": ("new", "flash_fwd.cu", "flash_fwd_bhld",
+                 {"flash_fwd.cu": [("int BK = 32;", "int BK = 64;")]}),
+    "fwd_3_blocks": ("new", "flash_fwd.cu", "flash_fwd_bhld",
+                     {"flash_fwd.cu": [(FWD_LB, "__launch_bounds__(kThreads, 3)")]}),
+    "fwd_q_raw": ("new", "flash_fwd.cu", "flash_fwd_bhld",
+                  {"flash_fwd.cu": [("kQSplit = D <= 64;", "kQSplit = false;")]}),
+    "fwd_fast_exp": ("new", "flash_fwd.cu", "flash_fwd_bhld", {"flash_fwd.cu": FAST_EXP}),
+    "fwd_cvt_rna": ("new", "flash_fwd.cu", "flash_fwd_bhld", {"tf32x3.cuh": CVT_RNA}),
+    # flash_fwd_ble (Q1), canonical: blocks of 16 to 80 query rows
+    **{f"ble_{16 * w}rows": ("new", "flash_fwd.cu", "flash_fwd_ble", {"flash_fwd.cu": [warps(w)]})
+       for w in (1, 2, 3, 4, 5)},
+    "ble_bk64": ("new", "flash_fwd.cu", "flash_fwd_ble",
+                 {"flash_fwd.cu": [("int BK = 32;", "int BK = 64;")]}),
+    "ble_fast_exp": ("new", "flash_fwd.cu", "flash_fwd_ble", {"flash_fwd.cu": FAST_EXP}),
+    "ble_cvt_rna": ("new", "flash_fwd.cu", "flash_fwd_ble", {"tf32x3.cuh": CVT_RNA}),
+    "ble_lo_raw": ("new", "flash_fwd.cu", "flash_fwd_ble", {"tf32x3.cuh": LO_RAW}),
+    # flash_bwd_dkv (Q5), whole-slide
+    "dkv_parent": ("parent", "flash_bwd_dkv.cu", "flash_bwd_dkv", {}),
+    "dkv": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv", {}),
+    "dkv_fast_exp": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv", {"flash_bwd_tc.cuh": FAST_EXP}),
+    "dkv_direct_acc": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv", {"tf32x3.cuh": DIRECT}),
+    "dkv_cvt_rna": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv", {"tf32x3.cuh": CVT_RNA}),
+    "dkv_no_warp_skip": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv",
+                         {"flash_bwd_tc.cuh": NO_WARP_SKIP}),
+    "dkv_bq32": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv", {"flash_bwd_dkv.cu": [DKV_BQ32]}),
+    "dkv_bq32_3_blocks": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv",
+                          {"flash_bwd_dkv.cu": [DKV_BQ32,
+                                                (BWD_LB, "__launch_bounds__(Cfg<D>::kThreads, 3)")]}),
+    # flash_bwd_bhld_fused (Q6), canonical: 64-row tiles (4 warps, dk/dv
+    # tiles of 64 or 32 queries), 32-row tiles (2 warps, 32 queries)
+    "fused": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused", {}),
+    "fused_bq32": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
+                   {"flash_bwd_fused.cu": [FUSED_BQ32]}),
+    "fused_32rows": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
+                     {"flash_bwd_fused.cu": [FUSED_2_WARPS, FUSED_BQ32]}),
+    "fused_fast_exp": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
+                       {"flash_bwd_tc.cuh": FAST_EXP}),
+    "fused_cvt_rna": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused", {"tf32x3.cuh": CVT_RNA}),
+    "fused_lo_raw": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused", {"tf32x3.cuh": LO_RAW}),
+    "fused_no_warp_skip": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
+                           {"flash_bwd_tc.cuh": NO_WARP_SKIP}),
+    # timing split only: one kind of tile launched, the other's outputs
+    # left unwritten (NaN)
+    "fused_dkv_only": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
+                       {"flash_bwd_fused.cu": [("const int n_dq = (a.lq", "const int n_dq = 0 * (a.lq")]}),
+    "fused_dq_only": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
+                      {"flash_bwd_fused.cu": [("const int n_dkv = (a.lk", "const int n_dkv = 0 * (a.lk")]}),
+    "fused_dq_bk64": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
+                      {"flash_bwd_tc.cuh": [("int BK = 32;", "int BK = 64;")]}),
 }
 _FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# entry point -> (layout, B, H, L, D) of its main path
+SHAPES = {"flash_fwd_bhld": ("bhld", 8, 4, 4097, 64), "flash_bwd_dkv": ("bhld", 8, 4, 4097, 64),
+          "flash_fwd_ble": ("ble", 8, 4, 257, 64),
+          "flash_bwd_bhld_fused": ("bhld", 8, 4, 257, 64)}
 
 
 def substitute(text: str, subs) -> str:
@@ -68,22 +145,22 @@ def substitute(text: str, subs) -> str:
     return text
 
 
-def build(names):
+def build(names, trees):
     """Compile the variants in parallel; returns {name: (entry point fn,
     ptxas lines at D = 64, (smem bytes, blocks per SM) at D = 64)}."""
     procs = {}
     for name in names:
-        source, subs, header_subs = VARIANTS[name]
-        vdir = os.path.join(OUT, name)
+        tree, source, _, subs = VARIANTS[name]
+        src_dir, vdir = trees[tree], os.path.join(OUT, name)
         os.makedirs(vdir, exist_ok=True)
-        with open(os.path.join(CSRC, "tf32x3.cuh")) as f:
-            header = substitute(f.read(), header_subs)
-        with open(os.path.join(vdir, "tf32x3.cuh"), "w") as f:
-            f.write(header)
-        with open(os.path.join(CSRC, source)) as f:
-            text = substitute(f.read(), subs)
-        with open(os.path.join(vdir, source), "w") as f:
-            f.write(text)
+        files = [n for n in os.listdir(src_dir) if n.endswith(".cuh")] + [source]
+        if set(subs) - set(files):
+            raise ValueError(f"{name}: substitutions for files it does not copy: {set(subs)}")
+        for fname in files:
+            with open(os.path.join(src_dir, fname)) as f:
+                text = substitute(f.read(), subs.get(fname, []))
+            with open(os.path.join(vdir, fname), "w") as f:
+                f.write(text)
         nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
         procs[name] = subprocess.Popen(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -95,23 +172,28 @@ def build(names):
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
-        ptxas, head_dim = [], None
+        entry = VARIANTS[name][2]
+        # the instantiation this entry point launches at D = 64: the ble
+        # and bhld forwards share one template, told apart by a bool
+        layout = {"flash_fwd_ble": "Lb1E", "flash_fwd_bhld": "Lb0E"}.get(entry, "")
+        ptxas, current = [], False
         for line in log.splitlines():
-            entry = re.search(r"Compiling entry function '\w*kernelILi(\d+)E", line)
-            if entry:
-                head_dim = entry.group(1)
-            elif head_dim == "64" and ("registers" in line or "spill" in line):
+            fn = re.search(r"Compiling entry function '(\w+)'", line)
+            if fn:
+                current = "ILi64E" in fn.group(1) and (
+                    "flash_fwd_kernel" not in fn.group(1) or layout in fn.group(1))
+            elif current and ("registers" in line or "spill" in line):
                 ptxas.append(line.replace("ptxas info    :", "").strip())
         lib = ctypes.CDLL(os.path.join(OUT, name, "lib.so"))
-        entry = "flash_fwd_bhld" if VARIANTS[name][0] == "flash_fwd_bhld.cu" else "flash_bwd_dkv"
         fn = getattr(lib, entry)
-        fn.argtypes = _FWD_ARGS if entry == "flash_fwd_bhld" else _BWD_ARGS
+        fn.argtypes = _FWD_ARGS if entry.startswith("flash_fwd") else _BWD_ARGS
         fn.restype = ctypes.c_int
-        occ = getattr(lib, entry + "_occupancy")
-        occ.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        occ = getattr(lib, entry + "_occupancy", None)
         smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-        if occ(64, ctypes.byref(smem), ctypes.byref(blocks)):
-            raise RuntimeError(f"{name}: occupancy query failed")
+        if occ is not None:  # the parent commit's ble and fused kernels had none
+            occ.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            if occ(64, ctypes.byref(smem), ctypes.byref(blocks)):
+                raise RuntimeError(f"{name}: occupancy query failed")
         built[name] = (fn, ptxas, (smem.value, blocks.value))
     return built
 
@@ -119,6 +201,10 @@ def build(names):
 def main(argv) -> int:
     import torch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", help="csrc/ of another commit, for the *_parent variants")
+    ap.add_argument("variants", nargs="*")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device is available", file=sys.stderr)
         return 2
@@ -127,43 +213,66 @@ def main(argv) -> int:
     from gemm_gan_tpu_torch.kernels import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    names = argv or list(VARIANTS)
+    trees = {"new": CSRC, "parent": args.parent}
+    order = args.variants or [n for n, v in VARIANTS.items()
+                              if v[0] == "new" or args.parent]
+    unknown = [n for n in order if n not in VARIANTS]
+    if unknown:
+        raise SystemExit(f"unknown variants {unknown}; known: {sorted(VARIANTS)}")
+    if any(VARIANTS[n][0] == "parent" for n in order) and not args.parent:
+        raise SystemExit("the *_parent variants need --parent")
     print(f"card: {cs.card_line()}", flush=True)
-    built = build(names)
+    built = build(list(dict.fromkeys(order)), trees)
     for name, (_, ptxas, (smem, blocks)) in built.items():
         print(f"{name}: D=64 {'; '.join(ptxas)}; {smem} bytes of shared memory, "
               f"{blocks} blocks per SM", flush=True)
-    B, H, L, D = 8, 4, 4097, 64
     stream = torch.cuda.current_stream().cuda_stream
-    for ragged, seed in ((False, 200), (True, 26)):
-        q, k, v, mask = cs.attention_inputs("bhld", B, H, L, L, D, ragged, seed)
-        po, plse = fa.flash_fwd_bhld_plain(q, k, v, mask)
-        g = torch.Generator(device="cuda").manual_seed(seed + 1000)
-        do = torch.randn(q.shape, device="cuda", generator=g)
-        delta = (do * po).sum(-1)
-        pdk, pdv = fa.flash_bwd_dkv_plain(q, k, v, mask, do, plse, delta)
-        o, lse = torch.empty_like(q), torch.empty_like(plse)
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        for name, (fn, _, _) in built.items():
-            if VARIANTS[name][0] == "flash_fwd_bhld.cu":
-                call = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),  # noqa: E731
-                                  mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                                  B, L, L, H, D, stream)
-                outs, want = (o, lse), (po, plse)
+    for shape in dict.fromkeys(SHAPES.values()):
+        names = [n for n in order if SHAPES[VARIANTS[n][2]] == shape]
+        if not names:
+            continue
+        layout, B, H, L, D = shape
+        for ragged, seed in ((False, 200), (True, 26)):
+            q, k, v, mask = cs.attention_inputs(layout, B, H, L, L, D, ragged, seed)
+            if layout == "ble":
+                po, plse = fa.flash_fwd_ble_plain(q, k, v, mask, H)
             else:
-                call = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),  # noqa: E731
-                                  mask.data_ptr(), None, do.data_ptr(), plse.data_ptr(),
-                                  delta.data_ptr(), None, dk.data_ptr(), dv.data_ptr(),
-                                  B, L, L, H, D, stream)
-                outs, want = (dk, dv), (pdk, pdv)
-            if call():
-                raise RuntimeError(f"{name}: launch failed")
-            torch.cuda.synchronize()
-            errs = [float((a - b).abs().max()) for a, b in zip(outs, want)]
-            ms = "" if ragged else f"; {cs.cuda_ms(call):.4f} ms"
-            print(f"{'ragged' if ragged else 'full  '} {name}: max|err| "
-                  f"{' / '.join(f'{e:.3e}' for e in errs)}{ms}", flush=True)
-        del q, k, v, mask, po, plse, do, delta, pdk, pdv, o, lse, dk, dv
+                po, plse = fa.flash_fwd_bhld_plain(q, k, v, mask)
+                g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+                do = torch.randn(q.shape, device="cuda", generator=g)
+                delta = (do * po).sum(-1)
+                pdq, pdk, pdv = fa.flash_bwd_bhld_fused_plain(q, k, v, mask, do, plse, delta)
+            o, lse = torch.empty_like(q), torch.empty_like(plse)
+            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            for name in names:
+                fn, entry = built[name][0], VARIANTS[name][2]
+                if entry.startswith("flash_fwd"):
+                    call = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),  # noqa: E731
+                                      mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                                      B, L, L, H, D, stream)
+                    outs, want = (o, lse), (po, plse)
+                else:
+                    call = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),  # noqa: E731
+                                      mask.data_ptr(), None, do.data_ptr(), plse.data_ptr(),
+                                      delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                                      dv.data_ptr(), B, L, L, H, D, stream)
+                    outs, want = (dk, dv), (pdk, pdv)
+                    if entry == "flash_bwd_bhld_fused":
+                        outs, want = (dq, *outs), (pdq, *want)
+                for x in outs:  # a variant that writes nothing must not pass
+                    x.fill_(float("nan"))
+                if call():
+                    raise RuntimeError(f"{name}: launch failed")
+                torch.cuda.synchronize()
+                errs = [float((a - b).abs().max()) for a, b in zip(outs, want)]
+                ms = "" if ragged else (f"; {cs.cuda_ms(call):.4f} ms (events), "
+                                        f"{cs.device_ms(call, iters=20):.4f} ms (device)")
+                print(f"{'ragged' if ragged else 'full  '} {name}: max|err| "
+                      f"{' / '.join(f'{e:.3e}' for e in errs)}{ms}", flush=True)
+            del q, k, v, mask, po, plse, o, lse, dq, dk, dv
+            if layout != "ble":
+                del do, delta, pdq, pdk, pdv
+            torch.cuda.empty_cache()
     return 0
 
 

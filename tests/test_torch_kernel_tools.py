@@ -1,0 +1,84 @@
+"""The parts of the port's on-card tools that need no card.
+
+`chip_smoke.py` names every kernel template instantiation in nvcc's ptxas
+report by its entry point, and must fail on one it does not know rather
+than leave it out; `scripts/torch_kernel_variants.py` builds its variants
+by text substitution of the sources under `csrc/`, so every substitution
+must still find its target there.
+"""
+
+import importlib.util
+import os
+from pathlib import Path
+
+import pytest
+
+import chip_smoke
+from gemm_gan_tpu_torch.kernels import build
+from gemm_gan_tpu_torch.kernels import flash_attention as tfa
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _variants_module():
+    spec = importlib.util.spec_from_file_location(
+        "torch_kernel_variants", ROOT / "scripts" / "torch_kernel_variants.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# ptxas' names for one instantiation of every kernel template in csrc/
+MANGLED = {
+    "_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELb1EEEvNS_4ArgsE": ("flash_fwd_ble", 64),
+    "_ZN12_GLOBAL__N_116flash_fwd_kernelILi8ELb0EEEvNS_4ArgsE": ("flash_fwd_bhld", 8),
+    "_ZN12_GLOBAL__N_116flash_bwd_kernelILi64ELb1ELb1ELb1EEEvNS_4ArgsEi":
+        ("flash_bwd_ble", 64),
+    "_ZN12_GLOBAL__N_116flash_bwd_kernelILi128ELb1ELb0ELb0EEEvNS_4ArgsEi":
+        ("flash_bwd_dq", 128),
+    "_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelILi64EEEvN12flash_bwd_tc4ArgsE":
+        ("flash_bwd_dkv", 64),
+    "_ZN12_GLOBAL__N_122flash_bwd_fused_kernelILi16EEEvN12flash_bwd_tc4ArgsEi":
+        ("flash_bwd_bhld_fused", 16),
+}
+
+
+@pytest.mark.parametrize("mangled", sorted(MANGLED))
+def test_ptxas_names_map_to_entry_points(mangled):
+    assert chip_smoke.ptxas_entry(mangled) == MANGLED[mangled]
+
+
+def test_every_kernel_has_a_ptxas_name():
+    assert {v[0] for v in MANGLED.values()} == {k.__name__ for k in tfa.KERNELS}
+    assert set(chip_smoke.PTXAS_ENTRIES.values()) == set(chip_smoke.KERNELS)
+
+
+@pytest.mark.parametrize("mangled", [
+    # flash_bwd.cu's <kDq=1, kDkv=1, kDeltaHere=0>: no entry point launches it
+    "_ZN12_GLOBAL__N_116flash_bwd_kernelILi64ELb1ELb1ELb0EEEvNS_4ArgsEi",
+    "_ZN12_GLOBAL__N_121flash_fwd_bhld_kernelILi64EEEvNS_4ArgsE",
+    "_Z6helperv",
+])
+def test_unknown_ptxas_names_raise(mangled):
+    with pytest.raises(ValueError, match="does not know"):
+        chip_smoke.ptxas_entry(mangled)
+
+
+def test_chip_smoke_names_existing_sources():
+    for name, (source, replaces) in chip_smoke.KERNELS.items():
+        assert (ROOT / source).is_file(), (name, source)
+        path, line = replaces.split(":")
+        text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+        assert text.startswith("def _"), (name, text)
+    assert set(build.TENSOR_CORE_KERNELS) <= set(chip_smoke.KERNELS)
+
+
+def test_variant_substitutions_find_their_targets():
+    tkv = _variants_module()
+    for name, (tree, source, entry, subs) in tkv.VARIANTS.items():
+        assert entry in tkv.SHAPES, name
+        if tree != "new":
+            continue
+        assert os.path.isfile(os.path.join(tkv.CSRC, source)), name
+        for fname, file_subs in subs.items():  # raises on a target not found
+            tkv.substitute((Path(tkv.CSRC) / fname).read_text(), file_subs)

@@ -1,7 +1,8 @@
 """The precision argument of the tensor-core attention kernels (3xTF32).
 
-`flash_fwd_bhld` and `flash_bwd_dkv` (gemm_gan_tpu_torch/kernels/csrc/) run
-every product on the tensor cores as mma.sync m16n8k8 with TF32 operands.
+`flash_fwd_bhld`, `flash_fwd_ble`, `flash_bwd_dkv` and `flash_bwd_bhld_fused`
+(gemm_gan_tpu_torch/kernels/csrc/) run every product on the tensor cores as
+mma.sync m16n8k8 with TF32 operands.
 TF32 keeps 10 explicit mantissa bits, so each f32 operand x is split as
 hi = rna_tf32(x), lo = rna_tf32(x - hi) and a.b is taken as lo.hi + hi.lo +
 hi.hi, summed in f32 per k8 step (csrc/tf32x3.cuh). These tests emulate
@@ -9,27 +10,32 @@ exactly that arithmetic in numpy (no card needed) and pin:
 
 (a) hi + lo gives back x to within 2^-21 relative;
 (b) attention computed with the emulated products agrees with the JAX
-    package: o with `mha_reference`, lse with the Pallas forward
-    `_fwd_kernel`, dk and dv with the Pallas `_bwd_dkv_kernel` (interpret
-    mode, on the forward's own residuals), within chip_smoke.py's
-    KERNEL_RTOL / KERNEL_ATOL, the tolerance the CUDA kernels are held to
-    on the card; at the whole-slide length (B 1, H 1, L 4,097, D 64) and
-    with a ragged mask whose first sample has no valid key;
+    package, within chip_smoke.py's KERNEL_RTOL / KERNEL_ATOL, the
+    tolerance the CUDA kernels are held to on the card: o with
+    `mha_reference` and lse with the Pallas forward `_fwd_kernel` (classic
+    layout), or both with `_fwd_kernel_ble` (the forward `flash_mha_ble`
+    runs; the canonical case); dq, dk and dv with the Pallas backward that
+    `_flash_core_bwd` takes (interpret mode, on the forward's own
+    residuals): `_bwd_dq_kernel` / `_bwd_dkv_kernel` at the whole-slide
+    length (B 1, H 1, L 4,097, D 64), `_bwd_fused_kernel` at the
+    single-block lengths: a ragged case (L 200) and the canonical one (B 2,
+    H 4, L 257), each with a ragged mask whose first sample has no valid
+    key;
 (c) the 3-term error is at least 10x smaller than that of single-pass TF32
     on the same inputs. Largest |error| against float64 at the whole-slide
     length, 3 terms vs 1: o 1.02e-7 vs 7.47e-5, dk 2.27e-7 vs 1.53e-4, dv
-    1.37e-7 vs 1.07e-4 (printed by `PYTHONPATH=. python
-    tests/test_torch_tf32x3.py`). That is why the kernels pay for three
-    products.
+    1.37e-7 vs 1.07e-4, dq 1.58e-6 vs 1.31e-3 (printed by `PYTHONPATH=.
+    python tests/test_torch_tf32x3.py`). That is why the kernels pay for
+    three products.
 
 The emulation takes the softmax as the plain version does (one pass, with
 the row max), the products as the kernels do: the product of two TF32
 values is exact in f32, and each mma adds its 8 products to the f32
 accumulator with one round-to-nearest (the card's own accumulation is
 coarser, PERF.md §6; chip_smoke.py's card check covers it). The sums over
-keys (forward, 32-key tiles) and over queries (dk/dv, 64-query tiles) are
-taken in a fresh accumulator per tile and added to the total in f32, as
-`tf32x3::weight_rows` does.
+keys (forward and dq, 32-key tiles) and over queries (dk/dv, 64-query
+tiles) are taken in a fresh accumulator per tile and added to the total in
+f32, as `tf32x3::weight_rows` does.
 """
 
 import jax.numpy as jnp
@@ -40,7 +46,7 @@ import chip_smoke
 from gemm_gan_tpu.kernels import flash_attention as jfa
 
 RTOL, ATOL = chip_smoke.KERNEL_RTOL, chip_smoke.KERNEL_ATOL
-FWD_TILE_STEPS = 4   # 32-key tiles of flash_fwd_bhld, in k8 steps
+FWD_TILE_STEPS = 4   # 32-key tiles of the forward and of dq, in k8 steps
 DKV_TILE_STEPS = 8   # 64-query tiles of flash_bwd_dkv at D <= 64
 ROW_BLOCK = 1024     # rows emulated at a time (bounds the memory)
 
@@ -112,8 +118,23 @@ def emulated_dkv(q, k, v, valid, do, lse, delta, terms):
     return np.concatenate(dks), np.concatenate(dvs)
 
 
-def _case(B, H, L, D, ragged, seed):
-    """Inputs, the JAX package's results and both emulations for one case."""
+def emulated_dq(q, k, v, valid, do, lse, delta, terms):
+    """One (batch, head) -> dq [Lq, D]: S and dP in 3xTF32, p by select on
+    valid keys, dS.K with a fresh accumulator per 32-key tile."""
+    dqs = []
+    for r in range(0, q.shape[0], ROW_BLOCK):
+        rows = slice(r, r + ROW_BLOCK)
+        s = emulated_matmul(q[rows], k.T, terms)
+        with np.errstate(over="ignore"):  # lse = -1e30 where no key is valid
+            p = np.where(valid[None], np.exp(s - lse[rows, None]), np.float32(0))
+        ds = p * (emulated_matmul(do[rows], v.T, terms) - delta[rows, None])
+        dqs.append(emulated_matmul(ds, k, terms, FWD_TILE_STEPS))
+    return np.concatenate(dqs)
+
+
+def _case(B, H, L, D, ragged, seed, layout):
+    """Inputs, the JAX package's results and both emulations for one case;
+    the forward's reference is the `layout` kernel's."""
     rng = np.random.RandomState(seed)
     q = (rng.randn(B, H, L, D) * D ** -0.5).astype(np.float32)
     k, v, do = (rng.randn(B, H, L, D).astype(np.float32) for _ in range(3))
@@ -122,21 +143,35 @@ def _case(B, H, L, D, ragged, seed):
         lens[0] = 0
     mask = np.arange(L)[None, :] < lens[:, None]
     jq, jk, jv, jmask = map(jnp.asarray, (q, k, v, mask))
-    o_ref = np.asarray(jfa.mha_reference(jq, jk, jv, jmask, scale=1.0))
     _, res = jfa._flash_core_fwd(jq, jk, jv, jmask, 1.0, 512, 256, False)
-    _, dk_ref, dv_ref, _ = jfa._flash_core_bwd(1.0, 512, 256, False, res, jnp.asarray(do))
+    dq_ref, dk_ref, dv_ref, _ = jfa._flash_core_bwd(1.0, 512, 256, False, res,
+                                                    jnp.asarray(do))
     lse = np.asarray(res[5])[:, :L, 0].reshape(B, H, L)
+    if layout == "ble":  # [B, H, L, D] <-> [B, L, H * D]
+        def ble(x):
+            return jnp.asarray(x.transpose(0, 2, 1, 3).reshape(B, L, H * D))
+
+        o_ble, (*_, lse_ble) = jfa._flash_core_ble_fwd(ble(q), ble(k), ble(v), jmask, 1.0, H,
+                                                       False)
+        o_ref = np.asarray(o_ble).reshape(B, L, H, D).transpose(0, 2, 1, 3)
+        lse_ref = np.asarray(lse_ble)[:, :, ::jfa._LANES].transpose(0, 2, 1)
+    else:
+        o_ref = np.asarray(jfa.mha_reference(jq, jk, jv, jmask, scale=1.0))
+        lse_ref = lse
     delta = (do * np.asarray(res[4])).sum(-1)
     got = {}
     for terms in (3, 1):
         fwd = [[emulated_forward(q[b, h], k[b, h], v[b, h], mask[b], terms)
                 for h in range(H)] for b in range(B)]
-        bwd = [[emulated_dkv(q[b, h], k[b, h], v[b, h], mask[b], do[b, h], lse[b, h],
-                             delta[b, h], terms) for h in range(H)] for b in range(B)]
+        bwd = [[(emulated_dq(q[b, h], k[b, h], v[b, h], mask[b], do[b, h], lse[b, h],
+                             delta[b, h], terms),
+                 *emulated_dkv(q[b, h], k[b, h], v[b, h], mask[b], do[b, h], lse[b, h],
+                               delta[b, h], terms)) for h in range(H)] for b in range(B)]
         got[terms] = {name: np.array([[x[h][i] for h in range(H)] for x in part])
-                      for part, names in ((fwd, ("o", "lse")), (bwd, ("dk", "dv")))
+                      for part, names in ((fwd, ("o", "lse")), (bwd, ("dq", "dk", "dv")))
                       for i, name in enumerate(names)}
-    want = {"o": o_ref, "lse": lse, "dk": np.asarray(dk_ref), "dv": np.asarray(dv_ref)}
+    want = {"o": o_ref, "lse": lse_ref, "dq": np.asarray(dq_ref), "dk": np.asarray(dk_ref),
+            "dv": np.asarray(dv_ref)}
     return dict(q=q, k=k, v=v, mask=mask, do=do, got=got, want=want)
 
 
@@ -151,7 +186,9 @@ def _computed(label):
         jfa._INTERPRET = interpret
 
 
-CASES = {"whole_slide": (1, 1, 4097, 64, False, 0), "ragged": (3, 2, 200, 64, True, 1)}
+CASES = {"whole_slide": (1, 1, 4097, 64, False, 0, "bhld"),
+         "ragged": (3, 2, 200, 64, True, 1, "bhld"),
+         "canonical": (2, 4, 257, 64, True, 3, "ble")}
 
 
 @pytest.fixture(scope="module")
@@ -162,6 +199,11 @@ def whole_slide():
 @pytest.fixture(scope="module")
 def ragged():
     return _computed("ragged")
+
+
+@pytest.fixture(scope="module")
+def canonical():
+    return _computed("canonical")
 
 
 def test_tf32_rounding_is_to_nearest_ties_away():
@@ -185,18 +227,18 @@ def test_split_reconstructs_f32(scale):
 
 
 @pytest.mark.parametrize("label", sorted(CASES))
-@pytest.mark.parametrize("name", ["o", "lse", "dk", "dv"])
+@pytest.mark.parametrize("name", ["o", "lse", "dq", "dk", "dv"])
 def test_emulated_kernels_match_jax(label, name, request):
-    """(b): o vs `mha_reference`, lse vs the Pallas forward, dk/dv vs the
-    Pallas `_bwd_dkv_kernel`, within the kernels' card tolerance."""
+    """(b): o and lse vs the forward, dq, dk and dv vs the Pallas backward,
+    within the kernels' card tolerance."""
     c = request.getfixturevalue(label)
     got, want = c["got"][3][name], c["want"][name]
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL, err_msg=label)
-    if label == "ragged":  # sample 0 has no valid key
+    if CASES[label][4]:  # ragged: sample 0 has no valid key
         if name in ("dk", "dv"):
             assert np.all(got[0] == 0.0)
             assert np.all(got.transpose(0, 2, 1, 3)[~c["mask"]] == 0.0)
-        if name == "o":
+        if name in ("o", "dq"):
             assert np.all(got[0] == 0.0)
 
 
@@ -208,10 +250,10 @@ def _exact(c):
     p /= p.sum(1, keepdims=True)
     o = p @ v
     ds = p * (do @ v.T - (do * o).sum(1, keepdims=True))
-    return {"o": o, "dk": ds.T @ q, "dv": p.T @ do}
+    return {"o": o, "dq": ds @ k, "dk": ds.T @ q, "dv": p.T @ do}
 
 
-@pytest.mark.parametrize("name", ["o", "dk", "dv"])
+@pytest.mark.parametrize("name", ["o", "dq", "dk", "dv"])
 def test_three_terms_are_ten_times_closer_than_single_pass(name, whole_slide):
     """(c): against float64 at the whole-slide length, the 3-term
     products' largest error is at least 10x below single-pass TF32's."""
