@@ -8,9 +8,9 @@ imports nothing of JAX or of the JAX package. Phases:
 1. Build the CUDA kernels from `gemm_gan_tpu_torch/kernels/csrc/` (one nvcc
    per source, in parallel, into the ignored build dir) and print the build
    time, nvcc's register/spill/shared-memory report for every kernel and
-   head dim (a kernel template it cannot name raises), the tensor-core
-   kernels' dynamic shared memory and blocks per SM, and the card's name
-   and power limit.
+   head dim (a kernel template it cannot name raises), every kernel's
+   dynamic shared memory and blocks per SM (all six run on the tensor
+   cores), and the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it plus ragged and
    fully-masked cases and D 8 / 128, and time kernel, plain version and the
@@ -35,8 +35,10 @@ imports nothing of JAX or of the JAX package. Phases:
    dropout 0.1, both nets from seeded Flax-layout trees. One warm-up step,
    then TRAIN_STEPS timed steps; checks finite metrics, that the params
    moved, and the per-step launches of `flash_fwd_ble` and `flash_bwd_ble`;
-   one dropout-free step on the card against the same step on the CPU; a
-   CUDA-event split of one step.
+   one dropout-free step on the card against the same step on the CPU,
+   beside the same step with `fusion.use_pallas=False` on the card against
+   the CPU (its count of params beyond atol printed, not gated: how far
+   cuBLAS's f32 alone lands); a CUDA-event split of one step.
 6. Whole-slide training (4,096 patches, batch 8): `flash_fwd_bhld`,
    `flash_bwd_dq` and `flash_bwd_dkv`; one dropout-free step against the
    same step with `fusion.use_pallas=False`, both on the card, gated by
@@ -71,8 +73,8 @@ TPU_KERNELS = "gemm_gan_tpu/kernels/flash_attention.py"
 KERNELS = {
     "flash_fwd_ble": (CSRC + "flash_fwd.cu", f"{TPU_KERNELS}:290"),
     "flash_fwd_bhld": (CSRC + "flash_fwd.cu", f"{TPU_KERNELS}:84"),
-    "flash_bwd_ble": (CSRC + "flash_bwd.cu", f"{TPU_KERNELS}:317"),
-    "flash_bwd_dq": (CSRC + "flash_bwd.cu", f"{TPU_KERNELS}:142"),
+    "flash_bwd_ble": (CSRC + "flash_bwd_fused.cu", f"{TPU_KERNELS}:317"),
+    "flash_bwd_dq": (CSRC + "flash_bwd_dq.cu", f"{TPU_KERNELS}:142"),
     "flash_bwd_dkv": (CSRC + "flash_bwd_dkv.cu", f"{TPU_KERNELS}:220"),
     "flash_bwd_bhld_fused": (CSRC + "flash_bwd_fused.cu", f"{TPU_KERNELS}:179"),
 }
@@ -82,9 +84,8 @@ BWD_FLOP = {"flash_bwd_ble": 10, "flash_bwd_bhld_fused": 10,
             "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
 # H100 SXM data sheet: f32 outside the tensor cores, dense TF32 on the
 # tensor cores, and HBM3 bandwidth. `bound_tc_ms` counts 3 TF32 products per
-# f32 product (3xTF32, as flash_fwd.cu, flash_bwd_dkv.cu and
-# flash_bwd_fused.cu compute and as the library's f32 attention on sm80+
-# does).
+# f32 product (3xTF32, as every kernel under csrc/ computes and as the
+# library's f32 attention on sm80+ does).
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -124,24 +125,24 @@ PLAIN_LOOSE_FACTOR = 2
 
 
 # (kernel template, its bool template arguments) -> entry point
-PTXAS_ENTRIES = {("flash_fwd_kernel", (1,)): "flash_fwd_ble",
+PTXAS_ENTRIES = {("flash_fwd_kernel", (1,)): "flash_fwd_ble",  # <D, kBle>
                  ("flash_fwd_kernel", (0,)): "flash_fwd_bhld",
-                 ("flash_bwd_kernel", (1, 1, 1)): "flash_bwd_ble",  # <kDq, kDkv, kDeltaHere>
-                 ("flash_bwd_kernel", (1, 0, 0)): "flash_bwd_dq",
-                 ("flash_bwd_dkv_kernel", ()): "flash_bwd_dkv",
-                 ("flash_bwd_fused_kernel", ()): "flash_bwd_bhld_fused"}
+                 ("flash_bwd_fused_kernel", (1,)): "flash_bwd_ble",  # <D, kBle>
+                 ("flash_bwd_fused_kernel", (0,)): "flash_bwd_bhld_fused",
+                 ("flash_bwd_dq_kernel", ()): "flash_bwd_dq",
+                 ("flash_bwd_dkv_kernel", ()): "flash_bwd_dkv"}
 
 
-def ptxas_entry(mangled: str):
+def ptxas_entry(mangled: str, entries=PTXAS_ENTRIES):
     """(entry point, head dim) of the kernel template instantiation that
-    ptxas names `mangled`; raises on a kernel that PTXAS_ENTRIES does not
-    know, so that none goes unreported."""
+    ptxas names `mangled`; raises on a kernel that `entries` does not know,
+    so that none goes unreported."""
     m = re.search(r"\d(flash_\w+?_kernel)I((?:L[ib]\d+E)+)E", mangled)
     args = re.findall(r"L([ib])(\d+)E", m.group(2)) if m else []
     key = (m.group(1), tuple(int(v) for kind, v in args if kind == "b")) if m else None
-    if key not in PTXAS_ENTRIES:
+    if key not in entries:
         raise ValueError(f"ptxas reports a kernel chip_smoke does not know: {mangled}")
-    return PTXAS_ENTRIES[key], int(args[0][1])
+    return entries[key], int(args[0][1])
 
 
 def card_line() -> str:
@@ -690,6 +691,7 @@ def main() -> int:
                   for name in ("flash_bwd_dq", "flash_bwd_dkv")]
     bwd_cases += [(name, ("bhld", 2, 2, 136, 600, D))
                   for name in ("flash_bwd_dq", "flash_bwd_dkv") for D in (8, 64, 128)]
+    bwd_cases += [("flash_bwd_ble", ("ble", 2, 2, 136, 260, D)) for D in (8, 128)]
     for i, (name, case) in enumerate(bwd_cases):
         errs[name] = max(errs[name], check_bwd_kernel(fa, name, *case, True, seed=20 + i)[0])
     # the main paths' shapes with all-valid masks (structured data): checked and timed
@@ -818,8 +820,12 @@ def main() -> int:
           f"{json.dumps(step_breakdown(engine, state, batches[0]))}", flush=True)
     del engine, state
     step_args = (params, d_params, batches[0], random_draws(tcfg, seed=5))
-    cmp = step_diff(run_step(train_cfg(exp, dropout=0.0), "cuda", *step_args),
-                    run_step(train_cfg(exp, dropout=0.0), "cpu", *step_args))
+    on_cpu = run_step(train_cfg(exp, dropout=0.0), "cpu", *step_args)
+    plain = step_diff(run_step(train_cfg(exp, dropout=0.0, use_pallas=False), "cuda",
+                               *step_args), on_cpu, max_loose={})
+    print(f"    use_pallas=False on the card vs CPU, one step at dropout 0 (count not gated): "
+          f"{json.dumps(plain)}", flush=True)
+    cmp = step_diff(run_step(train_cfg(exp, dropout=0.0), "cuda", *step_args), on_cpu)
     print(f"    card vs CPU, one step at dropout 0: {json.dumps(cmp)} (metrics rtol "
           f"{STEP_RTOL}, atol {STEP_ATOL}; at most {MAX_LOOSE} params beyond atol "
           f"{PARAM_ATOL})", flush=True)

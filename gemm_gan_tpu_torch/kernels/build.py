@@ -47,10 +47,10 @@ ENTRY_POINTS = {
     "flash_bwd_dq": _BWD_ARGS,
     "flash_bwd_dkv": _BWD_ARGS,
 }
-# the tensor-core kernels, each with an entry `<name>_occupancy(head_dim,
-# *smem_bytes, *blocks_per_sm)`
-TENSOR_CORE_KERNELS = ("flash_fwd_ble", "flash_fwd_bhld", "flash_bwd_bhld_fused",
-                       "flash_bwd_dkv")
+# the tensor-core kernels (all six), each with an entry
+# `<name>_occupancy(head_dim, *smem_bytes, *blocks_per_sm)`
+TENSOR_CORE_KERNELS = ("flash_fwd_ble", "flash_fwd_bhld", "flash_bwd_ble",
+                       "flash_bwd_bhld_fused", "flash_bwd_dq", "flash_bwd_dkv")
 ENTRY_POINTS.update({name + "_occupancy": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
                      for name in TENSOR_CORE_KERNELS})
 

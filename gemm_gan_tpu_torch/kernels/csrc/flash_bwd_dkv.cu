@@ -9,21 +9,22 @@
 // keys), dp_ij = dO_i . v_j and ds_ij = p_ij (dp_ij - delta_i):
 //   dv_j = sum_i p_ij dO_i,  dk_j = sum_i ds_ij q_i.
 // Masked keys, and every key of a sample with no valid key, get exactly 0.
-// dq is flash_bwd_dq's job.
+// dq is flash_bwd_dq's job (flash_bwd_dq.cu).
 //
 // What bounds it on an H100: at the whole-slide shape (B 8, H 4, L 4,097,
 // D 64) it is 275 GFLOP (s, dp, dv, dk: 8 per query, key and head-dim
-// element) over ~34 MB, so operations bound it: 4.1 ms on the CUDA cores
+// element) over ~200 MB, so operations bound it: 4.1 ms on the CUDA cores
 // (67 TFLOP/s f32), 1.67 ms in 3xTF32 on the tensor cores (495 TFLOP/s
 // dense TF32, three products per f32 product).
 //
 // Design: tf32x3.cuh's 3xTF32 products on mma.sync m16n8k8, in the dk/dv
 // tile of flash_bwd_tc.cuh (which the fused single-block backward,
-// flash_bwd_fused.cu, shares): a block of 4 warps owns 64 key rows of one
-// (batch, head), grid (ceil(Lk / 64), H, B); K and V stay resident in
-// shared memory, tiles of 64 queries (32 at D = 128) of Q, dO, lse and
-// delta stream through a double-buffered cp.async ring (96 KB per block at
-// D = 64: two blocks per SM), dK and dV stay in registers; no atomics.
+// flash_bwd_fused.cu, shares; here in its classic-layout instantiation,
+// delta given): a block of 4 warps owns 64 key rows of one (batch, head),
+// grid (ceil(Lk / 64), H, B); K and V stay resident in shared memory, tiles
+// of 64 queries (32 at D = 128) of Q, dO, lse and delta stream through a
+// double-buffered cp.async ring (96 KB per block at D = 64: two blocks per
+// SM), dK and dV stay in registers; no atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,7 +45,8 @@ using Cfg = flash_bwd_tc::DkvCfg<D, kWarps, kQueries<D>>;
 template <int D>
 __global__ void __launch_bounds__(Cfg<D>::kThreads) flash_bwd_dkv_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
-  flash_bwd_tc::dkv_tile<D, kWarps, kQueries<D>>(a, blockIdx.x, blockIdx.y, blockIdx.z, smem);
+  flash_bwd_tc::dkv_tile<D, kWarps, kQueries<D>, false>(a, blockIdx.x, blockIdx.y, blockIdx.z,
+                                                        smem);
 }
 
 template <int D>
@@ -62,44 +64,24 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int occupancy(int* smem_bytes, int* blocks_per_sm) {
-  const cudaError_t err = prepare<D>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *smem_bytes = Cfg<D>::SMEM;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, flash_bwd_dkv_kernel<D>, Cfg<D>::kThreads, Cfg<D>::SMEM));
-}
-
 }  // namespace
 
-// The backward entry points' common arguments (flash_bwd.cu); this one
-// reads q, k, v, mask, dout, lse, delta and writes dk, dv ([B*H, L, D]).
-extern "C" int flash_bwd_dkv(const float* q, const float* k, const float* v,
-                             const uint8_t* mask, const float* /*o*/, const float* dout,
-                             const float* lse, const float* delta, float* /*dq*/, float* dk,
-                             float* dv, int batch, int lq, int lk, int heads, int head_dim,
-                             void* stream) {
-  const Args a{q, k, v, mask, dout, lse, delta, nullptr, dk, dv, lq, lk, heads};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 8: return launch<8>(a, batch, s);
-    case 16: return launch<16>(a, batch, s);
-    case 32: return launch<32>(a, batch, s);
-    case 64: return launch<64>(a, batch, s);
-    case 128: return launch<128>(a, batch, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// [B*H, L, D]; reads q, k, v, mask, dout, lse, delta, writes dk, dv.
+extern "C" int flash_bwd_dkv(FLASH_BWD_PARAMS) {
+  const Args a{q, k, v, mask, nullptr, dout, lse, delta, nullptr, dk, dv, lq, lk, heads};
+  return flash_bwd_tc::with_head_dim(head_dim, [&](auto d) {
+    return launch<decltype(d)::value>(a, batch, static_cast<cudaStream_t>(stream));
+  });
 }
 
 // Dynamic shared memory per block and resident blocks per SM at head_dim.
 extern "C" int flash_bwd_dkv_occupancy(int head_dim, int* smem_bytes, int* blocks_per_sm) {
-  switch (head_dim) {
-    case 8: return occupancy<8>(smem_bytes, blocks_per_sm);
-    case 16: return occupancy<16>(smem_bytes, blocks_per_sm);
-    case 32: return occupancy<32>(smem_bytes, blocks_per_sm);
-    case 64: return occupancy<64>(smem_bytes, blocks_per_sm);
-    case 128: return occupancy<128>(smem_bytes, blocks_per_sm);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return flash_bwd_tc::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    const cudaError_t err = prepare<D>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *smem_bytes = Cfg<D>::SMEM;
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, flash_bwd_dkv_kernel<D>, Cfg<D>::kThreads, Cfg<D>::SMEM));
+  });
 }

@@ -22,20 +22,18 @@ launches the kernel or raises. Each wrapper counts its launches in a plain
 int attribute (`flash_fwd_ble.launches`, `flash_fwd_bhld.launches`), so a
 run can show that its path went through the kernels.
 
-Four backward kernels, each with a plain version and a launch counter of
-its own:
+Four backward kernels on the tensor cores in 3xTF32, each with a plain
+version and a launch counter of its own; all four run the dq and dk/dv
+tiles of `csrc/flash_bwd_tc.cuh`:
 
-* `flash_bwd_ble` (replaces `_bwd_kernel_ble`): dq, dk, dv of the ble
-  layout in one launch, delta = rowsum(dO * O) computed in the kernel;
-  `csrc/flash_bwd.cu`, f32 on the CUDA cores.
-* `flash_bwd_bhld_fused` (replaces `_bwd_fused_kernel`): dq, dk, dv of the
-  classic layout in one launch, for single-block shapes (`single_block`);
-  `csrc/flash_bwd_fused.cu`, tensor cores (3xTF32).
+* `flash_bwd_ble` (replaces `_bwd_kernel_ble`) and `flash_bwd_bhld_fused`
+  (replaces `_bwd_fused_kernel`): dq, dk, dv in one launch, the two layouts
+  of one CUDA template, `csrc/flash_bwd_fused.cu`. The ble one computes
+  delta = rowsum(dO * O) in the kernel; the classic one is for
+  single-block shapes (`single_block`).
 * `flash_bwd_dq` and `flash_bwd_dkv` (replace `_bwd_dq_kernel` and
   `_bwd_dkv_kernel`): the blocked classic backward, two launches;
-  `csrc/flash_bwd.cu` (CUDA cores) and `csrc/flash_bwd_dkv.cu` (tensor
-  cores, 3xTF32). The tensor-core backward kernels share the dq and dk/dv
-  tiles of `csrc/flash_bwd_tc.cuh`.
+  `csrc/flash_bwd_dq.cu` and `csrc/flash_bwd_dkv.cu`.
 
 `flash_mha_ble` and `flash_mha` run through a `torch.autograd.Function`
 per layout (`FlashAttentionBLE`, `FlashAttentionBHLD`) whose backward is

@@ -15,10 +15,11 @@ git), called through ctypes with the entry point's usual arguments.
 
 For each variant it prints ptxas' registers and spills at D = 64, the
 dynamic shared memory and blocks per SM; then, at the entry point's main
-path shape (whole-slide B 8, H 4, L 4,097, D 64 for flash_fwd_bhld and
-flash_bwd_dkv; canonical B 8, H 4, L 257, D 64 for flash_fwd_ble and
-flash_bwd_bhld_fused), the largest |kernel - plain version| on all-valid
-and ragged masks, and on the all-valid one the kernel's time by CUDA events
+path shape (whole-slide B 8, H 4, L 4,097, D 64 for flash_fwd_bhld,
+flash_bwd_dq and flash_bwd_dkv; canonical B 8, H 4, L 257, D 64 for
+flash_fwd_ble, flash_bwd_ble and flash_bwd_bhld_fused), the largest
+|kernel - plain version| of each output on all-valid and ragged masks,
+and on the all-valid one the kernel's time by CUDA events
 (20 launches after 3 warm-up) and its device time by torch.profiler. The
 variants are timed in the order given, and a name may be given more than
 once (parent, change, change, parent). With no name it runs every variant
@@ -57,13 +58,21 @@ LO_RAW = [("lo = to_tf32(x - __uint_as_float(hi));",
 NO_WARP_SKIP = [("if (__any_sync(0xffffffffu, key_ok[0] || key_ok[1])) {", "if (true) {")]
 FWD_LB = "__launch_bounds__(kThreads)"
 BWD_LB = "__launch_bounds__(Cfg<D>::kThreads)"
+BLOCKS_3 = (BWD_LB, "__launch_bounds__(Cfg<D>::kThreads, 3)")  # at most 168 registers
 DKV_BQ32 = ("kQueries = D <= 64 ? 64 : 32;", "kQueries = 32;")
 # Q6 with 32-row tiles: 2 warps, and 32-query dk/dv tiles
 FUSED_2_WARPS = ("constexpr int kWarps = 4;", "constexpr int kWarps = 2;")
-FUSED_BQ32 = DKV_BQ32
+FUSED_BQ = "kQueries = !kBle && D <= 64 ? 64 : 32;"  # Q6: 64 at D <= 64; Q2: 32
+FUSED_BQ32 = (FUSED_BQ, "kQueries = 32;")
+DQ_BK32 = ("kKeys = D <= 64 ? 64 : 32;", "kKeys = 32;")  # Q4's keys per streamed tile
+HELD = "kHeld = D <= 64 ? 1 : 0;"  # Q4's operands held split in registers
 
 
-def warps(n: int):  # the forward's warps per block, both layouts
+def held(n: int):
+    return (HELD, f"kHeld = D <= 64 ? {n} : 0;")
+
+
+def warps(n: int):  # warps per block of a source's kernel
     return ("constexpr int kWarps = 4;", f"constexpr int kWarps = {n};")
 
 
@@ -90,6 +99,24 @@ VARIANTS = {
     "ble_fast_exp": ("new", "flash_fwd.cu", "flash_fwd_ble", {"flash_fwd.cu": FAST_EXP}),
     "ble_cvt_rna": ("new", "flash_fwd.cu", "flash_fwd_ble", {"tf32x3.cuh": CVT_RNA}),
     "ble_lo_raw": ("new", "flash_fwd.cu", "flash_fwd_ble", {"tf32x3.cuh": LO_RAW}),
+    # flash_bwd_dq (Q4), whole-slide: Q (1, shipped), Q and dO (2) or
+    # neither (0) held split in registers; 64-key (shipped) or 32-key tiles;
+    # 2, 4 or 8 warps; 3 blocks per SM
+    "dq_parent": ("parent", "flash_bwd.cu", "flash_bwd_dq", {}),
+    "dq": ("new", "flash_bwd_dq.cu", "flash_bwd_dq", {}),
+    "dq_bk32": ("new", "flash_bwd_dq.cu", "flash_bwd_dq", {"flash_bwd_dq.cu": [DQ_BK32]}),
+    **{f"dq_held{n}": ("new", "flash_bwd_dq.cu", "flash_bwd_dq", {"flash_bwd_dq.cu": [held(n)]})
+       for n in (0, 2)},
+    **{f"dq_held{n}_bk32": ("new", "flash_bwd_dq.cu", "flash_bwd_dq",
+                            {"flash_bwd_dq.cu": [held(n), DQ_BK32]}) for n in (0, 2)},
+    **{f"dq_{w}_warps": ("new", "flash_bwd_dq.cu", "flash_bwd_dq", {"flash_bwd_dq.cu": [warps(w)]})
+       for w in (2, 8)},
+    "dq_held0_bk32_2_warps": ("new", "flash_bwd_dq.cu", "flash_bwd_dq",
+                              {"flash_bwd_dq.cu": [held(0), DQ_BK32, warps(2)]}),
+    "dq_bk32_3_blocks": ("new", "flash_bwd_dq.cu", "flash_bwd_dq",
+                         {"flash_bwd_dq.cu": [DQ_BK32, BLOCKS_3]}),
+    "dq_held0_bk32_3_blocks": ("new", "flash_bwd_dq.cu", "flash_bwd_dq",
+                               {"flash_bwd_dq.cu": [held(0), DQ_BK32, BLOCKS_3]}),
     # flash_bwd_dkv (Q5), whole-slide
     "dkv_parent": ("parent", "flash_bwd_dkv.cu", "flash_bwd_dkv", {}),
     "dkv": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv", {}),
@@ -100,10 +127,18 @@ VARIANTS = {
                          {"flash_bwd_tc.cuh": NO_WARP_SKIP}),
     "dkv_bq32": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv", {"flash_bwd_dkv.cu": [DKV_BQ32]}),
     "dkv_bq32_3_blocks": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv",
-                          {"flash_bwd_dkv.cu": [DKV_BQ32,
-                                                (BWD_LB, "__launch_bounds__(Cfg<D>::kThreads, 3)")]}),
+                          {"flash_bwd_dkv.cu": [DKV_BQ32, BLOCKS_3]}),
+    # flash_bwd_ble (Q2), canonical: the ble instantiation of Q6's template,
+    # 32-query dk/dv tiles (shipped) or 64; 32-row tiles (2 warps)
+    "ble_bwd_parent": ("parent", "flash_bwd.cu", "flash_bwd_ble", {}),
+    "ble_bwd": ("new", "flash_bwd_fused.cu", "flash_bwd_ble", {}),
+    "ble_bwd_bq64": ("new", "flash_bwd_fused.cu", "flash_bwd_ble",
+                     {"flash_bwd_fused.cu": [(FUSED_BQ, "kQueries = D <= 64 ? 64 : 32;")]}),
+    "ble_bwd_32rows": ("new", "flash_bwd_fused.cu", "flash_bwd_ble",
+                       {"flash_bwd_fused.cu": [FUSED_2_WARPS]}),
     # flash_bwd_bhld_fused (Q6), canonical: 64-row tiles (4 warps, dk/dv
     # tiles of 64 or 32 queries), 32-row tiles (2 warps, 32 queries)
+    "fused_parent": ("parent", "flash_bwd_fused.cu", "flash_bwd_bhld_fused", {}),
     "fused": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused", {}),
     "fused_bq32": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
                    {"flash_bwd_fused.cu": [FUSED_BQ32]}),
@@ -122,14 +157,24 @@ VARIANTS = {
     "fused_dq_only": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
                       {"flash_bwd_fused.cu": [("const int n_dkv = (a.lk", "const int n_dkv = 0 * (a.lk")]}),
     "fused_dq_bk64": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
-                      {"flash_bwd_tc.cuh": [("int BK = 32;", "int BK = 64;")]}),
+                      {"flash_bwd_fused.cu": [("constexpr int kKeys = 32;",
+                                               "constexpr int kKeys = 64;")]}),
 }
 _FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # entry point -> (layout, B, H, L, D) of its main path
-SHAPES = {"flash_fwd_bhld": ("bhld", 8, 4, 4097, 64), "flash_bwd_dkv": ("bhld", 8, 4, 4097, 64),
-          "flash_fwd_ble": ("ble", 8, 4, 257, 64),
+SHAPES = {"flash_fwd_bhld": ("bhld", 8, 4, 4097, 64), "flash_bwd_dq": ("bhld", 8, 4, 4097, 64),
+          "flash_bwd_dkv": ("bhld", 8, 4, 4097, 64),
+          "flash_fwd_ble": ("ble", 8, 4, 257, 64), "flash_bwd_ble": ("ble", 8, 4, 257, 64),
           "flash_bwd_bhld_fused": ("bhld", 8, 4, 257, 64)}
+# which of (dq, dk, dv) a backward entry point writes
+BWD_OUTPUTS = {"flash_bwd_dq": (0,), "flash_bwd_dkv": (1, 2)}
+# ptxas' names for the parent's kernel templates that the sources renamed:
+# flash_bwd.cu's <kDq, kDkv, kDeltaHere>, and the fused kernel before it
+# took a layout flag
+PARENT_PTXAS = {("flash_bwd_kernel", (1, 1, 1)): "flash_bwd_ble",
+                ("flash_bwd_kernel", (1, 0, 0)): "flash_bwd_dq",
+                ("flash_bwd_fused_kernel", ()): "flash_bwd_bhld_fused"}
 
 
 def substitute(text: str, subs) -> str:
@@ -145,9 +190,10 @@ def substitute(text: str, subs) -> str:
     return text
 
 
-def build(names, trees):
+def build(names, trees, entry_of):
     """Compile the variants in parallel; returns {name: (entry point fn,
-    ptxas lines at D = 64, (smem bytes, blocks per SM) at D = 64)}."""
+    ptxas lines at D = 64, (smem bytes, blocks per SM) at D = 64)}.
+    `entry_of(mangled)` gives ptxas' kernel name's (entry point, D)."""
     procs = {}
     for name in names:
         tree, source, _, subs = VARIANTS[name]
@@ -173,15 +219,11 @@ def build(names, trees):
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         entry = VARIANTS[name][2]
-        # the instantiation this entry point launches at D = 64: the ble
-        # and bhld forwards share one template, told apart by a bool
-        layout = {"flash_fwd_ble": "Lb1E", "flash_fwd_bhld": "Lb0E"}.get(entry, "")
-        ptxas, current = [], False
+        ptxas, current = [], False  # current: the instantiation entry launches at D = 64
         for line in log.splitlines():
             fn = re.search(r"Compiling entry function '(\w+)'", line)
             if fn:
-                current = "ILi64E" in fn.group(1) and (
-                    "flash_fwd_kernel" not in fn.group(1) or layout in fn.group(1))
+                current = entry_of(fn.group(1)) == (entry, 64)
             elif current and ("registers" in line or "spill" in line):
                 ptxas.append(line.replace("ptxas info    :", "").strip())
         lib = ctypes.CDLL(os.path.join(OUT, name, "lib.so"))
@@ -190,7 +232,7 @@ def build(names, trees):
         fn.restype = ctypes.c_int
         occ = getattr(lib, entry + "_occupancy", None)
         smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-        if occ is not None:  # the parent commit's ble and fused kernels had none
+        if occ is not None:  # flash_bwd.cu's kernels had none
             occ.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
             if occ(64, ctypes.byref(smem), ctypes.byref(blocks)):
                 raise RuntimeError(f"{name}: occupancy query failed")
@@ -222,7 +264,8 @@ def main(argv) -> int:
     if any(VARIANTS[n][0] == "parent" for n in order) and not args.parent:
         raise SystemExit("the *_parent variants need --parent")
     print(f"card: {cs.card_line()}", flush=True)
-    built = build(list(dict.fromkeys(order)), trees)
+    entries = {**cs.PTXAS_ENTRIES, **PARENT_PTXAS}
+    built = build(list(dict.fromkeys(order)), trees, lambda m: cs.ptxas_entry(m, entries))
     for name, (_, ptxas, (smem, blocks)) in built.items():
         print(f"{name}: D=64 {'; '.join(ptxas)}; {smem} bytes of shared memory, "
               f"{blocks} blocks per SM", flush=True)
@@ -234,16 +277,20 @@ def main(argv) -> int:
         layout, B, H, L, D = shape
         for ragged, seed in ((False, 200), (True, 26)):
             q, k, v, mask = cs.attention_inputs(layout, B, H, L, L, D, ragged, seed)
-            if layout == "ble":
+            g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+            do = torch.randn(q.shape, device="cuda", generator=g)
+            if layout == "ble":  # the backward reads o; delta is computed in the kernel
                 po, plse = fa.flash_fwd_ble_plain(q, k, v, mask, H)
+                o_in, delta = po, None
+                grads = fa.flash_bwd_ble_plain(q, k, v, mask, po, plse, do, H)
             else:
                 po, plse = fa.flash_fwd_bhld_plain(q, k, v, mask)
-                g = torch.Generator(device="cuda").manual_seed(seed + 1000)
-                do = torch.randn(q.shape, device="cuda", generator=g)
-                delta = (do * po).sum(-1)
-                pdq, pdk, pdv = fa.flash_bwd_bhld_fused_plain(q, k, v, mask, do, plse, delta)
+                o_in, delta = None, (do * po).sum(-1)
+                grads = fa.flash_bwd_bhld_fused_plain(q, k, v, mask, do, plse, delta)
             o, lse = torch.empty_like(q), torch.empty_like(plse)
             dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            bwd_ptrs = [None if x is None else x.data_ptr()
+                        for x in (q, k, v, mask, o_in, do, plse, delta, dq, dk, dv)]
             for name in names:
                 fn, entry = built[name][0], VARIANTS[name][2]
                 if entry.startswith("flash_fwd"):
@@ -252,13 +299,10 @@ def main(argv) -> int:
                                       B, L, L, H, D, stream)
                     outs, want = (o, lse), (po, plse)
                 else:
-                    call = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),  # noqa: E731
-                                      mask.data_ptr(), None, do.data_ptr(), plse.data_ptr(),
-                                      delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                                      dv.data_ptr(), B, L, L, H, D, stream)
-                    outs, want = (dk, dv), (pdk, pdv)
-                    if entry == "flash_bwd_bhld_fused":
-                        outs, want = (dq, *outs), (pdq, *want)
+                    call = lambda: fn(*bwd_ptrs, B, L, L, H, D, stream)  # noqa: E731
+                    which = BWD_OUTPUTS.get(entry, (0, 1, 2))
+                    outs = tuple((dq, dk, dv)[i] for i in which)
+                    want = tuple(grads[i] for i in which)
                 for x in outs:  # a variant that writes nothing must not pass
                     x.fill_(float("nan"))
                 if call():
@@ -269,9 +313,7 @@ def main(argv) -> int:
                                         f"{cs.device_ms(call, iters=20):.4f} ms (device)")
                 print(f"{'ragged' if ragged else 'full  '} {name}: max|err| "
                       f"{' / '.join(f'{e:.3e}' for e in errs)}{ms}", flush=True)
-            del q, k, v, mask, po, plse, o, lse, dq, dk, dv
-            if layout != "ble":
-                del do, delta, pdq, pdk, pdv
+            del q, k, v, mask, do, po, plse, o_in, delta, grads, o, lse, dq, dk, dv, outs, want
             torch.cuda.empty_cache()
     return 0
 

@@ -1,10 +1,12 @@
 """The parts of the port's on-card tools that need no card.
 
 `chip_smoke.py` names every kernel template instantiation in nvcc's ptxas
-report by its entry point, and must fail on one it does not know rather
-than leave it out; `scripts/torch_kernel_variants.py` builds its variants
-by text substitution of the sources under `csrc/`, so every substitution
-must still find its target there.
+report by its entry point (both layouts of the forward template and of the
+fused backward template, which holds flash_bwd_ble (Q2), and the dq kernel
+(Q4) among them), and must fail on one it does not know rather than leave
+it out; `scripts/torch_kernel_variants.py` builds its variants by text
+substitution of the sources under `csrc/`, so every substitution must
+still find its target there (Q2's and Q4's variants included).
 """
 
 import importlib.util
@@ -32,13 +34,13 @@ def _variants_module():
 MANGLED = {
     "_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELb1EEEvNS_4ArgsE": ("flash_fwd_ble", 64),
     "_ZN12_GLOBAL__N_116flash_fwd_kernelILi8ELb0EEEvNS_4ArgsE": ("flash_fwd_bhld", 8),
-    "_ZN12_GLOBAL__N_116flash_bwd_kernelILi64ELb1ELb1ELb1EEEvNS_4ArgsEi":
+    "_ZN12_GLOBAL__N_122flash_bwd_fused_kernelILi64ELb1EEEvN12flash_bwd_tc4ArgsEi":
         ("flash_bwd_ble", 64),
-    "_ZN12_GLOBAL__N_116flash_bwd_kernelILi128ELb1ELb0ELb0EEEvNS_4ArgsEi":
+    "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi128EEEvN12flash_bwd_tc4ArgsE":
         ("flash_bwd_dq", 128),
     "_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelILi64EEEvN12flash_bwd_tc4ArgsE":
         ("flash_bwd_dkv", 64),
-    "_ZN12_GLOBAL__N_122flash_bwd_fused_kernelILi16EEEvN12flash_bwd_tc4ArgsEi":
+    "_ZN12_GLOBAL__N_122flash_bwd_fused_kernelILi16ELb0EEEvN12flash_bwd_tc4ArgsEi":
         ("flash_bwd_bhld_fused", 16),
 }
 
@@ -54,8 +56,8 @@ def test_every_kernel_has_a_ptxas_name():
 
 
 @pytest.mark.parametrize("mangled", [
-    # flash_bwd.cu's <kDq=1, kDkv=1, kDeltaHere=0>: no entry point launches it
-    "_ZN12_GLOBAL__N_116flash_bwd_kernelILi64ELb1ELb1ELb0EEEvNS_4ArgsEi",
+    # the CUDA-core backward template of earlier sources (flash_bwd.cu), gone
+    "_ZN12_GLOBAL__N_116flash_bwd_kernelILi64ELb1ELb1ELb1EEEvNS_4ArgsEi",
     "_ZN12_GLOBAL__N_121flash_fwd_bhld_kernelILi64EEEvNS_4ArgsE",
     "_Z6helperv",
 ])

@@ -1,8 +1,9 @@
 """The precision argument of the tensor-core attention kernels (3xTF32).
 
-`flash_fwd_bhld`, `flash_fwd_ble`, `flash_bwd_dkv` and `flash_bwd_bhld_fused`
-(gemm_gan_tpu_torch/kernels/csrc/) run every product on the tensor cores as
-mma.sync m16n8k8 with TF32 operands.
+All six attention kernels of gemm_gan_tpu_torch/kernels/csrc/ (the
+forwards `flash_fwd_bhld` and `flash_fwd_ble`; the backwards `flash_bwd_ble`
+(Q2), `flash_bwd_dq` (Q4), `flash_bwd_dkv` and `flash_bwd_bhld_fused`) run
+every product on the tensor cores as mma.sync m16n8k8 with TF32 operands.
 TF32 keeps 10 explicit mantissa bits, so each f32 operand x is split as
 hi = rna_tf32(x), lo = rna_tf32(x - hi) and a.b is taken as lo.hi + hi.lo +
 hi.hi, summed in f32 per k8 step (csrc/tf32x3.cuh). These tests emulate
@@ -16,15 +17,18 @@ exactly that arithmetic in numpy (no card needed) and pin:
     layout), or both with `_fwd_kernel_ble` (the forward `flash_mha_ble`
     runs; the canonical case); dq, dk and dv with the Pallas backward that
     `_flash_core_bwd` takes (interpret mode, on the forward's own
-    residuals): `_bwd_dq_kernel` / `_bwd_dkv_kernel` at the whole-slide
-    length (B 1, H 1, L 4,097, D 64), `_bwd_fused_kernel` at the
-    single-block lengths: a ragged case (L 200) and the canonical one (B 2,
-    H 4, L 257), each with a ragged mask whose first sample has no valid
-    key;
+    residuals): `_bwd_dq_kernel` (Q4's) / `_bwd_dkv_kernel` at the
+    whole-slide length (B 1, H 1, L 4,097, D 64), `_bwd_fused_kernel` at
+    the single-block lengths: a ragged case (L 200) and the canonical one
+    (B 2, H 4, L 257), each with a ragged mask whose first sample has no
+    valid key. The canonical case is the ble layout's: its emulated
+    backward takes the ble forward's lse and delta = rowsum(dO * O) from
+    that forward's o, as `flash_bwd_ble` computes it, and is held to
+    `_bwd_kernel_ble` (Q2's, through `_flash_core_ble_bwd`) as well;
 (c) the 3-term error is at least 10x smaller than that of single-pass TF32
     on the same inputs. Largest |error| against float64 at the whole-slide
     length, 3 terms vs 1: o 1.02e-7 vs 7.47e-5, dk 2.27e-7 vs 1.53e-4, dv
-    1.37e-7 vs 1.07e-4, dq 1.58e-6 vs 1.31e-3 (printed by `PYTHONPATH=.
+    1.37e-7 vs 1.07e-4, dq 1.41e-6 vs 1.31e-3 (printed by `PYTHONPATH=.
     python tests/test_torch_tf32x3.py`). That is why the kernels pay for
     three products.
 
@@ -33,9 +37,9 @@ the row max), the products as the kernels do: the product of two TF32
 values is exact in f32, and each mma adds its 8 products to the f32
 accumulator with one round-to-nearest (the card's own accumulation is
 coarser, PERF.md §6; chip_smoke.py's card check covers it). The sums over
-keys (forward and dq, 32-key tiles) and over queries (dk/dv, 64-query
-tiles) are taken in a fresh accumulator per tile and added to the total in
-f32, as `tf32x3::weight_rows` does.
+keys (forward and dq) and over queries (dk/dv) are taken in a fresh
+accumulator per tile, of the size the kernel at that case uses (CASES),
+and added to the total in f32, as `tf32x3::weight_rows` does.
 """
 
 import jax.numpy as jnp
@@ -46,8 +50,7 @@ import chip_smoke
 from gemm_gan_tpu.kernels import flash_attention as jfa
 
 RTOL, ATOL = chip_smoke.KERNEL_RTOL, chip_smoke.KERNEL_ATOL
-FWD_TILE_STEPS = 4   # 32-key tiles of the forward and of dq, in k8 steps
-DKV_TILE_STEPS = 8   # 64-query tiles of flash_bwd_dkv at D <= 64
+FWD_TILE_STEPS = 4   # 32-key tiles of the forward, in k8 steps
 ROW_BLOCK = 1024     # rows emulated at a time (bounds the memory)
 
 
@@ -104,23 +107,26 @@ def emulated_forward(q, k, v, valid, terms):
     return np.concatenate(os_), np.concatenate(lses)
 
 
-def emulated_dkv(q, k, v, valid, do, lse, delta, terms):
-    """One (batch, head) -> (dk, dv) [Lk, D], p by select on valid keys."""
+def emulated_dkv(q, k, v, valid, do, lse, delta, terms, tile_steps):
+    """One (batch, head) -> (dk, dv) [Lk, D], p by select on valid keys,
+    the sums over queries with a fresh accumulator per tile of
+    `tile_steps` k8 steps."""
     dks, dvs = [], []
     for r in range(0, k.shape[0], ROW_BLOCK):
         kv_valid = valid[r:r + ROW_BLOCK, None]
         s_t = emulated_matmul(k[r:r + ROW_BLOCK], q.T, terms)
         with np.errstate(over="ignore"):  # lse = -1e30 where no key is valid
             p_t = np.where(kv_valid, np.exp(s_t - lse[None]), np.float32(0))
-        dvs.append(emulated_matmul(p_t, do, terms, DKV_TILE_STEPS))
+        dvs.append(emulated_matmul(p_t, do, terms, tile_steps))
         ds_t = p_t * (emulated_matmul(v[r:r + ROW_BLOCK], do.T, terms) - delta[None])
-        dks.append(emulated_matmul(ds_t, q, terms, DKV_TILE_STEPS))
+        dks.append(emulated_matmul(ds_t, q, terms, tile_steps))
     return np.concatenate(dks), np.concatenate(dvs)
 
 
-def emulated_dq(q, k, v, valid, do, lse, delta, terms):
+def emulated_dq(q, k, v, valid, do, lse, delta, terms, tile_steps):
     """One (batch, head) -> dq [Lq, D]: S and dP in 3xTF32, p by select on
-    valid keys, dS.K with a fresh accumulator per 32-key tile."""
+    valid keys, dS.K with a fresh accumulator per key tile of `tile_steps`
+    k8 steps."""
     dqs = []
     for r in range(0, q.shape[0], ROW_BLOCK):
         rows = slice(r, r + ROW_BLOCK)
@@ -128,13 +134,15 @@ def emulated_dq(q, k, v, valid, do, lse, delta, terms):
         with np.errstate(over="ignore"):  # lse = -1e30 where no key is valid
             p = np.where(valid[None], np.exp(s - lse[rows, None]), np.float32(0))
         ds = p * (emulated_matmul(do[rows], v.T, terms) - delta[rows, None])
-        dqs.append(emulated_matmul(ds, k, terms, FWD_TILE_STEPS))
+        dqs.append(emulated_matmul(ds, k, terms, tile_steps))
     return np.concatenate(dqs)
 
 
-def _case(B, H, L, D, ragged, seed, layout):
+def _case(B, H, L, D, ragged, seed, layout, dq_steps, dkv_steps):
     """Inputs, the JAX package's results and both emulations for one case;
-    the forward's reference is the `layout` kernel's."""
+    the forward's reference is the `layout` kernel's, the backward's tiles
+    (in k8 steps: keys per dq tile, queries per dk/dv tile) those of the
+    kernel that the port runs there."""
     rng = np.random.RandomState(seed)
     q = (rng.randn(B, H, L, D) * D ** -0.5).astype(np.float32)
     k, v, do = (rng.randn(B, H, L, D).astype(np.float32) for _ in range(3))
@@ -151,27 +159,35 @@ def _case(B, H, L, D, ragged, seed, layout):
         def ble(x):
             return jnp.asarray(x.transpose(0, 2, 1, 3).reshape(B, L, H * D))
 
-        o_ble, (*_, lse_ble) = jfa._flash_core_ble_fwd(ble(q), ble(k), ble(v), jmask, 1.0, H,
-                                                       False)
-        o_ref = np.asarray(o_ble).reshape(B, L, H, D).transpose(0, 2, 1, 3)
-        lse_ref = np.asarray(lse_ble)[:, :, ::jfa._LANES].transpose(0, 2, 1)
+        def heads(x):
+            return np.asarray(x).reshape(B, L, H, D).transpose(0, 2, 1, 3)
+
+        o_ble, res_ble = jfa._flash_core_ble_fwd(ble(q), ble(k), ble(v), jmask, 1.0, H, False)
+        o_ref = heads(o_ble)
+        lse_ref = np.asarray(res_ble[-1])[:, :, ::jfa._LANES].transpose(0, 2, 1)
+        grads_ble = jfa._flash_core_ble_bwd(1.0, H, False, res_ble, ble(do))[:3]
+        # flash_bwd_ble's inputs: the ble forward's lse, delta from its o
+        lse, delta = lse_ref, (do * o_ref).sum(-1)
     else:
         o_ref = np.asarray(jfa.mha_reference(jq, jk, jv, jmask, scale=1.0))
         lse_ref = lse
-    delta = (do * np.asarray(res[4])).sum(-1)
+        delta = (do * np.asarray(res[4])).sum(-1)
     got = {}
     for terms in (3, 1):
         fwd = [[emulated_forward(q[b, h], k[b, h], v[b, h], mask[b], terms)
                 for h in range(H)] for b in range(B)]
         bwd = [[(emulated_dq(q[b, h], k[b, h], v[b, h], mask[b], do[b, h], lse[b, h],
-                             delta[b, h], terms),
+                             delta[b, h], terms, dq_steps),
                  *emulated_dkv(q[b, h], k[b, h], v[b, h], mask[b], do[b, h], lse[b, h],
-                               delta[b, h], terms)) for h in range(H)] for b in range(B)]
+                               delta[b, h], terms, dkv_steps)) for h in range(H)]
+               for b in range(B)]
         got[terms] = {name: np.array([[x[h][i] for h in range(H)] for x in part])
                       for part, names in ((fwd, ("o", "lse")), (bwd, ("dq", "dk", "dv")))
                       for i, name in enumerate(names)}
     want = {"o": o_ref, "lse": lse_ref, "dq": np.asarray(dq_ref), "dk": np.asarray(dk_ref),
             "dv": np.asarray(dv_ref)}
+    if layout == "ble":
+        want.update({name + "_ble": heads(x) for name, x in zip(("dq", "dk", "dv"), grads_ble)})
     return dict(q=q, k=k, v=v, mask=mask, do=do, got=got, want=want)
 
 
@@ -186,9 +202,12 @@ def _computed(label):
         jfa._INTERPRET = interpret
 
 
-CASES = {"whole_slide": (1, 1, 4097, 64, False, 0, "bhld"),
-         "ragged": (3, 2, 200, 64, True, 1, "bhld"),
-         "canonical": (2, 4, 257, 64, True, 3, "ble")}
+# (B, H, L, D, ragged, seed, layout, dq_steps, dkv_steps): flash_bwd_dq's
+# 64-key and flash_bwd_dkv's 64-query tiles at the whole-slide length,
+# flash_bwd_bhld_fused's 32-key and 64-query tiles, flash_bwd_ble's 32 and 32
+CASES = {"whole_slide": (1, 1, 4097, 64, False, 0, "bhld", 8, 8),
+         "ragged": (3, 2, 200, 64, True, 1, "bhld", 4, 8),
+         "canonical": (2, 4, 257, 64, True, 3, "ble", 4, 4)}
 
 
 @pytest.fixture(scope="module")
@@ -240,6 +259,18 @@ def test_emulated_kernels_match_jax(label, name, request):
             assert np.all(got.transpose(0, 2, 1, 3)[~c["mask"]] == 0.0)
         if name in ("o", "dq"):
             assert np.all(got[0] == 0.0)
+
+
+@pytest.mark.parametrize("name", ["dq", "dk", "dv"])
+def test_emulated_ble_backward_matches_pallas_ble(name, canonical):
+    """(b) for Q2: the canonical case's emulated dq, dk and dv against
+    `_bwd_kernel_ble`, on the ble forward's residuals, within the kernels'
+    card tolerance; sample 0 (no valid key) and masked keys exactly 0."""
+    got = canonical["got"][3][name]
+    np.testing.assert_allclose(got, canonical["want"][name + "_ble"], rtol=RTOL, atol=ATOL)
+    assert np.all(got[0] == 0.0)
+    if name != "dq":
+        assert np.all(got.transpose(0, 2, 1, 3)[~canonical["mask"]] == 0.0)
 
 
 def _exact(c):
