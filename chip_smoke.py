@@ -46,7 +46,24 @@ imports nothing of JAX or of the JAX package. Phases:
 7. Canonical training with `fusion.flash_layout="bhld"`: `flash_fwd_bhld`
    and `flash_bwd_bhld_fused`; one dropout-free step against the same step
    with `fusion.use_pallas=False`, both on the card, gated as in phase 6.
-8. Prints one `{"kernels": [...]}` JSON line, the card's line, then the
+8. The epoch loop, the production path: a `DeviceCache` bank on the card
+   (1,024 cases of 512 ragged patch slots x 1024 and 300 ragged tokens x
+   768, in bf16, subsampled to 256 patches per step; a TCGA cohort is about
+   10k cases: only depth is cut, to keep the bank's making short) and the
+   phase-5 model (dropout 0.1) trained through `step_many_cached`, one CUDA
+   graph of the fused step replayed K times. (a) A 4-step epoch of 32 cases
+   through `step_many_cached` against the same 4 steps run eagerly over
+   `cache.epoch(e)` from the same state and seeds (bitwise equality
+   printed; gated by `step_diff`); (d) `step_many` on the same epoch
+   stacked, under the same gate; a `fusion.remat_layers=True` epoch the
+   same way; (b) two full epochs of 128 steps on the bank: finite metrics,
+   moved params, graphed steps/s by the host clock beside phase 5's eager
+   steps/s; (c) launches of Q1 and Q2 equal the replays (and the eager
+   warm-up step) times `step_launches`, and one replay records exactly
+   `step_launches`. Prints the device busy share of replayed steps
+   (torch.profiler), the bank's bytes, the graph pool's and the phase's
+   peak memory.
+9. Prints one `{"kernels": [...]}` JSON line, the card's line, then the
    contract line `{"ok": true, "device": {...}}` last.
 
 Any failed check raises, so the exit code is non-zero and the last line is
@@ -96,6 +113,10 @@ E2E_RTOL, E2E_ATOL = 1e-4, 1e-4
 BATCH, N_BATCHES, REPEATS = 8, 4, 2
 WHOLE_SLIDE_PATCHES = 4096
 TRAIN_STEPS, WS_TRAIN_STEPS = 4, 2
+# phase 8: the DeviceCache bank (cases, patch slots per case), the patches
+# each step subsamples, the tokens per case, the cases of the small epoch
+BANK_CASES, BANK_SLOTS, NUM_PATCHES, NUM_TOKENS = 1024, 512, 256, 300
+SMALL_CASES = 32
 # one dropout-free training step, card (kernels, cuBLAS) vs CPU (plain
 # versions): metrics within STEP_RTOL / STEP_ATOL, and the params.
 # RMSprop's first update is +-10 lr sign(g), so an entry whose gradient is
@@ -519,7 +540,7 @@ def step_diff(test, ref, max_loose=None) -> dict:
     max_err, beyond_bound = 0.0, False
     for net, opt_got, opt_want in (("G", got.g_opt, want.g_opt), ("D", got.d_opt, want.d_opt)):
         bound = 10 * opt_want.base_lr * opt_want.count
-        rms = [opt_want.rmsprop.state[p]["square_avg"].sqrt().cpu() for p in opt_want.params]
+        rms = [nu.sqrt().cpu() for nu in opt_want.nu]
         net_rms = float(torch.cat([r.flatten() for r in rms]).square().mean().sqrt())
         loose_by_net[net] = 0
         for p_got, p_want, r in zip(opt_got.params, opt_want.params, rms):
@@ -611,6 +632,82 @@ def device_busy(engine, state, batch) -> dict:
                     for e in events[:5]]}
 
 
+def bank_data(cfg, n: int, seed: int) -> dict:
+    """A `DeviceCache` bank made on the card from `seed`: N(0, 1) genes
+    [n, n_genes], patches [n, BANK_SLOTS, patch_dim] with 64..BANK_SLOTS
+    valid slots per case, tokens [n, NUM_TOKENS, text_dim] with
+    16..NUM_TOKENS valid (the CLS token always), invalid entries zero."""
+    import torch
+
+    f = cfg.fusion
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def ragged(L, lo):
+        lens = torch.randint(lo, L + 1, (n,), generator=g, device="cuda")
+        return torch.arange(L, device="cuda")[None, :] < lens[:, None]
+
+    patch_mask, token_mask = ragged(BANK_SLOTS, 64), ragged(NUM_TOKENS, 16)
+    patches = torch.randn(n, BANK_SLOTS, f.patch_dim, generator=g, device="cuda")
+    tokens = torch.randn(n, NUM_TOKENS, f.text_dim, generator=g, device="cuda")
+    return {"genes": torch.randn(n, cfg.n_genes, generator=g, device="cuda"),
+            "patches": patches.mul_(patch_mask[..., None]), "patch_mask": patch_mask,
+            "tokens": tokens.mul_(token_mask[..., None]), "token_mask": token_mask}
+
+
+def floats(metrics) -> dict:
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def identical(a, b) -> bool:
+    """Whether two (state, metrics) runs agree bit for bit."""
+    import torch
+
+    (sa, ma), (sb, mb) = a, b
+    return (ma == mb and all(torch.equal(x, y) for net in ("gen", "critic") for x, y in
+                             zip(getattr(sa, net).parameters(), getattr(sb, net).parameters())))
+
+
+def replay_busy(engine, state, cache, epoch) -> dict:
+    """torch.profiler over one `step_many_cached` epoch whose graph exists
+    (replays only): device time of the kernels, copies and memsets per
+    step, the host clock per step (ending in a synchronise), the count of
+    device events per step and the five kernels that took most; None when
+    the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = cache.n_full_batches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step_many_cached(state, cache, epoch)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)]
+    if not events:
+        return None
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return {"device_ms": sum(e.self_device_time_total for e in events) / 1e3 / steps,
+            "host_ms": host_s * 1e3 / steps,
+            "device_events": sum(e.count for e in events) / steps,
+            "top": [(e.key[:60], e.count / steps, e.self_device_time_total / 1e3 / steps)
+                    for e in events[:5]]}
+
+
+def graph_pool_bytes():
+    """Bytes the caching allocator holds in private pools (CUDA graphs'),
+    from its segment snapshot; None when the snapshot does not say."""
+    import torch
+
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return None
+    return sum(s["total_size"] for s in segments if tuple(s["segment_pool_id"]) != (0, 0))
+
+
 def step_breakdown(engine, state, batch) -> dict:
     """CUDA-event times (ms) of one step's parts: the generator's condition
     embedding, one critic update, and the generator update."""
@@ -642,6 +739,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from gemm_gan_tpu_torch.config import variant_config
+    from gemm_gan_tpu_torch.data.device_cache import DeviceCache
     from gemm_gan_tpu_torch.data.synthetic import structured_dataset
     from gemm_gan_tpu_torch.kernels import build
     from gemm_gan_tpu_torch.kernels import flash_attention as fa
@@ -807,6 +905,7 @@ def main() -> int:
     print(f"    {TRAIN_STEPS / train_s:.2f} steps/s ({train_s * 1e3 / TRAIN_STEPS:.1f} ms "
           f"per step, host clock) on {card}", flush=True)
     busy = device_busy(engine, state, batches[0])
+    eager_busy_ms = "not measured" if busy is None else f"{busy['device_ms']:.2f}"
     if busy is None:
         print("    device busy share: not measured (the profiler saw no device time)")
     else:
@@ -877,8 +976,115 @@ def main() -> int:
           f"step at dropout 0: {json.dumps(cmp)}; the plain versions on the card vs the "
           f"same: {json.dumps(plain)} (metrics rtol {STEP_RTOL}, atol {STEP_ATOL}; params "
           f"beyond atol {PARAM_ATOL} per net at most {max_loose})", flush=True)
+    torch.cuda.empty_cache()
 
-    # ---- 8. report
+    # ---- 8. the epoch loop: DeviceCache + step_many_cached / step_many as CUDA graphs
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data = bank_data(cfg, BANK_CASES, seed=8)
+    cache_kw = dict(batch_size=BATCH, num_patches=NUM_PATCHES, seed=0,
+                    embedding_store_dtype=torch.bfloat16)
+    bank = DeviceCache(data, **cache_kw)
+    small = DeviceCache({k: v[:SMALL_CASES] for k, v in data.items()}, **cache_kw)
+    del data
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    bank_gb = sum(t.numel() * t.element_size() for t in bank.arrays.values()) / 1e9
+    print(f"[8] epoch loop: bank of {BANK_CASES} cases ({BANK_SLOTS} patch slots, "
+          f"{NUM_TOKENS} tokens, bf16 store) = {bank_gb:.3f} GB on the card, made in "
+          f"{time.perf_counter() - t0:.1f} s; {NUM_PATCHES} patches subsampled per "
+          f"step", flush=True)
+
+    def fresh(cfg_, cache):
+        engine_ = WGANGPEngine(cfg_, steps_per_epoch=cache.n_full_batches)
+        return engine_, engine_.state_from_flax(params, d_params, seed=0)
+
+    def epoch_runs(cfg_, label):
+        """(a) and (d): one small epoch through step_many_cached, step_many
+        (stacked) and eager steps, each from the same state and seeds."""
+        runs = {}
+        for path in ("step_many_cached", "step_many", "eager"):
+            engine_, state_ = fresh(cfg_, small)
+            torch.manual_seed(0)  # dropout
+            if path == "step_many_cached":
+                state_, m = engine_.step_many_cached(state_, small, 0)
+            elif path == "step_many":
+                state_, m = engine_.step_many(state_, small.stacked_epoch(0))
+            else:
+                for b in small.epoch(0):
+                    state_, m = engine_.step(state_, b)
+            torch.cuda.synchronize()
+            runs[path] = (engine_, state_, floats(m))
+        eager = runs["eager"][1:]
+        for path in ("step_many_cached", "step_many"):
+            got = runs[path][1:]
+            cmp = step_diff(got, eager)
+            print(f"    ({label}) {path} vs eager steps, {small.n_full_batches}-step epoch "
+                  f"of {SMALL_CASES} cases: bitwise equal {identical(got, eager)}; "
+                  f"{json.dumps(cmp)} (metrics rtol {STEP_RTOL}, atol {STEP_ATOL}; at most "
+                  f"{MAX_LOOSE} params beyond atol {PARAM_ATOL})", flush=True)
+        return runs
+
+    runs = epoch_runs(tcfg, "a, d")
+    g_engine, g_state, _ = runs["step_many_cached"]
+    del runs
+
+    # (b), (c): two full epochs on the bank, the second replays only
+    engine, state = fresh(tcfg, bank)
+    K = bank.n_full_batches
+    before = [p.detach().clone() for p in (state.gen.trunk.head.weight,
+                                           state.critic.trunk.head.weight)]
+    want = {**dict.fromkeys(KERNELS, 0), "flash_fwd_ble": n_fwd * K, "flash_bwd_ble": n_bwd * K}
+    epoch_s = []
+    for e in (0, 1):
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = engine.step_many_cached(state, bank, e)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        launches[f"epoch_loop_{e}"] = fa.launch_counts()
+        assert launches[f"epoch_loop_{e}"] == want, (launches, want)
+        metrics = floats(metrics)
+        assert all(np.isfinite(v) for v in metrics.values()), metrics
+    recorded = engine._cached_graphs[bank].recorded
+    assert recorded == {"flash_fwd_ble": n_fwd, "flash_bwd_ble": n_bwd}, recorded
+    for old, new in zip(before, (state.gen.trunk.head.weight, state.critic.trunk.head.weight)):
+        assert not torch.equal(old, new.detach()), "params did not move"
+    pool = graph_pool_bytes()
+    graphed_sps, eager_sps = K / epoch_s[1], TRAIN_STEPS / train_s
+    print(f"    (b) {K}-step epochs through step_many_cached: epoch 0 (eager warm-up step, "
+          f"capture, {K - 1} replays) {epoch_s[0]:.3f} s; epoch 1 ({K} replays) "
+          f"{epoch_s[1]:.3f} s = {graphed_sps:.2f} steps/s ({epoch_s[1] * 1e3 / K:.2f} ms "
+          f"per step, host clock) against phase 5's eager {eager_sps:.2f} steps/s "
+          f"({graphed_sps / eager_sps:.2f}x) on {card}; last metrics {json.dumps(metrics)}",
+          flush=True)
+    print(f"    (c) launches per epoch {launches['epoch_loop_1']} = {K} steps x "
+          f"step_launches {step_launches(tcfg)}; one replay records {recorded}", flush=True)
+    busy = replay_busy(g_engine, g_state, small, 1)
+    if busy is None:
+        print(f"    device busy share of replayed steps: not measured (the profiler saw no "
+              f"device time); one eager step's device time is {eager_busy_ms} ms against "
+              f"{epoch_s[1] * 1e3 / K:.2f} ms per replayed step on {card}", flush=True)
+    else:
+        print(f"    device busy share of replayed steps: {busy['device_ms']:.2f} ms of device "
+              f"time per step (torch.profiler, {busy['device_events']:.0f} device events) / "
+              f"{busy['host_ms']:.2f} ms per step = {busy['device_ms'] / busy['host_ms']:.3f} "
+              f"(eager, phase 5: {eager_busy_ms} ms of device time per step) on {card}; "
+              f"top kernels per step (name, calls, ms): {json.dumps(busy['top'])}",
+              flush=True)
+    print(f"    memory: bank {bank_gb:.3f} GB; CUDA graph pools "
+          f"{'not measured' if pool is None else f'{pool / 1e9:.3f} GB'}; peak allocated "
+          f"over the phase {torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {card}",
+          flush=True)
+    del engine, state, g_engine, g_state
+
+    # a remat_layers=True epoch (dropout 0.1), the same three ways
+    epoch_runs(train_cfg(exp, remat_layers=True), "remat")
+    del bank, small
+    torch.cuda.empty_cache()
+
+    # ---- 9. report
     paths = {"flash_fwd_ble": "serving", "flash_fwd_bhld": "whole_slide_serving",
              "flash_bwd_ble": "training", "flash_bwd_dq": "whole_slide_training",
              "flash_bwd_dkv": "whole_slide_training",
@@ -888,6 +1094,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "path": paths[name],
                         "launches": launches[paths[name]][name],
+                        "launches_by_path": {p: c[name] for p, c in launches.items()},
                         "max_abs_err": errs[name], **timed[name]})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -41,7 +41,8 @@ class _PatchTransformer(nn.Module):
         self.patches_transformer = TransformerEncoder(
             num_layers=cfg.num_layers, embed_dim=cfg.cond_dim,
             num_heads=cfg.num_heads, ff_dim=cfg.ff_dim, dropout=cfg.dropout,
-            use_pallas=cfg.use_pallas, flash_layout=cfg.flash_layout)
+            use_pallas=cfg.use_pallas, flash_layout=cfg.flash_layout,
+            remat=cfg.remat_layers)
 
     def forward(self, patches: torch.Tensor,
                 patch_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -49,8 +49,11 @@ kernels.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils.checkpoint import checkpoint
 
 from gemm_gan_tpu_torch.kernels import build
 
@@ -92,8 +95,11 @@ def mha_reference(q, k, v, kv_mask=None, scale=None):
 def mha_reference_blocked(q, k, v, kv_mask=None, scale=None):
     """`mha_reference` one block of query rows at a time: the peak extra
     memory is one [B, H, _REF_BLOCK_Q, Lk] block instead of the whole
-    logits matrix."""
-    return torch.cat([mha_reference(q[:, :, s:s + _REF_BLOCK_Q], k, v, kv_mask, scale)
+    logits matrix. Under autograd each block is recomputed in the backward
+    (`torch.utils.checkpoint`, as the JAX package's `jax.checkpoint` per
+    block), so the saved activations stay O(block) too."""
+    return torch.cat([checkpoint(mha_reference, q[:, :, s:s + _REF_BLOCK_Q], k, v, kv_mask,
+                                 scale, use_reentrant=False, preserve_rng_state=False)
                       for s in range(0, q.shape[2], _REF_BLOCK_Q)], dim=2)
 
 
@@ -381,8 +387,35 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """{kernel name: launches since the last `reset_launch_counts`}."""
+    """{kernel name: launches since the last `reset_launch_counts`}, those
+    made by replays of CUDA graphs included (see `recorded_launches`)."""
     return {kernel.__name__: kernel.launches for kernel in KERNELS}
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """For a CUDA graph's capture: within the block the wrappers record
+    their kernels into the graph and launch nothing, so the block's counts
+    are taken back off the counters on exit and left in the yielded dict
+    ({kernel name: launches one replay makes}), for `count_replays`."""
+    before = launch_counts()
+    recorded = {}
+    try:
+        yield recorded
+    finally:
+        for kernel in KERNELS:
+            n = kernel.launches - before[kernel.__name__]
+            kernel.launches -= n
+            if n:
+                recorded[kernel.__name__] = n
+
+
+def count_replays(recorded: dict, replays: int) -> None:
+    """Add `replays` replays of a graph whose capture recorded `recorded`
+    (from `recorded_launches`) to the counters: each replay launches every
+    recorded kernel again."""
+    for kernel in KERNELS:
+        kernel.launches += replays * recorded.get(kernel.__name__, 0)
 
 
 def single_block(Lq: int, Lk: int) -> bool:

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from gemm_gan_tpu_torch.kernels.flash_attention import masked_mha
 
@@ -88,10 +89,19 @@ class TransformerEncoderLayer(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
+    """`num_layers` post-LayerNorm blocks. With `remat`, each layer's
+    activations are recomputed in the backward instead of kept
+    (`torch.utils.checkpoint`, non-reentrant), as the JAX encoder's
+    `nn.remat` per layer: whole-slide patch counts need it. The dropout
+    masks of the recompute are the forward's: the default generator's state
+    is stashed when dropout is on."""
+
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int,
                  ff_dim: int, dropout: float = 0.1, use_pallas: bool = True,
-                 flash_layout: str = "ble"):
+                 flash_layout: str = "ble", remat: bool = False):
         super().__init__()
+        self.remat = remat
+        self.dropout = dropout
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(embed_dim, num_heads, ff_dim, dropout,
                                     use_pallas=use_pallas,
@@ -100,5 +110,9 @@ class TransformerEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, mask)
+            if self.remat:
+                x = checkpoint(layer, x, mask, use_reentrant=False,
+                               preserve_rng_state=self.training and self.dropout > 0)
+            else:
+                x = layer(x, mask)
         return x

@@ -41,6 +41,14 @@ _KIND_KEYS = {
 }
 
 
+def to_device(x: Any, device: torch.device) -> torch.Tensor:
+    """A conditioning array (numpy or torch) on `device`. Floating arrays go
+    as float32, whatever their dtype, as the JAX package (64-bit off) takes
+    them; masks and labels keep theirs."""
+    t = torch.as_tensor(x, device=device)
+    return t.float() if t.is_floating_point() else t
+
+
 def cond_keys_for(fusion_cfg) -> Tuple[str, ...]:
     """The conditioning keys a fusion config consumes, in call order."""
     keys = _KIND_KEYS.get(fusion_cfg.kind)
@@ -94,7 +102,7 @@ class GeneratorServer:
     def cond_tensors(self, cond: Optional[Mapping[str, Any]]
                      ) -> Optional[Dict[str, torch.Tensor]]:
         """The conditioning arrays this generator reads (numpy or torch), as
-        tensors on its device; None when it reads none."""
+        tensors on its device (`to_device`); None when it reads none."""
         if not self.keys:
             return None
         if cond is None:
@@ -103,7 +111,7 @@ class GeneratorServer:
         missing = [k for k in self.keys if k not in cond]
         if missing:
             raise ValueError(f"conditioning lacks keys {missing}")
-        return {k: torch.as_tensor(cond[k], device=self.device) for k in self.keys}
+        return {k: to_device(cond[k], self.device) for k in self.keys}
 
     def _z(self, n: int, generator: torch.Generator) -> torch.Tensor:
         z = torch.randn(n, self.cfg.latent_dim, generator=generator,

@@ -1,20 +1,30 @@
-"""The optimizer of the WGAN-GP step: RMSprop, the halving schedule and
-global-norm clipping.
+"""The optimizers of the WGAN-GP step: RMSprop, Adam and AdamW under the
+halving schedule, with global-norm clipping.
 
-Counterpart of `gemm_gan_tpu/train/schedules.py::make_optimizer`:
+Counterpart of `gemm_gan_tpu/train/schedules.py::make_optimizer`, written
+with `torch._foreach_*` so that an update reads nothing from the host: the
+update count lives on the device (`count_t`) and the rate is computed
+there from it, so a CUDA graph that captured an update replays it with the
+rate of each replay's count. The host's `count` mirrors it for `lr` and for
+callers; whoever runs updates without `apply` (the engine's step, a graph's
+replays) advances it.
 
-* RMSprop is torch's own with alpha 0.99 and eps 1e-8 outside the sqrt,
-  the update optax's `rmsprop(decay=0.99, eps=1e-8, eps_in_sqrt=False)`
-  makes.
-* The learning rate halves every `lr_halve_every_epochs` epochs of THIS
-  optimizer's own updates, as optax's `scale_by_schedule` counts them: the
-  critic's optimizer updates `n_critic` times per step, so its rate halves
+* RMSprop is optax's `rmsprop(decay=0.99, eps=1e-8, eps_in_sqrt=False)`,
+  torch's RMSprop with alpha 0.99: nu = 0.99 nu + 0.01 g², update
+  -lr g / (sqrt(nu) + 1e-8).
+* Adam is optax's `adam(b1=adam_b1, b2=adam_b2, eps=1e-8)`: bias-corrected
+  moments of the optimizer's own update count; AdamW adds optax's decoupled
+  `weight_decay` times the params (before the update) to the Adam update
+  ahead of the rate.
+* The rate halves every `lr_halve_every_epochs` epochs of THIS optimizer's
+  own updates, as optax's `scale_by_schedule` counts them: the critic's
+  optimizer updates `n_critic` times per step, so its rate halves
   `n_critic` times sooner, in steps, than the generator's.
 * Clipping is optax's `clip_by_global_norm`: the gradients are scaled by
   max/‖g‖ only when ‖g‖ >= max. `torch.nn.utils.clip_grad_norm_` adds
   1e-6 to the norm and is not used.
 
-Adam and AdamW raise `NotImplementedError`: not ported yet.
+The VAE's `warmup_exp_decay` schedule is not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +36,8 @@ import torch
 from gemm_gan_tpu_torch.config import TrainConfig
 
 RMSPROP_ALPHA = 0.99
-RMSPROP_EPS = 1e-8
+EPS = 1e-8
+OPTIMIZERS = ("rmsprop", "adam", "adamw")
 
 
 def halving_lr(base_lr: float, count: int, steps_per_epoch: int,
@@ -45,27 +56,32 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
         g.mul_(scale)
 
 
-class ScheduledRMSprop:
-    """RMSprop over `params` with the halving schedule and optional clipping.
+class ScheduledOptimizer:
+    """`cfg.optimizer` over `params` with the halving schedule and optional
+    clipping.
 
-    `apply(grads)` takes one gradient per parameter, in order, and updates
-    the parameters in place. `count` is the number of updates made."""
+    `update(grads)` takes one gradient per parameter, in order, and updates
+    the parameters in place from device state alone; `apply(grads)` is
+    `update` and `count += 1`. `nu` holds the second moments (RMSprop's and
+    Adam's), `mu` Adam's first moments."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], cfg: TrainConfig,
                  lr: float, steps_per_epoch: int, clip_grad: Optional[float] = None):
-        if cfg.optimizer in ("adam", "adamw"):
-            raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not ported; "
-                                      f"the port trains with 'rmsprop'")
-        if cfg.optimizer != "rmsprop":
+        if cfg.optimizer not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+        self.kind = cfg.optimizer
         self.params = list(params)
         self.base_lr = lr
         self.steps_per_epoch = steps_per_epoch
         self.halve_every_epochs = cfg.lr_halve_every_epochs
         self.clip_grad = clip_grad
+        self.b1, self.b2, self.weight_decay = cfg.adam_b1, cfg.adam_b2, cfg.weight_decay
         self.count = 0
-        self.rmsprop = torch.optim.RMSprop(self.params, lr=lr, alpha=RMSPROP_ALPHA,
-                                           eps=RMSPROP_EPS)
+        device = self.params[0].device
+        self.count_t = torch.zeros((), dtype=torch.int64, device=device)
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.mu = ([torch.zeros_like(p) for p in self.params] if self.kind != "rmsprop"
+                   else None)
 
     @property
     def lr(self) -> float:
@@ -73,17 +89,42 @@ class ScheduledRMSprop:
         return halving_lr(self.base_lr, self.count, self.steps_per_epoch,
                           self.halve_every_epochs)
 
-    def apply(self, grads: Iterable[torch.Tensor]) -> None:
+    def _lr_t(self) -> torch.Tensor:
+        """`lr` from `count_t`, on the device (f32)."""
+        epoch = torch.div(self.count_t, max(self.steps_per_epoch, 1), rounding_mode="floor")
+        halvings = torch.div(epoch, self.halve_every_epochs, rounding_mode="floor")
+        return self.base_lr * torch.pow(0.5, halvings.float())
+
+    @torch.no_grad()
+    def update(self, grads: Iterable[torch.Tensor]) -> None:
         grads = list(grads)
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
         if self.clip_grad is not None:
             clip_by_global_norm_(grads, self.clip_grad)
-        for p, g in zip(self.params, grads):
-            p.grad = g
-        for group in self.rmsprop.param_groups:
-            group["lr"] = self.lr
-        self.rmsprop.step()
-        for p in self.params:
-            p.grad = None
+        if self.kind == "rmsprop":
+            torch._foreach_mul_(self.nu, RMSPROP_ALPHA)
+            torch._foreach_addcmul_(self.nu, grads, grads, value=1 - RMSPROP_ALPHA)
+            denom = torch._foreach_sqrt(self.nu)
+            torch._foreach_add_(denom, EPS)
+            step = torch._foreach_div(grads, denom)
+        else:
+            torch._foreach_mul_(self.mu, self.b1)
+            torch._foreach_add_(self.mu, grads, alpha=1 - self.b1)
+            torch._foreach_mul_(self.nu, self.b2)
+            torch._foreach_addcmul_(self.nu, grads, grads, value=1 - self.b2)
+            n = (self.count_t + 1).float()
+            mu_hat = torch._foreach_mul(self.mu, 1 / (1 - torch.pow(self.b1, n)))
+            denom = torch._foreach_mul(self.nu, 1 / (1 - torch.pow(self.b2, n)))
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, EPS)
+            step = torch._foreach_div(mu_hat, denom)
+            if self.kind == "adamw":
+                torch._foreach_add_(step, self.params, alpha=self.weight_decay)
+        torch._foreach_mul_(step, self._lr_t())
+        torch._foreach_sub_(self.params, step)
+        self.count_t.add_(1)
+
+    def apply(self, grads: Iterable[torch.Tensor]) -> None:
+        self.update(grads)
         self.count += 1

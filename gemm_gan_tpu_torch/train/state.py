@@ -3,24 +3,29 @@
 Counterpart of `gemm_gan_tpu/train/state.py::GANTrainState`. Where the JAX
 state is an immutable pytree, this one holds the modules and optimizers
 themselves; `WGANGPEngine.step` updates them in place (no second copy of
-the weights) and returns the same object with `step` advanced.
+the weights) and returns the same object with `step` advanced. In-place
+updates also keep every tensor at its address, which a CUDA graph of the
+step needs (`WGANGPEngine.step_many`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from gemm_gan_tpu_torch.models.gan import Critic, Generator
-from gemm_gan_tpu_torch.train.schedules import ScheduledRMSprop
+from gemm_gan_tpu_torch.train.schedules import ScheduledOptimizer
 
 
-@dataclass
+@dataclass(eq=False)
 class GANTrainState:
-    step: int                # fused steps taken
+    step: int                  # fused steps taken
     gen: Generator
     critic: Critic
-    g_opt: ScheduledRMSprop  # each counts its own updates (`.count`)
-    d_opt: ScheduledRMSprop
-    rng: torch.Generator     # the run's z and α draws, on the engine's device
+    g_opt: ScheduledOptimizer  # each counts its own updates (`.count`)
+    d_opt: ScheduledOptimizer
+    rng: torch.Generator       # the run's z, α and instance-noise draws, on the engine's device
+    # EMA of the generator (`train.ema_decay` > 0), None when off
+    g_ema: Optional[Generator] = None

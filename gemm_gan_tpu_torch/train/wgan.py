@@ -1,13 +1,15 @@
-"""The fused WGAN-GP training step on the card.
+"""The fused WGAN-GP training step on the card, and the epoch loop.
 
-Counterpart of `gemm_gan_tpu/train/wgan.py::WGANGPEngine`. One `step` is
+Counterpart of `gemm_gan_tpu/train/wgan.py::WGANGPEngine`. One step is
 `n_critic` critic updates (the same real batch, fresh z and α each, the
 gradient penalty taken w.r.t. the interpolated expression only) and one
-generator update, each followed by its optimizer's update. PyTorch runs
-it eagerly; every attention backward goes through the CUDA kernels of
-`kernels/flash_attention.py`.
+generator update, each followed by its optimizer's update, then the
+generator's EMA (`train.ema_decay` > 0). With `train.p_aug` > 0 each critic
+update draws a gate ~ Bernoulli(p_aug) and adds gate * N(0, 1) *
+`norm_scale` to its real and fake batches (instance noise). Every attention
+backward goes through the CUDA kernels of `kernels/flash_attention.py`.
 
-Two paths, as in the JAX package:
+Two embedding paths, as in the JAX package:
 
 * `train.cond_embed_reuse="per_update"` (the production setting): the
   generator embeds the conditioning once per step (no grad: its params are
@@ -20,20 +22,43 @@ Two paths, as in the JAX package:
 The penalty's inner gradient reaches only the critic's trunk, so attention
 is differentiated once (the kernels' autograd Functions are first order).
 
-Randomness: z and α come from `state.rng`, or from `draws` when the caller
-passes them (the tests rebuild them from the JAX key schedule). Dropout
-masks come from PyTorch's default generator of the device; seed it with
-`torch.manual_seed` for a repeatable run.
+Three ways to run steps, one body (`_fused_step`, which reads device
+tensors only and changes no host state):
 
-Not ported (raise `NotImplementedError`): `ema_decay > 0`, `p_aug > 0`,
-`grad_accum > 1`, `hoist_fakes=True` on the per_update batched path, and
-what `models.gan.check_supported` refuses (bf16, other fusions).
-`critic_scan` changes nothing here: the critic updates are a Python loop
-either way.
+* `step(state, batch)`: one step, eagerly;
+* `step_many(state, stacked)`: the JAX `step_many` (`lax.scan` over [K, B,
+  ...] batches): the stack is copied once into static device buffers
+  (through pinned memory) and a device step index selects row k;
+* `step_many_cached(state, cache, epoch)`: one epoch from a `DeviceCache`,
+  each batch gathered and patch-subsampled from the resident bank inside
+  the step; only the epoch's [K, B] index table and subsampling scores are
+  copied in.
+
+On the card the last two capture one step as a CUDA graph (`_StepGraph`)
+after one eager warm-up step on the capture stream (the first of the K,
+which also builds and loads the kernels), and replay it; on the CPU they
+run the same body in a loop. Nothing falls back: a capture that fails
+raises. A replay launches no wrapper, so each graph records the kernel
+launches its capture made and adds them to the counters per replay
+(`flash_attention.recorded_launches`, `count_replays`).
+
+Randomness: z, α and the instance noise come from `state.rng`, or from
+`draws` when the caller passes them (the tests rebuild them from the JAX key
+schedule). Dropout masks come from PyTorch's default generator of the
+device; seed it with `torch.manual_seed` for a repeatable run. Both are
+registered with a captured graph, so a replayed step draws what the same
+step run eagerly would.
+
+Not ported (raise `NotImplementedError`): `grad_accum > 1`,
+`hoist_fakes=True` on the per_update batched path, and what
+`models.gan.check_supported` refuses (bf16, other fusions). `critic_scan`
+changes nothing here: the critic updates are a Python loop either way.
 """
 
 from __future__ import annotations
 
+import copy
+import weakref
 from typing import Any, Callable, Dict, Iterable, Mapping, Optional
 
 import numpy as np
@@ -41,14 +66,91 @@ import torch
 
 from gemm_gan_tpu_torch.config import ExperimentConfig
 from gemm_gan_tpu_torch.convert import flax_to_state_dict
+from gemm_gan_tpu_torch.kernels import flash_attention as fa
 from gemm_gan_tpu_torch.models.gan import Critic, Generator
-from gemm_gan_tpu_torch.serving import GeneratorServer, cond_keys_for
+from gemm_gan_tpu_torch.serving import GeneratorServer, cond_keys_for, to_device
 from gemm_gan_tpu_torch.train import losses
-from gemm_gan_tpu_torch.train.schedules import ScheduledRMSprop
+from gemm_gan_tpu_torch.train.schedules import ScheduledOptimizer
 from gemm_gan_tpu_torch.train.state import GANTrainState
 from gemm_gan_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Batch = Mapping[str, Any]
+Inputs = Callable[[torch.Tensor], tuple]
+
+
+def _host_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _buffer_dtype(x: torch.Tensor) -> torch.dtype:
+    """Floating arrays are held as float32 (`serving.to_device`)."""
+    return torch.float32 if x.is_floating_point() else x.dtype
+
+
+def _row(buffer: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Row `i` (a one-element device index) of `buffer`, on the device."""
+    return buffer.index_select(0, i)[0]
+
+
+class _StepGraph:
+    """One fused step of `state` that takes its inputs from
+    `inputs(step_idx)`, a function of a one-element device index that reads
+    static buffers; each run advances the index. On the card it is captured
+    once as a CUDA graph and replayed; on the CPU the body is called."""
+
+    def __init__(self, engine: "WGANGPEngine", state: GANTrainState,
+                 buffers: Dict[str, torch.Tensor], inputs: Inputs):
+        self.engine = engine
+        self.state = state
+        self.buffers = buffers  # what `inputs` reads; the caller fills them
+        self.inputs = inputs
+        self.step_idx = torch.zeros(1, dtype=torch.long, device=engine.device)
+        self.graph = None
+        self.outputs = None   # the captured step's metrics, rewritten by each replay
+        self.recorded = {}    # kernel launches one replay makes
+
+    def _body(self) -> Dict[str, torch.Tensor]:
+        real, cond, draws = self.inputs(self.step_idx)
+        metrics = self.engine._fused_step(self.state, real, cond, draws)
+        self.step_idx.add_(1)
+        return metrics
+
+    def _capture(self) -> Dict[str, torch.Tensor]:
+        """Run one step eagerly on a side stream (it warms up the autograd
+        engine and cuBLAS on that stream, builds and loads the kernels and
+        allocates what the optimizers hold), then capture the next on the
+        same stream. Returns the eager step's metrics."""
+        device = self.engine.device
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            metrics = self._body()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.state.rng)
+        with fa.recorded_launches() as recorded:
+            with torch.cuda.graph(graph, stream=stream):
+                self.outputs = self._body()
+        self.graph, self.recorded = graph, recorded
+        return metrics
+
+    def run(self, n: int) -> Dict[str, torch.Tensor]:
+        """`n` steps from row 0; returns the last step's metrics."""
+        self.step_idx.zero_()
+        if self.engine.device.type == "cpu":
+            for _ in range(n):
+                metrics = self._body()
+            return metrics
+        done = 0
+        if self.graph is None:
+            metrics = self._capture()
+            done = 1
+        for _ in range(n - done):
+            self.graph.replay()
+        fa.count_replays(self.recorded, n - done)
+        if n > done:
+            metrics = {k: v.clone() for k, v in self.outputs.items()}
+        return metrics
 
 
 class WGANGPEngine:
@@ -66,8 +168,6 @@ class WGANGPEngine:
                              f"got {t.cond_embed_reuse!r}")
         self.reuse = t.cond_embed_reuse == "per_update"
         for name, unported in (
-                ("train.ema_decay > 0", t.ema_decay > 0),
-                ("train.p_aug > 0", t.p_aug > 0),
                 ("train.grad_accum > 1", t.grad_accum > 1),
                 ("train.hoist_fakes=True", t.hoist_fakes and self.reuse
                  and t.batched_scores)):
@@ -78,16 +178,21 @@ class WGANGPEngine:
         self.device = resolve_device(device)
         self.keys = cond_keys_for(cfg.model.fusion)
         self.history: Dict[str, list] = {"d_loss": [], "g_loss": []}
+        # step_many's graph per batch layout; step_many_cached's per cache
+        # (weak keys: a dropped cache releases its graph and bank)
+        self._graphs: Dict[tuple, _StepGraph] = {}
+        self._cached_graphs = weakref.WeakKeyDictionary()
 
     # ------------------------------------------------------------------ state
     def _state(self, gen: Generator, critic: Critic, seed: int) -> GANTrainState:
         t = self.cfg.train
-        g_opt = ScheduledRMSprop(gen.parameters(), t, t.lr_gen, self.steps_per_epoch,
-                                 t.clip_grad_gen)
-        d_opt = ScheduledRMSprop(critic.parameters(), t, t.lr_disc, self.steps_per_epoch,
-                                 t.clip_grad_disc)
+        g_opt = ScheduledOptimizer(gen.parameters(), t, t.lr_gen, self.steps_per_epoch,
+                                   t.clip_grad_gen)
+        d_opt = ScheduledOptimizer(critic.parameters(), t, t.lr_disc, self.steps_per_epoch,
+                                   t.clip_grad_disc)
         rng = torch.Generator(device=self.device).manual_seed(seed)
-        return GANTrainState(0, gen, critic, g_opt, d_opt, rng)
+        g_ema = copy.deepcopy(gen).requires_grad_(False) if t.ema_decay > 0 else None
+        return GANTrainState(0, gen, critic, g_opt, d_opt, rng, g_ema)
 
     def init_state(self, seed: int, sample_batch: Batch) -> GANTrainState:
         """Fresh nets (Flax-like random init from `seed`) and optimizers.
@@ -102,13 +207,20 @@ class WGANGPEngine:
     def state_from_flax(self, g_params: Mapping, d_params: Mapping,
                         seed: Optional[int] = None) -> GANTrainState:
         """A state whose nets carry a JAX run's Flax params (numpy trees, e.g.
-        `jax.device_get(state.g_params)`), with fresh optimizers."""
+        `jax.device_get(state.g_params)`), with fresh optimizers; the EMA
+        (if on) starts from the generator's params."""
         m = self.cfg.model
         gen = Generator(m, device=self.device)
         gen.load_state_dict(flax_to_state_dict(g_params))
         critic = Critic(m, device=self.device)
         critic.load_state_dict(flax_to_state_dict(d_params))
         return self._state(gen, critic, self.cfg.train.seed if seed is None else seed)
+
+    def _advance(self, state: GANTrainState, n: int) -> None:
+        """Host bookkeeping of `n` steps run on the device."""
+        state.step += n
+        state.g_opt.count += n
+        state.d_opt.count += n * self.cfg.train.n_critic
 
     # ------------------------------------------------------------- the step
     def _tensors(self, batch: Batch):
@@ -117,13 +229,27 @@ class WGANGPEngine:
         if missing:
             raise ValueError(f"batch lacks keys {missing}")
         real = torch.as_tensor(batch["genes"], dtype=torch.float32, device=self.device)
-        cond = ({k: torch.as_tensor(batch[k], device=self.device) for k in self.keys}
+        cond = ({k: to_device(batch[k], self.device) for k in self.keys}
                 if self.keys else None)
         return real, cond
 
-    def _normal(self, state: GANTrainState, B: int) -> torch.Tensor:
-        return torch.randn(B, self.cfg.model.latent_dim, generator=state.rng,
-                           device=self.device)
+    def _draw_keys(self):
+        keys = ("z", "alpha", "z_gen")
+        return keys + ("gate", "noise_real", "noise_fake") if self.cfg.train.p_aug > 0 else keys
+
+    def _draws(self, state: GANTrainState, B: int) -> Dict[str, torch.Tensor]:
+        """One step's random draws from `state.rng` (the keys of `step`'s
+        `draws`; the noise unscaled)."""
+        t, m = self.cfg.train, self.cfg.model
+        g, dev, n = state.rng, self.device, t.n_critic
+        draws = {"z": torch.randn(n, B, m.latent_dim, generator=g, device=dev),
+                 "alpha": torch.rand(n, B, 1, generator=g, device=dev),
+                 "z_gen": torch.randn(B, m.latent_dim, generator=g, device=dev)}
+        if t.p_aug > 0:
+            draws["gate"] = (torch.rand(n, generator=g, device=dev) < t.p_aug).float()
+            for k in ("noise_real", "noise_fake"):
+                draws[k] = torch.randn(n, B, m.n_genes, generator=g, device=dev)
+        return draws
 
     def embed_generator(self, state: GANTrainState, cond) -> Optional[torch.Tensor]:
         """per_update: the generator's condition embedding for the step's
@@ -151,20 +277,28 @@ class WGANGPEngine:
         gp = losses.gradient_penalty(lambda x: critic.score(x, cvec), real, fake, alpha)
         return d_real, d_fake, gp
 
-    def critic_update(self, state: GANTrainState, real, cond, g_cvec, z, alpha):
+    def critic_update(self, state: GANTrainState, real, cond, g_cvec, z, alpha,
+                      noise=None):
         """One critic update on fakes made from `z`; returns the detached
         (Wasserstein loss E[D(fake)] - E[D(real)], gp, mean D(real), mean
-        D(fake)). The update descends that loss + gp_weight * gp (+ drift)."""
+        D(fake)). The update descends that loss + gp_weight * gp (+ drift).
+        `noise` = (gate, noise_real, noise_fake) adds instance noise, gate *
+        noise * norm_scale, to real and fake. Advances the critic
+        optimizer's device count only (`_advance` does the host's)."""
         t = self.cfg.train
         with torch.no_grad():
             fake = (state.gen.score(z, g_cvec) if g_cvec is not None
                     else state.gen(z, cond))
+        if noise is not None:
+            gate, noise_real, noise_fake = noise
+            fake = fake + gate * (noise_fake * t.norm_scale)
+            real = real + gate * (noise_real * t.norm_scale)
         d_real, d_fake, gp = self._critic_scores(state.critic, real, fake, cond, alpha)
         loss = losses.d_loss(d_real, d_fake)[0]
         total = loss + t.gp_weight * gp
         if t.drift_epsilon > 0:
             total = total + t.drift_epsilon * losses.drift_penalty(d_real, d_fake)
-        state.d_opt.apply(torch.autograd.grad(total, state.d_opt.params))
+        state.d_opt.update(torch.autograd.grad(total, state.d_opt.params))
         return tuple(x.detach() for x in (loss, gp, d_real.mean(), d_fake.mean()))
 
     def generator_update(self, state: GANTrainState, cond, z) -> torch.Tensor:
@@ -178,8 +312,40 @@ class WGANGPEngine:
         fake = state.gen(z, cond)
         scores = critic.score(fake, d_cvec) if d_cvec is not None else critic(fake, cond)
         gl = losses.g_loss(scores)
-        state.g_opt.apply(torch.autograd.grad(gl, state.g_opt.params))
+        state.g_opt.update(torch.autograd.grad(gl, state.g_opt.params))
         return gl.detach()
+
+    @torch.no_grad()
+    def _update_ema(self, state: GANTrainState) -> None:
+        """e = d e + (1 - d) p over the generator's params."""
+        d = self.cfg.train.ema_decay
+        ema = list(state.g_ema.parameters())
+        torch._foreach_mul_(ema, d)
+        torch._foreach_add_(ema, list(state.gen.parameters()), alpha=1.0 - d)
+
+    def _fused_step(self, state: GANTrainState, real: torch.Tensor, cond,
+                    draws: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """The step's device work on device inputs; no host state changes
+        and no host synchronisation, so a CUDA graph can capture it."""
+        t = self.cfg.train
+        if draws is None:
+            draws = self._draws(state, real.shape[0])
+        state.gen.train()
+        state.critic.train()
+        g_cvec = self.embed_generator(state, cond)
+        aux = None
+        for i in range(t.n_critic):
+            noise = (None if t.p_aug <= 0 else
+                     (draws["gate"][i], draws["noise_real"][i], draws["noise_fake"][i]))
+            aux = self.critic_update(state, real, cond, g_cvec, draws["z"][i],
+                                     draws["alpha"][i], noise)
+        gl = self.generator_update(state, cond, draws["z_gen"])
+        if state.g_ema is not None:
+            self._update_ema(state)
+        d_loss, gp, d_real, d_fake = aux
+        return {"d_loss": d_loss, "g_loss": gl, "gp": gp,
+                "d_real": d_real, "d_fake": d_fake}
 
     def step(self, state: GANTrainState, batch: Batch,
              draws: Optional[Mapping[str, Any]] = None):
@@ -190,62 +356,169 @@ class WGANGPEngine:
 
         `draws` replaces the step's random draws: "z" [n_critic, B, latent]
         and "alpha" [n_critic, B, 1] for the critic updates, "z_gen"
-        [B, latent] for the generator update."""
-        n_critic = self.cfg.train.n_critic
+        [B, latent] for the generator update, and with `p_aug` > 0 "gate"
+        [n_critic] (0/1) and the unscaled N(0, 1) "noise_real" and
+        "noise_fake" [n_critic, B, n_genes]."""
         real, cond = self._tensors(batch)
-        B = real.shape[0]
         if draws is not None:
             draws = {k: torch.tensor(np.asarray(draws[k]), dtype=torch.float32,
-                                     device=self.device) for k in ("z", "alpha", "z_gen")}
-        state.gen.train()
-        state.critic.train()
-        g_cvec = self.embed_generator(state, cond)
-        aux = None
-        for i in range(n_critic):
-            if draws is None:
-                z = self._normal(state, B)
-                alpha = torch.rand(B, 1, generator=state.rng, device=self.device)
-            else:
-                z, alpha = draws["z"][i], draws["alpha"][i]
-            aux = self.critic_update(state, real, cond, g_cvec, z, alpha)
-        z = self._normal(state, B) if draws is None else draws["z_gen"]
-        gl = self.generator_update(state, cond, z)
-        d_loss, gp, d_real, d_fake = aux
-        state.step += 1
-        return state, {"d_loss": d_loss, "g_loss": gl, "gp": gp,
-                       "d_real": d_real, "d_fake": d_fake}
+                                     device=self.device) for k in self._draw_keys()}
+        metrics = self._fused_step(state, real, cond, draws)
+        self._advance(state, 1)
+        return state, metrics
+
+    # ------------------------------------------------------------ many steps
+    def _copy_in(self, buffer: torch.Tensor, x: torch.Tensor) -> None:
+        """Copy `x` into the first rows of the static `buffer`; a host array
+        goes through pinned memory and does not block the host."""
+        if x.device.type == "cpu" and buffer.device.type == "cuda":
+            x = x.pin_memory()
+        buffer[:len(x)].copy_(x, non_blocking=True)
+
+    def step_many(self, state: GANTrainState, stacked: Mapping[str, Any],
+                  draws: Optional[Mapping[str, Any]] = None):
+        """K fused steps over batches stacked on a leading axis [K, B, ...]
+        (numpy or torch; `draws` likewise stacked [K, ...] per key of
+        `step`'s). Returns (state, metrics of the last step), with
+        `state.step` and both optimizers' counts advanced by K.
+
+        The stack is copied once into static device buffers; the graph
+        reads row k through a device step index. One graph is kept per
+        batch layout (keys, per-batch shapes and dtypes, draws or not) and
+        state, and reused for any K up to its buffers' rows."""
+        arrays = {k: _host_tensor(stacked[k]) for k in ("genes", *self.keys)}
+        if draws is not None:
+            arrays.update({f"draw:{k}": _host_tensor(draws[k]).float()
+                           for k in self._draw_keys()})
+        K = len(arrays["genes"])
+        if K < 1 or any(len(x) != K for x in arrays.values()):
+            raise ValueError(f"step_many needs K >= 1 batches on every key's leading "
+                             f"axis, got {[tuple(x.shape) for x in arrays.values()]}")
+        layout = tuple((k, tuple(x.shape[1:]), _buffer_dtype(x)) for k, x in arrays.items())
+        graph = self._graphs.get(layout)
+        if graph is None or graph.state is not state or len(graph.buffers["genes"]) < K:
+            buffers = {k: torch.empty((K, *shape), dtype=dtype, device=self.device)
+                       for k, shape, dtype in layout}
+            graph = _StepGraph(self, state, buffers, self._stacked_inputs(buffers))
+            self._graphs[layout] = graph
+        for k, x in arrays.items():
+            self._copy_in(graph.buffers[k], x)
+        metrics = graph.run(K)
+        self._advance(state, K)
+        return state, metrics
+
+    def _stacked_inputs(self, buffers: Dict[str, torch.Tensor]) -> Inputs:
+        keys = self.keys
+
+        def inputs(i):
+            real = _row(buffers["genes"], i)
+            cond = {k: _row(buffers[k], i) for k in keys} if keys else None
+            draws = {k[5:]: _row(b, i) for k, b in buffers.items() if k.startswith("draw:")}
+            return real, cond, draws or None
+
+        return inputs
+
+    def step_many_cached(self, state: GANTrainState, cache, epoch: Optional[int] = None):
+        """One epoch of fused steps streaming batches from a `DeviceCache`:
+        each step gathers (and patch-subsamples) its batch from the resident
+        bank inside the step, as the JAX `step_many_cached` does inside its
+        scan. The same training as `step_many(state,
+        cache.stacked_epoch(e))`, but device memory stays O(bank + one
+        batch). One graph per cache (and state); each epoch copies in only
+        the [K, B] index table and the subsampling scores."""
+        if cache.device != self.device:
+            raise ValueError(f"the cache is on {cache.device}, the engine on {self.device}")
+        missing = [k for k in ("genes", *self.keys) if k not in cache.arrays]
+        if missing:
+            raise ValueError(f"the cache lacks keys {missing}")
+        idx, scores = cache.epoch_spec(epoch)
+        graph = self._cached_graphs.get(cache)
+        if graph is None or graph.state is not state:
+            buffers = {"idx": torch.empty_like(idx)}
+            if scores is not None:
+                buffers["scores"] = torch.empty_like(scores)
+            graph = _StepGraph(self, state, buffers, self._cached_inputs(
+                cache.arrays, cache.assemble_fn, buffers))
+            self._cached_graphs[cache] = graph
+        graph.buffers["idx"].copy_(idx)
+        if scores is not None:
+            graph.buffers["scores"].copy_(scores)
+        metrics = graph.run(len(idx))
+        self._advance(state, len(idx))
+        return state, metrics
+
+    def _cached_inputs(self, arrays, assemble, buffers) -> Inputs:
+        # closes over the bank and the assembler, not the cache, so the
+        # weak-keyed entry dies with the cache
+        keys = self.keys
+
+        def inputs(i):
+            scores = _row(buffers["scores"], i) if "scores" in buffers else None
+            batch = assemble(arrays, _row(buffers["idx"], i), scores)
+            return batch["genes"], ({k: batch[k] for k in keys} if keys else None), None
+
+        return inputs
 
     # -------------------------------------------------------------- the loop
     def fit(self, state: GANTrainState, epochs: int,
-            batches_fn: Callable[[], Iterable[Batch]],
-            on_epoch_end: Optional[Callable] = None) -> GANTrainState:
-        """`epochs` passes over `batches_fn()`; `history` keeps each epoch's
-        last d_loss and g_loss. `on_epoch_end(engine, state, epoch)` may
-        return a replacement state."""
-        self.history = {"d_loss": [], "g_loss": []}
-        for epoch in range(epochs):
+            batches_fn: Optional[Callable[[], Iterable[Batch]]] = None,
+            on_epoch_end: Optional[Callable] = None, logger=None,
+            stacked_fn: Optional[Callable] = None, start_epoch: int = 0,
+            scan_cache=None) -> GANTrainState:
+        """Epochs [start_epoch, epochs), as the JAX `fit`: `scan_cache` (a
+        `DeviceCache`) runs each epoch through `step_many_cached`,
+        `stacked_fn(epoch)` (a [K, B, ...] stack) through `step_many`, else
+        `batches_fn()` through `step`. `history` keeps each epoch's last
+        d_loss and g_loss; `logger.log(step, **metrics)` gets them too.
+        `on_epoch_end(engine, state, epoch)` may return a replacement state.
+
+        Resuming from a restored state with `start_epoch` trains on the
+        batches the uninterrupted run would have: both loaders draw epoch
+        e's order from `RandomState(seed + e)`, and the cache's subsampling
+        scores from (seed, e)."""
+        if batches_fn is None and stacked_fn is None and scan_cache is None:
+            raise ValueError("fit() needs batches_fn, stacked_fn, or scan_cache")
+        history = {"d_loss": [], "g_loss": []}
+        for epoch in range(start_epoch, epochs):
             metrics = None
-            for batch in batches_fn():
-                state, metrics = self.step(state, batch)
+            if scan_cache is not None:
+                state, metrics = self.step_many_cached(state, scan_cache, epoch)
+            elif stacked_fn is not None:
+                state, metrics = self.step_many(state, stacked_fn(epoch))
+            else:
+                for batch in batches_fn():
+                    state, metrics = self.step(state, batch)
             if metrics is not None:
-                self.history["d_loss"].append(float(metrics["d_loss"]))
-                self.history["g_loss"].append(float(metrics["g_loss"]))
+                if logger is not None:
+                    logger.log(state.step, **metrics)
+                history["d_loss"].append(float(metrics["d_loss"]))
+                history["g_loss"].append(float(metrics["g_loss"]))
             if on_epoch_end is not None:
                 state = on_epoch_end(self, state, epoch) or state
+        self.history = history
         return state
 
     # -------------------------------------------------------------- sampling
+    def _sampler(self, state: GANTrainState, use_ema: Optional[bool]) -> GeneratorServer:
+        """The EMA generator when `use_ema` (default: whenever the state
+        tracks one), else the trained one, as the JAX `_gen_params`."""
+        use_ema = state.g_ema is not None if use_ema is None else use_ema
+        if use_ema and state.g_ema is None:
+            raise ValueError("use_ema=True but the state has no EMA generator "
+                             "(set train.ema_decay > 0 before init_state)")
+        return GeneratorServer.for_module(state.g_ema if use_ema else state.gen)
+
     def generate_samples(self, state: GANTrainState, generator: torch.Generator,
-                         batch: Batch) -> torch.Tensor:
+                         batch: Batch, use_ema: Optional[bool] = None) -> torch.Tensor:
         """Fakes [B, n_genes] (on the device) for one batch's conditioning,
         one embedding per batch, z drawn from `generator`."""
-        server = GeneratorServer.for_module(state.gen)
-        return server.sample(batch if self.keys else None, generator,
-                             n=None if self.keys else batch["genes"].shape[0])
+        return self._sampler(state, use_ema).sample(
+            batch if self.keys else None, generator,
+            n=None if self.keys else batch["genes"].shape[0])
 
     def generate_samples_all(self, state: GANTrainState, batches: Iterable[Batch],
-                             num_repeats: int, generator: torch.Generator
-                             ) -> Dict[str, Any]:
-        """`GeneratorServer.sample_all` with the state's generator."""
-        return GeneratorServer.for_module(state.gen).sample_all(batches, num_repeats,
-                                                               generator)
+                             num_repeats: int, generator: torch.Generator,
+                             use_ema: Optional[bool] = None) -> Dict[str, Any]:
+        """`GeneratorServer.sample_all` with the state's generator (its EMA
+        by default when it tracks one)."""
+        return self._sampler(state, use_ema).sample_all(batches, num_repeats, generator)

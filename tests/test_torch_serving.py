@@ -260,7 +260,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'gemm_gan_tpu')]\n"
-        "assert len(mods) >= 15, mods\n"
+        "assert len(mods) >= 19, mods\n"
+        "new = {'gemm_gan_tpu_torch.data.' + m for m in "
+        "('splits', 'loader', 'tcga', 'device_cache')}\n"
+        "assert new <= set(mods), sorted(new - set(mods))\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -46,7 +46,7 @@ from gemm_gan_tpu_torch.models.gan import Critic
 from gemm_gan_tpu_torch.ops import attention as tattn
 from gemm_gan_tpu_torch.serving import GeneratorServer
 from gemm_gan_tpu_torch.train import losses as tlosses
-from gemm_gan_tpu_torch.train.schedules import (ScheduledRMSprop, clip_by_global_norm_,
+from gemm_gan_tpu_torch.train.schedules import (ScheduledOptimizer, clip_by_global_norm_,
                                                 halving_lr)
 from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
 
@@ -223,7 +223,7 @@ def test_critic_loss_and_its_gradients_match_jax(batched, critic_params):
 
 
 def test_optimizer_matches_make_optimizer_across_halving_and_clipping():
-    """ScheduledRMSprop vs `make_optimizer` (RMSprop under optax's
+    """ScheduledOptimizer vs `make_optimizer` (RMSprop under optax's
     `clip_by_global_norm`) over six updates of the same gradients, crossing
     two halvings (steps_per_epoch 2, halve every epoch) with clipping active
     on some updates and not on others."""
@@ -233,7 +233,7 @@ def test_optimizer_matches_make_optimizer_across_halving_and_clipping():
     tx = make_optimizer(jcfg.train, 5e-4, 2, clip_grad=2.0)
     jstate, jparams = tx.init(params), params
     tparams = [torch.nn.Parameter(_t(params[k])) for k in ("a", "b")]
-    opt = ScheduledRMSprop(tparams, _port_cfg(jcfg).train, 5e-4, 2, clip_grad=2.0)
+    opt = ScheduledOptimizer(tparams, _port_cfg(jcfg).train, 5e-4, 2, clip_grad=2.0)
     clipped = []
     for i, scale in enumerate((0.1, 3.0, 0.2, 5.0, 0.05, 1.0)):
         g = {k: (scale * rng.randn(*v.shape)).astype(np.float32) for k, v in params.items()}
@@ -361,11 +361,9 @@ def test_fit_trains_and_each_optimizer_keys_its_own_schedule():
 
 
 @pytest.mark.parametrize("train_kw,error", [
-    (dict(ema_decay=0.99), NotImplementedError),
-    (dict(p_aug=0.5), NotImplementedError),
     (dict(grad_accum=2), NotImplementedError),
     (dict(hoist_fakes=True), NotImplementedError),
-    (dict(optimizer="adam"), NotImplementedError),
+    (dict(optimizer="sgd"), ValueError),
     (dict(n_critic=0), ValueError),
     (dict(cond_embed_reuse="sometimes"), ValueError),
 ])
