@@ -8,9 +8,10 @@ imports nothing of JAX or of the JAX package. Phases:
 1. Build the CUDA kernels from `gemm_gan_tpu_torch/kernels/csrc/` (one nvcc
    per source, in parallel, into the ignored build dir) and print the build
    time, nvcc's register/spill/shared-memory report for every kernel and
-   head dim (a kernel template it cannot name raises), every kernel's
-   dynamic shared memory and blocks per SM (all six run on the tensor
-   cores), and the card's name and power limit.
+   head dim and product mode (a kernel template it cannot name raises),
+   every kernel's dynamic shared memory and blocks per SM (all ten (kernel,
+   mode) entry points run on the tensor cores), and the card's name and
+   power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it plus ragged and
    fully-masked cases and D 8 / 128, and time kernel, plain version and the
@@ -18,6 +19,11 @@ imports nothing of JAX or of the JAX package. Phases:
    through `torch.autograd.grad`; a yardstick only: the port never calls
    it) by CUDA events, kernel and library also by their device time
    (torch.profiler), with the names of the CUDA kernels the library ran.
+   The bf16 modes of Q1 and Q2 (`flash_fwd_ble_bf16`, `flash_fwd_ble_mxu`,
+   `flash_bwd_ble_bf16`, `flash_bwd_ble_mxu`; mxu_bf16 on bf16 and on f32
+   inputs) are held to their plain versions within BF16_ULPS bf16 ulp of
+   each row's largest entry (each side rounds once from f32), lse within
+   LSE_ATOL, and timed on bf16 inputs against the library's bf16 SDPA.
 3. Serving, the main path: `GeneratorServer.sample_all` with the flagship
    `film_cross_attention` generator at canonical widths (random weights from
    a seeded numpy tree in Flax layout, carried over by `convert.py`),
@@ -63,7 +69,25 @@ imports nothing of JAX or of the JAX package. Phases:
    `step_launches`. Prints the device busy share of replayed steps
    (torch.profiler), the bank's bytes, the graph pool's and the phase's
    peak memory.
-9. Prints one `{"kernels": [...]}` JSON line, the card's line, then the
+9. The bench configuration: phase 5's model and settings with
+   `compute_dtype="bfloat16"` (the JAX package's production preset). (a)
+   Canonical serving through `sample_all` (Q1's bf16 mode, launches
+   checked), one batch card vs CPU within BF16_E2E_TOL of the output's
+   largest entry, printed beside `use_pallas=False` on the card vs the CPU.
+   (b) One dropout-free step card vs CPU, held as phase 6: each net may miss
+   PARAM_ATOL on at most PLAIN_LOOSE_FACTOR times as many entries (or
+   MAX_LOOSE) as the same bf16 step with `use_pallas=False` on the card,
+   each metric within PLAIN_LOOSE_FACTOR times that step's distance (or
+   BF16_STEP_RTOL of its value if more); the same kernel step with cuBLAS's
+   reduced-precision bf16 reductions off is printed beside it. (c) A
+   4-step graphed epoch from phase 8's small cache against eager steps
+   (bitwise equality printed, `step_diff` gated), then a 128-step graphed
+   epoch of phase 8's bank: steps/s and the replays' busy share, device
+   events and top kernels beside phase 8's f32 figures, launches 16 Q1 and
+   12 Q2 per step in the bf16 mode and no other kernel. (d) (a) and (b)
+   with `fusion.flash_mxu_bf16=True`. (e) A bf16 `flash_layout="bhld"`
+   model raises `NotImplementedError` on the card (ROADMAP K1).
+10. Prints one `{"kernels": [...]}` JSON line, the card's line, then the
    contract line `{"ok": true, "device": {...}}` last.
 
 Any failed check raises, so the exit code is non-zero and the last line is
@@ -86,7 +110,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = "gemm_gan_tpu_torch/kernels/csrc/"
 TPU_KERNELS = "gemm_gan_tpu/kernels/flash_attention.py"
-# kernel -> (source, the TPU kernel it replaces)
+# kernel (a wrapper and its C entry point) -> (source, the TPU kernel it
+# replaces); the last four are the bf16 modes of Q1 and Q2
 KERNELS = {
     "flash_fwd_ble": (CSRC + "flash_fwd.cu", f"{TPU_KERNELS}:290"),
     "flash_fwd_bhld": (CSRC + "flash_fwd.cu", f"{TPU_KERNELS}:84"),
@@ -94,11 +119,44 @@ KERNELS = {
     "flash_bwd_dq": (CSRC + "flash_bwd_dq.cu", f"{TPU_KERNELS}:142"),
     "flash_bwd_dkv": (CSRC + "flash_bwd_dkv.cu", f"{TPU_KERNELS}:220"),
     "flash_bwd_bhld_fused": (CSRC + "flash_bwd_fused.cu", f"{TPU_KERNELS}:179"),
+    "flash_fwd_ble_bf16": (CSRC + "flash_fwd_bf16.cu", f"{TPU_KERNELS}:290"),
+    "flash_fwd_ble_mxu": (CSRC + "flash_fwd_bf16.cu", f"{TPU_KERNELS}:290"),
+    "flash_bwd_ble_bf16": (CSRC + "flash_bwd_bf16.cu", f"{TPU_KERNELS}:317"),
+    "flash_bwd_ble_mxu": (CSRC + "flash_bwd_mxu.cu", f"{TPU_KERNELS}:317"),
 }
+BF16_KERNELS = ("flash_fwd_ble_bf16", "flash_fwd_ble_mxu", "flash_bwd_ble_bf16",
+                "flash_bwd_ble_mxu")
 # FLOP per (query, valid key, head-dim element) of each backward kernel:
 # s = q.k, dp = dO.v, then dv, dq, dk, 2 FLOP per multiply-add each
 BWD_FLOP = {"flash_bwd_ble": 10, "flash_bwd_bhld_fused": 10,
-            "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+            "flash_bwd_dq": 6, "flash_bwd_dkv": 8,
+            "flash_bwd_ble_bf16": 10, "flash_bwd_ble_mxu": 10}
+# bf16 tensor-core passes per product of the bf16 modes (csrc/flash_ops.cuh):
+# the bf16 mode takes P and dS in 3 bf16 terms and the bf16 operands in one
+# (forward S 1 + P.V 3; backward S 1, dP 1, dV 3, dK 3, dQ 3 over the 5
+# products), mxu_bf16 one each, its forward S twice (a first pass for the
+# row max)
+BF16_PASSES = {"flash_fwd_ble_bf16": 4 / 2, "flash_fwd_ble_mxu": 3 / 2,
+               "flash_bwd_ble_bf16": 11 / 5, "flash_bwd_ble_mxu": 5 / 5}
+PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet)
+# a bf16 mode's output vs its plain version: each rounds once from f32
+# sums taken in another order, so within one bf16 ulp of the row's largest
+# entry; lse (f32) within LSE_ATOL
+BF16_ULPS, LSE_ATOL = 1, 1e-5
+# phase 9 (the bench configuration, bf16): serving card vs CPU within
+# BF16_E2E_TOL of the output's largest entry (bf16 rounds at 2^-8 relative;
+# cuBLAS's bf16 GEMMs and the CPU's round at other places through two
+# encoder layers and the trunk). One step card vs CPU: bf16 rounding
+# reaches most gradients' signs, and RMSprop turns each into a +-10 lr
+# move, so after n_critic updates most params and the last update's
+# metrics differ (8.0 M of 17.2 M params beyond PARAM_ATOL, g_loss 5.7% on
+# an NVIDIA H100 80GB HBM3 at 700 W). So the step is held relative to the
+# same bf16 step with use_pallas=False on the card (cuBLAS's bf16 and the
+# plain references against the CPU): params as phase 6, and each metric
+# within PLAIN_LOOSE_FACTOR times that step's distance, or BF16_STEP_RTOL
+# of its value if more
+BF16_E2E_TOL = 2e-2
+BF16_STEP_RTOL = 5e-2
 # H100 SXM data sheet: f32 outside the tensor cores, dense TF32 on the
 # tensor cores, and HBM3 bandwidth. `bound_tc_ms` counts 3 TF32 products per
 # f32 product (3xTF32, as every kernel under csrc/ computes and as the
@@ -145,25 +203,51 @@ MAX_LOOSE = 200
 PLAIN_LOOSE_FACTOR = 2
 
 
-# (kernel template, its bool template arguments) -> entry point
-PTXAS_ENTRIES = {("flash_fwd_kernel", (1,)): "flash_fwd_ble",  # <D, kBle>
+# (kernel template, its bool template arguments[, its product mode when
+# not f32]) -> entry point; <D, kBle, kMode>, kMode of csrc/flash_ops.cuh
+# (1 bf16, 2 mxu_bf16 on f32 refs, 3 mxu_bf16 on bf16 refs)
+PTXAS_ENTRIES = {("flash_fwd_kernel", (1,)): "flash_fwd_ble",
                  ("flash_fwd_kernel", (0,)): "flash_fwd_bhld",
-                 ("flash_bwd_fused_kernel", (1,)): "flash_bwd_ble",  # <D, kBle>
+                 ("flash_bwd_fused_kernel", (1,)): "flash_bwd_ble",
                  ("flash_bwd_fused_kernel", (0,)): "flash_bwd_bhld_fused",
                  ("flash_bwd_dq_kernel", ()): "flash_bwd_dq",
-                 ("flash_bwd_dkv_kernel", ()): "flash_bwd_dkv"}
+                 ("flash_bwd_dkv_kernel", ()): "flash_bwd_dkv",
+                 ("flash_fwd_kernel", (1,), 1): "flash_fwd_ble_bf16",
+                 ("flash_fwd_kernel", (1,), 2): "flash_fwd_ble_mxu",
+                 ("flash_fwd_kernel", (1,), 3): "flash_fwd_ble_mxu",
+                 ("flash_bwd_fused_kernel", (1,), 1): "flash_bwd_ble_bf16",
+                 ("flash_bwd_fused_kernel", (1,), 2): "flash_bwd_ble_mxu",
+                 ("flash_bwd_fused_kernel", (1,), 3): "flash_bwd_ble_mxu"}
+MODE_REFS = {2: " (f32 refs)", 3: " (bf16 refs)"}
+
+
+def _ptxas_key(mangled: str):
+    """(key of PTXAS_ENTRIES, head dim, product mode) of a mangled kernel
+    name, or None."""
+    m = re.search(r"\d(flash_\w+?_kernel)I((?:L[ib]\d+E)+)E", mangled)
+    if not m:
+        return None
+    args = re.findall(r"L([ib])(\d+)E", m.group(2))
+    bools = tuple(int(v) for kind, v in args if kind == "b")
+    modes = [int(v) for kind, v in args[1:] if kind == "i"]
+    mode = modes[0] if modes else 0
+    return ((m.group(1), bools) if mode == 0 else (m.group(1), bools, mode)), int(args[0][1]), mode
 
 
 def ptxas_entry(mangled: str, entries=PTXAS_ENTRIES):
     """(entry point, head dim) of the kernel template instantiation that
     ptxas names `mangled`; raises on a kernel that `entries` does not know,
     so that none goes unreported."""
-    m = re.search(r"\d(flash_\w+?_kernel)I((?:L[ib]\d+E)+)E", mangled)
-    args = re.findall(r"L([ib])(\d+)E", m.group(2)) if m else []
-    key = (m.group(1), tuple(int(v) for kind, v in args if kind == "b")) if m else None
-    if key not in entries:
+    parsed = _ptxas_key(mangled)
+    if parsed is None or parsed[0] not in entries:
         raise ValueError(f"ptxas reports a kernel chip_smoke does not know: {mangled}")
-    return entries[key], int(args[0][1])
+    return entries[parsed[0]], parsed[1]
+
+
+def ptxas_label(mangled: str) -> str:
+    """"entry D=d" of an instantiation, with mxu_bf16's element type."""
+    entry, D = ptxas_entry(mangled)
+    return f"{entry} D={D}{MODE_REFS.get(_ptxas_key(mangled)[2], '')}"
 
 
 def card_line() -> str:
@@ -409,6 +493,223 @@ def time_bwd_kernel(fa, name, layout, H, args):
             "library_ms": library_ms, **device}
 
 
+def assert_rows_within_ulps(got, want, num_heads, what):
+    """Each row (one head's D entries) of `got` within BF16_ULPS bf16 ulps
+    of the largest entry of that row of `want` (exactly 0 where it is 0)."""
+    import torch
+
+    shape = (*want.shape[:-1], num_heads, want.shape[-1] // num_heads)
+    g, w = got.float().reshape(shape), want.float().reshape(shape)
+    top = w.abs().amax(-1, keepdim=True)
+    _, e = torch.frexp(top)
+    ulp = torch.where(top > 0, torch.ldexp(torch.ones_like(top), e - 8), torch.zeros_like(top))
+    excess = float(((g - w).abs() - BF16_ULPS * ulp).max())
+    assert excess <= 0, (what, excess)
+
+
+def bf16_args(fa, name, B, H, Lq, Lk, D, ragged, seed, dtype):
+    """The positional args of a bf16 mode `name` of Q1 or Q2 (and of its
+    plain version) on the card in `dtype`: q (pre-scaled), k, v, mask, and
+    for the backward the plain forward's o and lse of the same mode and a
+    random dO."""
+    import torch
+
+    q, k, v, mask = (x.to(dtype) if x.is_floating_point() else x
+                     for x in attention_inputs("ble", B, H, Lq, Lk, D, ragged, seed))
+    if name.startswith("flash_fwd"):
+        return (q, k, v, mask, H)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    do = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
+    o, lse = getattr(fa, name.replace("bwd", "fwd") + "_plain")(q, k, v, mask, H)
+    return (q, k, v, mask, o, lse, do, H)
+
+
+def check_bf16_kernel(fa, name, B, H, Lq, Lk, D, ragged, seed, dtype):
+    """A bf16 mode of Q1 or Q2 against its plain version on one input,
+    within BF16_ULPS of each row's largest entry (lse within LSE_ATOL);
+    returns (max |err| over its outputs, args)."""
+    import torch
+
+    args = bf16_args(fa, name, B, H, Lq, Lk, D, ragged, seed, dtype)
+    got, want = getattr(fa, name)(*args), getattr(fa, name + "_plain")(*args)
+    torch.cuda.synchronize()
+    labels = ("o", "lse") if name.startswith("flash_fwd") else ("dq", "dk", "dv")
+    err = 0.0
+    for label, a, b in zip(labels, got, want):
+        assert a.dtype == b.dtype, (name, label, a.dtype, b.dtype)
+        if label == "lse":
+            torch.testing.assert_close(a, b, rtol=0, atol=LSE_ATOL)
+        else:
+            assert a.dtype == dtype, (name, label, a.dtype)
+            assert_rows_within_ulps(a, b, H, f"{name} {label}")
+            err = max(err, float((a.float() - b.float()).abs().max()))
+    if ragged:  # sample 0 has no valid key; dk = dv = 0 at masked keys
+        outs = got[:1] if name.startswith("flash_fwd") else got
+        for a in outs:
+            assert float(a[0].abs().max()) == 0.0, f"{name}: sample 0 not 0"
+        if not name.startswith("flash_fwd"):
+            mask = args[3]
+            for a in got[1:]:
+                assert float(a[~mask].abs().max()) == 0.0, f"{name}: masked keys not 0"
+    print(f"  {name:20s} {str(dtype).split('.')[-1]:8s} B={B} H={H} Lq={Lq} Lk={Lk} D={D} "
+          f"{'ragged' if ragged else 'full  '} max|err|={err:.3e} (within {BF16_ULPS} bf16 ulp "
+          f"of each row's largest entry)", flush=True)
+    return err, args
+
+
+def time_bf16_kernel(fa, name, args) -> dict:
+    """CUDA-event and device times of bf16 mode `name` on `args`, of its
+    plain version, and of `scaled_dot_product_attention` on the same inputs
+    in their dtype with the same boolean mask (forward, or its backward by
+    `torch.autograd.grad` w.r.t. q, k and v); `bound_ms` the larger of
+    the mode's bf16 passes over the FLOPs at PEAK_BF16_FLOPS and the bytes
+    (each input read and each output written once) at PEAK_BYTES_PER_S."""
+    import torch
+    from torch.nn import functional as F
+
+    q, k, v, mask = args[:4]
+    H = args[-1]
+    B, Lq, E = q.shape
+    D = E // H
+
+    def heads(x):
+        return x.view(B, x.shape[1], H, D).transpose(1, 2)
+
+    kernel, plain = getattr(fa, name), getattr(fa, name + "_plain")
+    attn_mask = mask[:, None, None, :]
+    if name.startswith("flash_fwd"):
+        q4, k4, v4 = heads(q), heads(k), heads(v)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, attn_mask=attn_mask, scale=1.0)
+        flops, writes = 4 * H * Lq * D * int(mask.sum()), kernel(*args)
+    else:
+        qs, ks, vs = (heads(x).detach().clone().requires_grad_(True) for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn_mask, scale=1.0)
+        dout = heads(args[6])
+        library = lambda: torch.autograd.grad(out, (qs, ks, vs), dout,  # noqa: E731
+                                              retain_graph=True)
+        flops, writes = BWD_FLOP[name] * H * Lq * D * int(mask.sum()), (q, k, v)
+    with torch.inference_mode(name.startswith("flash_fwd")):
+        ms = cuda_ms(lambda: kernel(*args))
+        plain_ms = cuda_ms(lambda: plain(*args), iters=5)
+        library_ms = cuda_ms(library)
+        print(f"  library ({str(q.dtype).split('.')[-1]}) ran: {device_kernels(library)}",
+              flush=True)
+        device = {"device_ms": device_ms(lambda: kernel(*args)),
+                  "library_device_ms": device_ms(library)}
+    nbytes = sum(x.numel() * x.element_size() for x in (*args[:-1], *writes)
+                 if isinstance(x, torch.Tensor))
+    t_ops = BF16_PASSES[name] * flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms, **device}
+
+
+def check_bf16_modes(fa, errs: dict, timed: dict) -> None:
+    """Phase 2 for the bf16 modes of Q1 and Q2: each against its plain
+    version (bf16 inputs; mxu_bf16 also on f32 ones) at the canonical shape
+    and at D 8 / 128, ragged with a fully-masked sample; then timed at the
+    canonical shape on all-valid bf16 inputs. Fills errs and timed."""
+    import torch
+
+    print(f"[2] bf16 modes vs plain (within {BF16_ULPS} bf16 ulp of each row's largest "
+          f"entry, lse within {LSE_ATOL})", flush=True)
+    shapes = ((8, 4, 257, 257, 64), (2, 2, 136, 260, 8), (2, 2, 136, 260, 128))
+    for i, name in enumerate(BF16_KERNELS):
+        for dtype in ((torch.bfloat16, torch.float32) if "mxu" in name else (torch.bfloat16,)):
+            for j, shape in enumerate(shapes):
+                err, _ = check_bf16_kernel(fa, name, *shape, True, 300 + 10 * i + j, dtype)
+                errs[name] = max(errs[name], err)
+        err, args = check_bf16_kernel(fa, name, *shapes[0], False, 400 + i, torch.bfloat16)
+        errs[name] = max(errs[name], err)
+        timed[name] = time_bf16_kernel(fa, name, args)
+        print(f"  {name}: {json.dumps(timed[name])}", flush=True)
+        del args
+
+
+def bf16_serving(fa, cfg16, params, batches, label, kernel) -> dict:
+    """Phase 9 (a) / (d): `sample_all` of the bf16 model on the card (its
+    launches: `kernel` once per layer and batch, no other), then one batch
+    card vs CPU within BF16_E2E_TOL of the output's largest entry, printed
+    beside `use_pallas=False` on the card vs the CPU. Returns the launches."""
+    import torch
+
+    from gemm_gan_tpu_torch.serving import GeneratorServer
+
+    server = GeneratorServer.from_flax(cfg16, params)
+    server.sample_all(batches[:1], 1, torch.Generator().manual_seed(1))  # warm-up
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = server.sample_all(batches, REPEATS, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fa.launch_counts()
+    n = BATCH * len(batches) * REPEATS
+    assert out["fake"].shape == (n, cfg16.n_genes) and out["fake"].dtype == np.float32
+    assert np.isfinite(out["fake"]).all(), "non-finite profiles"
+    assert launches == {**dict.fromkeys(KERNELS, 0),
+                        kernel: cfg16.fusion.num_layers * len(batches)}, launches
+    z = torch.randn(BATCH, cfg16.latent_dim, generator=torch.Generator().manual_seed(3))
+    on_cpu = GeneratorServer.from_flax(cfg16, params, device="cpu")(z, batches[0])
+    on_card = server(z, batches[0]).cpu()
+    ref = dataclasses.replace(cfg16, fusion=dataclasses.replace(cfg16.fusion, use_pallas=False))
+    plain = GeneratorServer.from_flax(ref, params)(z, batches[0]).cpu()
+    scale = float(on_cpu.abs().max())
+    err, plain_err = (float((x - on_cpu).abs().max()) for x in (on_card, plain))
+    print(f"    ({label}) {cfg16.compute_dtype} serving, mxu_bf16={cfg16.fusion.flash_mxu_bf16}: "
+          f"{n / seconds:.1f} profiles/s ({seconds * 1e3:.1f} ms for {n}) on {card_line()}; "
+          f"launches {launches}; one batch card vs CPU max|err|={err:.3e} beside "
+          f"use_pallas=False on the card vs CPU {plain_err:.3e} (max|out|={scale:.3f}; within "
+          f"{BF16_E2E_TOL} x max|out|)", flush=True)
+    assert err <= BF16_E2E_TOL * scale, (err, scale)
+    return launches
+
+
+def bf16_step(fa, exp16, params, d_params, batch, label) -> dict:
+    """Phase 9 (b) / (d): one dropout-free step of the bf16 model on the card
+    against the CPU, held relative to the same step with `use_pallas=False`
+    on the card (`loose_limits`), each metric within PLAIN_LOOSE_FACTOR
+    times that step's distance or BF16_STEP_RTOL of its value; the same
+    kernel step with cuBLAS's reduced-precision bf16 reductions off, beside
+    it. Returns the kernel step's launches."""
+    import torch
+
+    cfg_of = lambda **kw: train_cfg(exp16, dropout=0.0, **kw)  # noqa: E731
+    args = (params, d_params, batch, random_draws(cfg_of(), seed=9))
+    on_cpu = run_step(cfg_of(), "cpu", *args)
+    plain = step_diff(run_step(cfg_of(use_pallas=False), "cuda", *args), on_cpu, {}, rtol=None)
+    print(f"    ({label}) bf16 step at dropout 0, use_pallas=False on the card vs CPU: "
+          f"{json.dumps(plain)}", flush=True)
+    max_loose = loose_limits(plain)
+    metric_tol = {k: max(BF16_STEP_RTOL * abs(v), PLAIN_LOOSE_FACTOR
+                         * abs(plain["metrics_test"][k] - v))
+                  for k, v in on_cpu[1].items()}
+    fa.reset_launch_counts()
+    got = run_step(cfg_of(), "cuda", *args)
+    torch.cuda.synchronize()
+    launches = fa.launch_counts()
+    cmp = step_diff(got, on_cpu, max_loose, metric_tol=metric_tol)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = not flag
+    try:
+        other = step_diff(run_step(cfg_of(), "cuda", *args), on_cpu, {}, rtol=None)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    mxu = exp16.model.fusion.flash_mxu_bf16
+    n_fwd, n_bwd = step_launches(cfg_of())
+    fwd, bwd = (f"flash_fwd_ble_{'mxu' if mxu else 'bf16'}",
+                f"flash_bwd_ble_{'mxu' if mxu else 'bf16'}")
+    assert launches == {**dict.fromkeys(KERNELS, 0), fwd: n_fwd, bwd: n_bwd}, launches
+    print(f"    ({label}) bf16 step at dropout 0, mxu_bf16={mxu}, card vs CPU: {json.dumps(cmp)} "
+          f"(metrics within {json.dumps(metric_tol)}; params beyond atol {PARAM_ATOL} per net "
+          f"at most {max_loose}); launches {launches}; the kernel step with "
+          f"allow_bf16_reduced_precision_reduction={not flag} vs CPU (not gated): "
+          f"{json.dumps(other)}", flush=True)
+    return launches
+
+
 def device_breakdown(server, batch) -> dict:
     """CUDA-event times (ms) of the serving path's parts for one batch: the
     conditioning's copy to the card, the condition embedding (fusion stack,
@@ -528,9 +829,11 @@ def run_step(cfg, device, g_params, d_params, batch, draws):
     return state, {k: float(v) for k, v in metrics.items()}
 
 
-def step_diff(test, ref, max_loose=None) -> dict:
+def step_diff(test, ref, max_loose=None, rtol=STEP_RTOL, atol=STEP_ATOL,
+              metric_tol=None) -> dict:
     """Hold a step (state, metrics) against a reference one: metrics within
-    STEP_RTOL/STEP_ATOL; every param within RMSprop's bound; at most
+    rtol/atol (None: not held), or each within its `metric_tol[key]` when
+    given; every param within RMSprop's bound; at most
     `max_loose` ({net: n}; {} counts without a limit; None: MAX_LOOSE over
     both nets) entries beyond PARAM_ATOL. Returns a summary dict."""
     import torch
@@ -558,8 +861,9 @@ def step_diff(test, ref, max_loose=None) -> dict:
                "beyond_atol_by_net": loose_by_net,
                "clear_grad_beyond_atol": loose_clear, "max_param_err": max_err}
     for key in m_want:
-        assert abs(m_got[key] - m_want[key]) <= STEP_ATOL + STEP_RTOL * abs(m_want[key]), \
-            (key, summary)
+        tol = (metric_tol[key] if metric_tol is not None
+               else None if rtol is None else atol + rtol * abs(m_want[key]))
+        assert tol is None or abs(m_got[key] - m_want[key]) <= tol, (key, tol, summary)
     assert not beyond_bound, ("a param moved beyond RMSprop's bound", summary)
     if max_loose is None:
         assert loose <= MAX_LOOSE, summary
@@ -579,9 +883,15 @@ def relative_step_gate(fa, cfg_of, step_args):
     ref = run_step(cfg_of(use_pallas=False), *step_args)
     with plain_kernels(fa):
         plain = step_diff(run_step(cfg_of(), *step_args), ref, max_loose={})
-    max_loose = {net: max(MAX_LOOSE, PLAIN_LOOSE_FACTOR * n)
-                 for net, n in plain["beyond_atol_by_net"].items()}
+    max_loose = loose_limits(plain)
     return step_diff(run_step(cfg_of(), *step_args), ref, max_loose), plain, max_loose
+
+
+def loose_limits(yardstick: dict) -> dict:
+    """Per net, PLAIN_LOOSE_FACTOR times the yardstick step's count of
+    entries beyond PARAM_ATOL, or MAX_LOOSE if more."""
+    return {net: max(MAX_LOOSE, PLAIN_LOOSE_FACTOR * n)
+            for net, n in yardstick["beyond_atol_by_net"].items()}
 
 
 class plain_kernels:
@@ -760,7 +1070,7 @@ def main() -> int:
     for line in log.splitlines():  # ptxas -v, one entry per template instantiation
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            print("    {} D={}:".format(*ptxas_entry(entry.group(1))))
+            print(f"    {ptxas_label(entry.group(1))}:")
         elif "registers" in line or "spill" in line:
             print("      " + line.replace("ptxas info    :", "").strip())
     for name in build.TENSOR_CORE_KERNELS:  # dynamic shared memory
@@ -811,6 +1121,7 @@ def main() -> int:
         timed[name] = time_bwd_kernel(fa, name, case[0], case[2], args)
         print(f"  {name}: {json.dumps(timed[name])}", flush=True)
         del args
+    check_bf16_modes(fa, errs, timed)
     torch.cuda.empty_cache()
 
     # ---- 3. serving, the main path at full width
@@ -1081,14 +1392,88 @@ def main() -> int:
 
     # a remat_layers=True epoch (dropout 0.1), the same three ways
     epoch_runs(train_cfg(exp, remat_layers=True), "remat")
-    del bank, small
+
+    # ---- 9. the bench configuration: compute_dtype="bfloat16"
+    exp16 = dataclasses.replace(exp, model=dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    cfg16 = exp16.model
+    print(f"[9] bench configuration: compute_dtype=bfloat16; torch.backends.cuda.matmul."
+          f"allow_bf16_reduced_precision_reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}", flush=True)
+    launches["bf16_serving"] = bf16_serving(fa, cfg16, params, batches, "a", "flash_fwd_ble_bf16")
+    launches["bf16_training_step"] = bf16_step(fa, exp16, params, d_params, batches[0], "b")
+
+    # (c) graphed epochs in bf16: the small one against eager steps, then the bank
+    tcfg16 = train_cfg(exp16)
+    runs = epoch_runs(tcfg16, "c, bf16")
+    g_engine, g_state, _ = runs["step_many_cached"]
+    del runs
+    engine, state = fresh(tcfg16, bank)
+    want = {**dict.fromkeys(KERNELS, 0), "flash_fwd_ble_bf16": n_fwd * K,
+            "flash_bwd_ble_bf16": n_bwd * K}
+    epoch16_s = []
+    for e in (0, 1):
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = engine.step_many_cached(state, bank, e)
+        torch.cuda.synchronize()
+        epoch16_s.append(time.perf_counter() - t0)
+        launches[f"bf16_epoch_loop_{e}"] = fa.launch_counts()
+        assert launches[f"bf16_epoch_loop_{e}"] == want, (launches, want)
+        metrics = floats(metrics)
+        assert all(np.isfinite(v) for v in metrics.values()), metrics
+    recorded = engine._cached_graphs[bank].recorded
+    assert recorded == {"flash_fwd_ble_bf16": n_fwd, "flash_bwd_ble_bf16": n_bwd}, recorded
+    graphed16_sps = K / epoch16_s[1]
+    print(f"    (c) bf16, {K}-step epochs through step_many_cached: epoch 0 {epoch16_s[0]:.3f} s; "
+          f"epoch 1 ({K} replays) {epoch16_s[1]:.3f} s = {graphed16_sps:.2f} steps/s "
+          f"({epoch16_s[1] * 1e3 / K:.2f} ms per step, host clock) against f32's "
+          f"{graphed_sps:.2f} steps/s in phase 8 ({graphed16_sps / graphed_sps:.3f}x) on {card}; "
+          f"launches per epoch {launches['bf16_epoch_loop_1']}: {K} steps x {n_fwd} "
+          f"flash_fwd_ble_bf16 and {n_bwd} flash_bwd_ble_bf16; last metrics "
+          f"{json.dumps(metrics)}", flush=True)
+    busy16 = replay_busy(g_engine, g_state, small, 1)
+    if busy16 is None or busy is None:
+        print("    bf16 replay busy share: not measured (the profiler saw no device time)",
+              flush=True)
+    else:
+        print(f"    bf16 replayed steps: {busy16['device_ms']:.2f} ms of device time per step "
+              f"({busy16['device_events']:.0f} device events) / {busy16['host_ms']:.2f} ms = busy "
+              f"{busy16['device_ms'] / busy16['host_ms']:.3f}, against f32 (phase 8) "
+              f"{busy['device_ms']:.2f} ms, {busy['device_events']:.0f} events, busy "
+              f"{busy['device_ms'] / busy['host_ms']:.3f} on {card}; bf16 top kernels per step "
+              f"(name, calls, ms): {json.dumps(busy16['top'])}", flush=True)
+    del engine, state, g_engine, g_state, bank, small
     torch.cuda.empty_cache()
 
-    # ---- 9. report
+    # (d) mxu_bf16 on the bf16 refs: serving and one step against the CPU
+    exp16m = dataclasses.replace(exp16, model=dataclasses.replace(
+        cfg16, fusion=dataclasses.replace(cfg16.fusion, flash_mxu_bf16=True)))
+    launches["mxu_serving"] = bf16_serving(fa, exp16m.model, params, batches, "d",
+                                           "flash_fwd_ble_mxu")
+    launches["mxu_training_step"] = bf16_step(fa, exp16m, params, d_params, batches[0], "d")
+
+    # (e) no bf16 mode of the classic layout's kernels is built (ROADMAP K1)
+    bhld16 = dataclasses.replace(cfg16, fusion=dataclasses.replace(cfg16.fusion,
+                                                                   flash_layout="bhld"))
+    z = torch.randn(BATCH, cfg.latent_dim, generator=torch.Generator().manual_seed(10))
+    try:
+        GeneratorServer.from_flax(bhld16, params)(z, batches[0])
+    except NotImplementedError as exc:
+        assert "K1" in str(exc), exc
+        print(f"    (e) bf16 flash_layout='bhld' on the card raises NotImplementedError: {exc}",
+              flush=True)
+    else:
+        raise AssertionError("a bf16 bhld model ran on the card without a bf16 kernel")
+    torch.cuda.empty_cache()
+
+    # ---- 10. report
     paths = {"flash_fwd_ble": "serving", "flash_fwd_bhld": "whole_slide_serving",
              "flash_bwd_ble": "training", "flash_bwd_dq": "whole_slide_training",
              "flash_bwd_dkv": "whole_slide_training",
-             "flash_bwd_bhld_fused": "bhld_training"}
+             "flash_bwd_bhld_fused": "bhld_training",
+             "flash_fwd_ble_bf16": "bf16_epoch_loop_1", "flash_bwd_ble_bf16": "bf16_epoch_loop_1",
+             "flash_fwd_ble_mxu": "mxu_training_step", "flash_bwd_ble_mxu": "mxu_training_step"}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -3,7 +3,9 @@
 Serves the flagship `film_cross_attention` generator on an NVIDIA H100
 (`serving.GeneratorServer`) and trains it with the fused WGAN-GP step
 (`train.wgan.WGANGPEngine`), whole epochs from a device-resident
-`data.device_cache.DeviceCache` as replays of one CUDA graph. Its attention runs through hand-written CUDA
+`data.device_cache.DeviceCache` as replays of one CUDA graph, in f32 or in
+the JAX package's bench configuration (`compute_dtype="bfloat16"`). Its
+attention runs through hand-written CUDA
 flash-attention kernels, forward and backward (`kernels/csrc/`), each with
 a plain PyTorch version that the CPU path takes. The JAX package `gemm_gan_tpu` stays the reference; this
 package imports nothing of it and no JAX.

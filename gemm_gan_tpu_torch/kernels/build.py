@@ -46,11 +46,17 @@ ENTRY_POINTS = {
     "flash_bwd_bhld_fused": _BWD_ARGS,
     "flash_bwd_dq": _BWD_ARGS,
     "flash_bwd_dkv": _BWD_ARGS,
+    # the bf16 modes of flash_fwd_ble and flash_bwd_ble (csrc/flash_ops.cuh):
+    # bf16 refs with f32-exact products; mxu_bf16, whose entry points take
+    # one more int, 1 for bf16 refs and 0 for f32 ones
+    "flash_fwd_ble_bf16": _FWD_ARGS,
+    "flash_fwd_ble_mxu": _FWD_ARGS + [ctypes.c_int],
+    "flash_bwd_ble_bf16": _BWD_ARGS,
+    "flash_bwd_ble_mxu": _BWD_ARGS + [ctypes.c_int],
 }
-# the tensor-core kernels (all six), each with an entry
+# the tensor-core kernels (every entry point above), each with an entry
 # `<name>_occupancy(head_dim, *smem_bytes, *blocks_per_sm)`
-TENSOR_CORE_KERNELS = ("flash_fwd_ble", "flash_fwd_bhld", "flash_bwd_ble",
-                       "flash_bwd_bhld_fused", "flash_bwd_dq", "flash_bwd_dkv")
+TENSOR_CORE_KERNELS = tuple(ENTRY_POINTS)
 ENTRY_POINTS.update({name + "_occupancy": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
                      for name in TENSOR_CORE_KERNELS})
 

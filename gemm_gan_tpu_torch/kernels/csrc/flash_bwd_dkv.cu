@@ -19,7 +19,7 @@
 //
 // Design: tf32x3.cuh's 3xTF32 products on mma.sync m16n8k8, in the dk/dv
 // tile of flash_bwd_tc.cuh (which the fused single-block backward,
-// flash_bwd_fused.cu, shares; here in its classic-layout instantiation,
+// flash_bwd_fused.cuh, shares; here in its classic-layout instantiation,
 // delta given): a block of 4 warps owns 64 key rows of one (batch, head),
 // grid (ceil(Lk / 64), H, B); K and V stay resident in shared memory, tiles
 // of 64 queries (32 at D = 128) of Q, dO, lse and delta stream through a
@@ -33,7 +33,7 @@
 
 namespace {
 
-using flash_bwd_tc::Args;
+using Args = flash_bwd_tc::Args<float>;
 
 constexpr int kWarps = 4;  // 64 key rows per block
 template <int D>
@@ -67,7 +67,7 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
 }  // namespace
 
 // [B*H, L, D]; reads q, k, v, mask, dout, lse, delta, writes dk, dv.
-extern "C" int flash_bwd_dkv(FLASH_BWD_PARAMS) {
+extern "C" int flash_bwd_dkv(FLASH_BWD_PARAMS(float)) {
   const Args a{q, k, v, mask, nullptr, dout, lse, delta, nullptr, dk, dv, lq, lk, heads};
   return flash_bwd_tc::with_head_dim(head_dim, [&](auto d) {
     return launch<decltype(d)::value>(a, batch, static_cast<cudaStream_t>(stream));

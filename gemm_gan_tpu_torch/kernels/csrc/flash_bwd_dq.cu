@@ -18,7 +18,7 @@
 // dense TF32, three products per f32 product).
 //
 // Design: the dq tile of flash_bwd_tc.cuh (which the fused single-block
-// backward, flash_bwd_fused.cu, shares; here in its classic-layout
+// backward, flash_bwd_fused.cuh, shares; here in its classic-layout
 // instantiation, delta given): a block of 4 warps owns 64 query rows of one
 // (batch, head), grid (ceil(Lq / 64), H, B); Q and dO are staged once into
 // shared memory, K and V stream in 64-key tiles through a double-buffered
@@ -40,7 +40,7 @@
 
 namespace {
 
-using flash_bwd_tc::Args;
+using Args = flash_bwd_tc::Args<float>;
 
 constexpr int kWarps = 4;  // 64 query rows per block
 template <int D>
@@ -77,7 +77,7 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
 }  // namespace
 
 // [B*H, L, D]; reads q, k, v, mask, dout, lse, delta, writes dq.
-extern "C" int flash_bwd_dq(FLASH_BWD_PARAMS) {
+extern "C" int flash_bwd_dq(FLASH_BWD_PARAMS(float)) {
   const Args a{q, k, v, mask, nullptr, dout, lse, delta, dq, nullptr, nullptr, lq, lk, heads};
   return flash_bwd_tc::with_head_dim(head_dim, [&](auto d) {
     return launch<decltype(d)::value>(a, batch, static_cast<cudaStream_t>(stream));

@@ -1,144 +1,32 @@
-// Masked flash-attention backward, dq, dk and dv in one launch, on Hopper's
-// tensor cores (sm_90a), f32-grade through 3xTF32 products; one kernel
-// template for both layouts.
-//
-// Replaces two Pallas TPU kernels of gemm_gan_tpu/kernels/flash_attention.py:
-//   flash_bwd_ble        <- `_bwd_kernel_ble` (:317), reached via
-//                           flash_mha_ble's backward: q, k, v, o, dO, dq, dk,
-//                           dv [B, L, E = H*D], head h the columns
-//                           [h*D, (h+1)*D); delta = rowsum(dO * O) is
-//                           computed in the kernel, as the TPU kernel does.
-//   flash_bwd_bhld_fused <- `_bwd_fused_kernel` (:179), which the JAX package
-//                           takes for single-block shapes (`_flash_core_bwd`,
-//                           n_q == n_k == 1; in practice the canonical L 257
-//                           with flash_layout="bhld"): q, dO [B*H, Lq, D], k, v
-//                           [B*H, Lk, D], delta given as [B, H, Lq].
-// Both take q already scaled, mask [B, Lk] and lse [B, H, Lq] (the
-// arithmetic is in flash_bwd_tc.cuh). Masked keys, and a sample with no
-// valid key, get exactly 0.
-//
-// What bounds them on an H100: at the canonical shape (B 8, H 4, L 257,
-// D 64) each is 1.35 GFLOP (s, dp, dv, dq, dk: 10 per query, key and
-// head-dim element) over ~15 MB (17 MB with o in ble), so operations bound
-// them: 0.020 ms on the CUDA cores (67 TFLOP/s f32), 0.0082 ms in 3xTF32 on
-// the tensor cores.
-//
-// Design: one grid holds both kinds of tile of flash_bwd_tc.cuh, so that
-// nothing passes between blocks and no atomics are needed: blockIdx.y <
-// n_dkv runs a dk/dv tile (4 warps x 16 key rows, Q and dO streamed in
-// tiles of kQueries queries), the rest dq tiles (4 warps x 16 query rows,
-// K and V streamed in 32-key tiles, Q and dO split at each use: kHeld 0).
-// blockIdx.x is the (batch, head), so the blocks start in order of y: the
-// longer dk/dv tiles (4 products per query-key pair against the dq tile's
-// 3) first, and the dq tiles fill the SMs as they drain. Registers and
-// shared memory are those of the larger body, the dk/dv tile's (≈255
-// registers at D = 64: two blocks per SM). The layouts differ only in where
-// a head's rows start and their stride (kBle); in ble each tile also
-// computes the delta of its query rows from O and dO.
-//  * bhld streams 64 queries per dk/dv tile at D <= 64 (Q5's
-//    configuration, 97 KB of shared memory). 32-row tiles (2 warps, 32-query
-//    dk/dv tiles, 4 blocks per SM), which pad L 257 less, ran 1% faster to
-//    7% slower from one card to the next (PERF.md; variants fused and
-//    fused_32rows of scripts/torch_kernel_variants.py).
-//  * ble streams 32: with 64 its runtime stride and o pointer pushed the
-//    dk/dv body into an 8-byte spill, and it ran 7% slower (0.0964 against
-//    0.0894 ms device at the canonical shape on an NVIDIA H100 80GB HBM3
-//    at a 700 W limit; variants ble_bwd_bq64 and ble_bwd).
+// Entry points of the single-launch masked flash-attention backward in f32
+// (3xTF32 on the tensor cores): flash_bwd_ble (Q2) and flash_bwd_bhld_fused
+// (Q6). The kernel template, its design and what bounds it are in
+// flash_bwd_fused.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_bwd_tc.cuh"
-
-namespace {
-
-using flash_bwd_tc::Args;
-
-constexpr int kWarps = 4;  // 64 rows per tile of either kind
-constexpr int kKeys = 32;  // keys per streamed dq tile
-template <int D, bool kBle>
-constexpr int kQueries = !kBle && D <= 64 ? 64 : 32;  // queries per streamed dk/dv tile
-
-template <int D, bool kBle>
-struct Cfg {
-  using Dkv = flash_bwd_tc::DkvCfg<D, kWarps, kQueries<D, kBle>>;
-  using Dq = flash_bwd_tc::DqCfg<D, kWarps, kKeys>;
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int R = 16 * kWarps;
-  static constexpr int SMEM = Dkv::SMEM > Dq::SMEM ? Dkv::SMEM : Dq::SMEM;
-};
-
-template <int D, bool kBle>
-__global__ void __launch_bounds__(Cfg<D, kBle>::kThreads)
-    flash_bwd_fused_kernel(const Args a, int n_dkv) {
-  extern __shared__ __align__(16) float smem[];
-  const int h = blockIdx.x % a.heads, b = blockIdx.x / a.heads;
-  if (static_cast<int>(blockIdx.y) < n_dkv) {
-    flash_bwd_tc::dkv_tile<D, kWarps, kQueries<D, kBle>, kBle>(a, blockIdx.y, h, b, smem);
-  } else {
-    flash_bwd_tc::dq_tile<D, kWarps, kKeys, kBle>(a, blockIdx.y - n_dkv, h, b, smem);
-  }
-}
-
-template <int D, bool kBle>
-cudaError_t prepare() {
-  return cudaFuncSetAttribute(flash_bwd_fused_kernel<D, kBle>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D, kBle>::SMEM);
-}
-
-template <int D, bool kBle>
-int launch(const Args& a, int batch, cudaStream_t stream) {
-  using C = Cfg<D, kBle>;
-  const cudaError_t err = prepare<D, kBle>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_dkv = (a.lk + C::R - 1) / C::R;
-  const int n_dq = (a.lq + C::R - 1) / C::R;
-  const dim3 grid(batch * a.heads, n_dkv + n_dq);
-  flash_bwd_fused_kernel<D, kBle><<<grid, C::kThreads, C::SMEM, stream>>>(a, n_dkv);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kBle>
-int dispatch(const Args& a, int head_dim, int batch, void* stream) {
-  return flash_bwd_tc::with_head_dim(head_dim, [&](auto d) {
-    return launch<decltype(d)::value, kBle>(a, batch, static_cast<cudaStream_t>(stream));
-  });
-}
-
-template <bool kBle>
-int occupancy(int head_dim, int* smem_bytes, int* blocks_per_sm) {
-  return flash_bwd_tc::with_head_dim(head_dim, [&](auto d) {
-    constexpr int D = decltype(d)::value;
-    using C = Cfg<D, kBle>;
-    const cudaError_t err = prepare<D, kBle>();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    *smem_bytes = C::SMEM;
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, flash_bwd_fused_kernel<D, kBle>, C::kThreads, C::SMEM));
-  });
-}
-
-}  // namespace
+#include "flash_bwd_fused.cuh"
 
 // [B, L, H*D]; reads q, k, v, mask, o, dout, lse (delta computed here),
 // writes dq, dk, dv.
-extern "C" int flash_bwd_ble(FLASH_BWD_PARAMS) {
-  const Args a{q, k, v, mask, o, dout, lse, nullptr, dq, dk, dv, lq, lk, heads};
-  return dispatch<true>(a, head_dim, batch, stream);
+extern "C" int flash_bwd_ble(FLASH_BWD_PARAMS(float)) {
+  return ble<flash_ops::kF32>(q, k, v, mask, o, dout, lse, delta, dq, dk, dv, batch, lq, lk,
+                              heads, head_dim, stream);
 }
 
 // [B*H, L, D]; reads q, k, v, mask, dout, lse, delta, writes dq, dk, dv.
-extern "C" int flash_bwd_bhld_fused(FLASH_BWD_PARAMS) {
-  const Args a{q, k, v, mask, nullptr, dout, lse, delta, dq, dk, dv, lq, lk, heads};
-  return dispatch<false>(a, head_dim, batch, stream);
+extern "C" int flash_bwd_bhld_fused(FLASH_BWD_PARAMS(float)) {
+  const Args<float> a{q, k, v, mask, nullptr, dout, lse, delta, dq, dk, dv, lq, lk, heads};
+  return dispatch<false, flash_ops::kF32>(a, head_dim, batch, stream);
 }
 
 // Dynamic shared memory per block and resident blocks per SM at head_dim.
 extern "C" int flash_bwd_ble_occupancy(int head_dim, int* smem_bytes, int* blocks_per_sm) {
-  return occupancy<true>(head_dim, smem_bytes, blocks_per_sm);
+  return occupancy<true, flash_ops::kF32>(head_dim, smem_bytes, blocks_per_sm);
 }
 
 extern "C" int flash_bwd_bhld_fused_occupancy(int head_dim, int* smem_bytes,
                                               int* blocks_per_sm) {
-  return occupancy<false>(head_dim, smem_bytes, blocks_per_sm);
+  return occupancy<false, flash_ops::kF32>(head_dim, smem_bytes, blocks_per_sm);
 }

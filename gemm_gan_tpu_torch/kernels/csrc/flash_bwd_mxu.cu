@@ -1,0 +1,35 @@
+// Entry points of the single-launch masked flash-attention backward in the
+// ble layout under mxu_bf16 (Q2, the Pallas `_bwd_kernel_ble` with
+// mxu_bf16=True; gemm_gan_tpu/kernels/flash_attention.py:317): every
+// product's operands, P and dS included, rounded to bf16; the kernel
+// template of flash_bwd_fused.cuh in modes kMxuF32 and kMxuBf16
+// (flash_ops.cuh), one entry point that also takes the element type
+// (bf16_refs). Arguments as flash_bwd_ble's (flash_bwd_fused.cu).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "flash_bwd_fused.cuh"
+
+// q, k, v, o, dO -> dq, dk, dv all f32 (bf16_refs 0) or all bf16 (1)
+extern "C" int flash_bwd_ble_mxu(FLASH_BWD_PARAMS(void), int bf16_refs) {
+  using B = __nv_bfloat16;
+  if (bf16_refs) {
+    return ble<flash_ops::kMxuBf16>(
+        static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v), mask,
+        static_cast<const B*>(o), static_cast<const B*>(dout), lse, delta, static_cast<B*>(dq),
+        static_cast<B*>(dk), static_cast<B*>(dv), batch, lq, lk, heads, head_dim, stream);
+  }
+  return ble<flash_ops::kMxuF32>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      mask, static_cast<const float*>(o), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), batch, lq, lk,
+      heads, head_dim, stream);
+}
+
+// Dynamic shared memory per block and resident blocks per SM at head_dim
+// (of the bf16 refs' instantiation, the bench configuration's).
+extern "C" int flash_bwd_ble_mxu_occupancy(int head_dim, int* smem_bytes, int* blocks_per_sm) {
+  return occupancy<true, flash_ops::kMxuBf16>(head_dim, smem_bytes, blocks_per_sm);
+}

@@ -1,8 +1,13 @@
 // The masked flash-attention backward's two kinds of tile on Hopper's
-// tensor cores (sm_90a), f32-grade through 3xTF32 products, as device
-// functions shared by the kernels that launch them: flash_bwd_dkv.cu
-// (dk/dv tiles), flash_bwd_dq.cu (dq tiles) and flash_bwd_fused.cu (both
-// kinds in one grid, either layout).
+// tensor cores (sm_90a), as device functions shared by the kernels that
+// launch them: flash_bwd_dkv.cu (dk/dv tiles), flash_bwd_dq.cu (dq tiles)
+// and flash_bwd_fused.cuh (both kinds in one grid, either layout). Each
+// tile takes its products from a mode of flash_ops.cuh (template kMode):
+// f32-grade 3xTF32 (kF32, described below; the element type float), or the
+// bf16 modes on m16n8k16 bf16 products (bf16 refs, or mxu_bf16 on f32 or
+// bf16 refs), whose C fragments hold the streamed tile's rows in natural
+// order instead of tf32x3::perm order (Ops::col). Everything else below
+// holds in every mode; tiles hold the mode's element type.
 //
 // What they compute, per (batch, head): q, dO, o [B*H, Lq, D] and k, v
 // [B*H, Lk, D] (the classic layout, bhld), or q, dO, o [B, Lq, H*D] and k, v
@@ -81,52 +86,45 @@
 
 #include <type_traits>
 
+#include "flash_ops.cuh"
 #include "tf32x3.cuh"
 
 // Every backward entry point (flash_bwd_dkv.cu, flash_bwd_dq.cu,
-// flash_bwd_fused.cu) takes these arguments: the pointers of
-// flash_bwd_tc::Args in its order, then the batch, the two lengths, the
+// flash_bwd_fused.cu, flash_bwd_bf16.cu, flash_bwd_mxu.cu) takes these
+// arguments, T the element type of its mode (flash_ops.cuh): the pointers of
+// flash_bwd_tc::Args<T> in its order, then the batch, the two lengths, the
 // heads, the head dim and the CUDA stream. Each reads or writes only the
 // pointers it names and ignores the rest (pass null).
-#define FLASH_BWD_PARAMS                                                              \
-  const float *q, const float *k, const float *v, const uint8_t *mask, const float *o, \
-      const float *dout, const float *lse, const float *delta, float *dq, float *dk,   \
-      float *dv, int batch, int lq, int lk, int heads, int head_dim, void *stream
+#define FLASH_BWD_PARAMS(T)                                                          \
+  const T *q, const T *k, const T *v, const uint8_t *mask, const T *o, const T *dout, \
+      const float *lse, const float *delta, T *dq, T *dk, T *dv, int batch, int lq,   \
+      int lk, int heads, int head_dim, void *stream
 
 namespace flash_bwd_tc {
 
 using namespace tf32x3;
+using flash_ops::Elem;
+using flash_ops::kF32;
+using flash_ops::Ops;
+using flash_ops::with_head_dim;
 
+template <class T>
 struct Args {
-  const float* q;       // [B*H, Lq, D] or [B, Lq, H*D]
-  const float* k;       // [B*H, Lk, D] or [B, Lk, H*D]
-  const float* v;
+  const T* q;           // [B*H, Lq, D] or [B, Lq, H*D]
+  const T* k;           // [B*H, Lk, D] or [B, Lk, H*D]
+  const T* v;
   const uint8_t* mask;  // [B, Lk]
-  const float* o;       // like q; ble only (delta computed from it)
-  const float* dout;    // like q
+  const T* o;           // like q; ble only (delta computed from it)
+  const T* dout;        // like q
   const float* lse;     // [B, H, Lq]
   const float* delta;   // [B, H, Lq]; bhld only
-  float* dq;            // like q (dq tiles only)
-  float* dk;            // like k (dk/dv tiles only)
-  float* dv;
+  T* dq;                // like q (dq tiles only)
+  T* dk;                // like k (dk/dv tiles only)
+  T* dv;
   int lq, lk, heads;
 };
 
-// f(std::integral_constant<int, D>{}) for the head dims D the kernels are
-// built for; cudaErrorInvalidValue for any other
-template <typename F>
-int with_head_dim(int head_dim, F f) {
-  switch (head_dim) {
-    case 8: return f(std::integral_constant<int, 8>{});
-    case 16: return f(std::integral_constant<int, 16>{});
-    case 32: return f(std::integral_constant<int, 32>{});
-    case 64: return f(std::integral_constant<int, 64>{});
-    case 128: return f(std::integral_constant<int, 128>{});
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// floats between consecutive rows of one head
+// elements between consecutive rows of one head
 template <int D, bool kBle>
 __device__ __forceinline__ int64_t row_stride(int heads) {
   return kBle ? static_cast<int64_t>(heads) * D : D;
@@ -139,121 +137,68 @@ __device__ __forceinline__ int64_t head_base(int b, int h, int heads, int n) {
               : (static_cast<int64_t>(b) * heads + h) * n * D;
 }
 
-// delta = rowsum(dO * O) of row `row` (rows `stride` floats apart), summed
-// over the T consecutive lanes that share the row, lane `part` of them
-// taking the float4 columns part + T j; 0 for rows >= n_rows. Every lane of
-// the warp calls it.
-template <int D, int T>
-__device__ __forceinline__ float row_delta(const float* o, const float* dout, int row,
-                                           int n_rows, int64_t stride, int part) {
-  constexpr int V4 = D / 4;
+// delta = rowsum(dO * O) in f32 of row `row` (rows `stride` elements
+// apart), summed over the TL consecutive lanes that share the row, lane
+// `part` of them taking the 16-byte chunks part + TL j; 0 for rows >=
+// n_rows. Every lane of the warp calls it.
+template <int D, int TL, class T>
+__device__ __forceinline__ float row_delta(const T* o, const T* dout, int row, int n_rows,
+                                           int64_t stride, int part) {
+  constexpr int V = D * static_cast<int>(sizeof(T)) / 16;
   float acc = 0.f;
   if (row < n_rows) {
-    const float4* o4 = reinterpret_cast<const float4*>(o + row * stride);
-    const float4* d4 = reinterpret_cast<const float4*>(dout + row * stride);
+    const uint4* o4 = reinterpret_cast<const uint4*>(o + row * stride);
+    const uint4* d4 = reinterpret_cast<const uint4*>(dout + row * stride);
 #pragma unroll
-    for (int j = 0; j < (V4 + T - 1) / T; ++j) {
-      const int c = part + T * j;
-      if (c < V4) {
-        const float4 x = o4[c], y = d4[c];
-        acc = fmaf(x.x, y.x, fmaf(x.y, y.y, fmaf(x.z, y.z, fmaf(x.w, y.w, acc))));
-      }
+    for (int j = 0; j < (V + TL - 1) / TL; ++j) {
+      const int c = part + TL * j;
+      if (c < V) acc = bf16mma::chunk_dot<T>(o4[c], d4[c], acc);
     }
   }
 #pragma unroll
-  for (int off = T / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  for (int off = TL / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   return acc;
 }
 
-// A fragment of rows [r0, r0 + 16) of a resident swizzled [*, D] tile, k-step kk
-template <int D>
-__device__ __forceinline__ void load_a(const float* tile, int r0, int kk, int g, int t,
-                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  const float x[4] = {tile[swz<D>(r0 + g, 8 * kk + t)], tile[swz<D>(r0 + g + 8, 8 * kk + t)],
-                      tile[swz<D>(r0 + g, 8 * kk + t + 4)],
-                      tile[swz<D>(r0 + g + 8, 8 * kk + t + 4)]};
-  split(x, hi, lo);
-}
-
-// acc[nt] += A.X^T over k-step kk for the NT n-tiles of a streamed [8 NT, D]
-// tile X read in perm order, A given split
-template <int D, int NT>
-__device__ __forceinline__ void dot_step(float (&acc)[NT][4], const uint32_t (&ah)[4],
-                                         const uint32_t (&al)[4], const float* x, int kk,
-                                         int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int r = 8 * nt + perm(g);
-    const float b[2] = {x[swz<D>(r, 8 * kk + t)], x[swz<D>(r, 8 * kk + t + 4)]};
-    uint32_t bh_[2], bl_[2];
-    split(b, bh_, bl_);
-    mma3(acc[nt], ah, al, bh_, bl_);
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-}
-
-// acc[nt] = A.X^T over D (A: the warp's rows of a resident tile)
-template <int D, int NT>
-__device__ __forceinline__ void rows_dot(float (&acc)[NT][4], const float* res, int r0,
-                                         const float* x, int g, int t) {
-  zero(acc);
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    uint32_t ah[4], al[4];
-    load_a<D>(res, r0, kk, g, t, ah, al);
-    dot_step<D, NT>(acc, ah, al, x, kk, g, t);
-  }
-}
-
-// acc[nt] = A.X^T over D (A: the warp's rows as split fragments in registers)
-template <int D, int NT>
-__device__ __forceinline__ void frags_dot(float (&acc)[NT][4], const uint32_t (&ah)[D / 8][4],
-                                          const uint32_t (&al)[D / 8][4], const float* x, int g,
-                                          int t) {
-  zero(acc);
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) dot_step<D, NT>(acc, ah[kk], al[kk], x, kk, g, t);
-}
-
-// dk/dv tile: kWarps warps, 16 * kWarps key rows, BQ queries per streamed tile
-template <int D, int kWarps, int BQ>
+// dk/dv tile: kWarps warps, 16 * kWarps key rows, BQ queries per streamed
+// tile, elements of T
+template <int D, int kWarps, int BQ, class T = float>
 struct DkvCfg {
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int R = 16 * kWarps;  // key rows per block
   static constexpr int NT = BQ / 8;      // n8 tiles of S^T (per warp)
   static constexpr int DT = D / 8;       // n8 tiles of dK, dV
-  static constexpr int TILE = BQ * D;    // floats per Q or dO tile
-  // K, V [R, D]; Q, dO x 2 stages; lse, delta x 2 stages
-  static constexpr int SMEM = (2 * R * D + 4 * TILE + 4 * BQ) * 4;
+  static constexpr int TILE = BQ * D;    // elements per Q or dO tile
+  // K, V [R, D]; Q, dO x 2 stages; lse, delta x 2 stages (f32)
+  static constexpr int SMEM = (2 * R * D + 4 * TILE) * static_cast<int>(sizeof(T)) + 4 * BQ * 4;
 };
 
-// dq tile: kWarps warps, 16 * kWarps query rows, kKeys keys per streamed tile
-template <int D, int kWarps, int kKeys>
+// dq tile: kWarps warps, 16 * kWarps query rows, kKeys keys per streamed
+// tile, elements of T
+template <int D, int kWarps, int kKeys, class T = float>
 struct DqCfg {
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int R = 16 * kWarps;  // query rows per block
   static constexpr int BK = kKeys;       // keys per tile
   static constexpr int NT = BK / 8;      // n8 tiles of S (per warp)
   static constexpr int DT = D / 8;       // n8 tiles of dQ
-  static constexpr int TILE = BK * D;    // floats per K or V tile
+  static constexpr int TILE = BK * D;    // elements per K or V tile
   // Q, dO [R, D]; K, V x 2 stages; valid flags x 2 stages
-  static constexpr int SMEM = (2 * R * D + 4 * TILE) * 4 + 2 * BK;
+  static constexpr int SMEM = (2 * R * D + 4 * TILE) * static_cast<int>(sizeof(T)) + 2 * BK;
 };
 
 // dk, dv for key rows [tile * R, tile * R + R) of (batch b, head h)
-template <int D, int kWarps, int BQ, bool kBle>
-__device__ __forceinline__ void dkv_tile(const Args& a, int tile, int h, int b, float* smem) {
-  using C = DkvCfg<D, kWarps, BQ>;
-  float* ks = smem;                        // [R, D]
-  float* vs = ks + C::R * D;               // [R, D]
-  float* qs = vs + C::R * D;               // [2][BQ, D]
-  float* dos = qs + 2 * C::TILE;           // [2][BQ, D]
-  float* lse_s = dos + 2 * C::TILE;        // [2][BQ]
+template <int D, int kWarps, int BQ, bool kBle, int kMode = kF32>
+__device__ __forceinline__ void dkv_tile(const Args<Elem<kMode>>& a, int tile, int h, int b,
+                                         float* smem) {
+  using T = Elem<kMode>;
+  using C = DkvCfg<D, kWarps, BQ, T>;
+  using O = Ops<kMode, D>;
+  T* ks = reinterpret_cast<T*>(smem);      // [R, D]
+  T* vs = ks + C::R * D;                   // [R, D]
+  T* qs = vs + C::R * D;                   // [2][BQ, D]
+  T* dos = qs + 2 * C::TILE;               // [2][BQ, D]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * C::TILE);  // [2][BQ]
   float* delta_s = lse_s + 2 * BQ;         // [2][BQ]
 
   const int tid = threadIdx.x;
@@ -267,8 +212,8 @@ __device__ __forceinline__ void dkv_tile(const Args& a, int tile, int h, int b, 
   const int keys[2] = {k0 + r0 + g, k0 + r0 + g + 8};  // this thread's key rows
   const uint8_t* mb = a.mask + static_cast<int64_t>(b) * a.lk;
   const bool key_ok[2] = {keys[0] < a.lk && mb[keys[0]], keys[1] < a.lk && mb[keys[1]]};
-  float* dkb = a.dk + k_base;
-  float* dvb = a.dv + k_base;
+  T* dkb = a.dk + k_base;
+  T* dvb = a.dv + k_base;
 
   const bool any = __syncthreads_or(tid < C::R && k0 + tid < a.lk && mb[k0 + tid]);
   float dk[C::DT][4], dv[C::DT][4];
@@ -276,14 +221,14 @@ __device__ __forceinline__ void dkv_tile(const Args& a, int tile, int h, int b, 
   zero(dv);
 
   if (any) {
-    const float* qb = a.q + q_base;
-    const float* dob = a.dout + q_base;
+    const T* qb = a.q + q_base;
+    const T* dob = a.dout + q_base;
     const float* lseb = a.lse + bh * a.lq;
     const float* deltab = kBle ? nullptr : a.delta + bh * a.lq;
     auto stage = [&](int it, int buf) {
       const int q0 = it * BQ;
-      stage_rows<D, BQ, C::kThreads>(qs + buf * C::TILE, qb, q0, a.lq, stride);
-      stage_rows<D, BQ, C::kThreads>(dos + buf * C::TILE, dob, q0, a.lq, stride);
+      O::template stage<BQ, C::kThreads>(qs + buf * C::TILE, qb, q0, a.lq, stride);
+      O::template stage<BQ, C::kThreads>(dos + buf * C::TILE, dob, q0, a.lq, stride);
       // j < BQ: lse of query j, else delta of j - BQ (given in bhld only)
       constexpr int kStats = kBle ? BQ : 2 * BQ;
       auto stage_stat = [&](int j) {
@@ -298,14 +243,15 @@ __device__ __forceinline__ void dkv_tile(const Args& a, int tile, int h, int b, 
         for (int j = tid; j < kStats; j += C::kThreads) stage_stat(j);
       }
       if constexpr (kBle) {  // delta of the tile's queries, while the copies fly
-        constexpr int T = C::kThreads / BQ;  // threads per query row
-        static_assert(C::kThreads % BQ == 0 && T <= 32, "T lanes of one warp per row");
-        const float d = row_delta<D, T>(a.o + q_base, dob, q0 + tid / T, a.lq, stride, tid % T);
-        if (tid % T == 0) delta_s[buf * BQ + tid / T] = d;
+        constexpr int TL = C::kThreads / BQ;  // threads per query row
+        static_assert(C::kThreads % BQ == 0 && TL <= 32, "TL lanes of one warp per row");
+        const float d = row_delta<D, TL>(a.o + q_base, dob, q0 + tid / TL, a.lq, stride,
+                                         tid % TL);
+        if (tid % TL == 0) delta_s[buf * BQ + tid / TL] = d;
       }
     };
-    stage_rows<D, C::R, C::kThreads>(ks, a.k + k_base, k0, a.lk, stride);
-    stage_rows<D, C::R, C::kThreads>(vs, a.v + k_base, k0, a.lk, stride);
+    O::template stage<C::R, C::kThreads>(ks, a.k + k_base, k0, a.lk, stride);
+    O::template stage<C::R, C::kThreads>(vs, a.v + k_base, k0, a.lk, stride);
     stage(0, 0);
     cp_async_commit();
 
@@ -318,38 +264,38 @@ __device__ __forceinline__ void dkv_tile(const Args& a, int tile, int h, int b, 
       __syncthreads();     // ... and everyone's (and tile it's delta stores)
 
       if (__any_sync(0xffffffffu, key_ok[0] || key_ok[1])) {  // a valid key in the warp
-        const float* qt = qs + buf * C::TILE;
-        const float* dot = dos + buf * C::TILE;
+        const T* qt = qs + buf * C::TILE;
+        const T* dot = dos + buf * C::TILE;
         const float* lse_t = lse_s + buf * BQ;
         const float* delta_t = delta_s + buf * BQ;
         const int q0 = it * BQ;
 
         // P^T = exp(K.Q^T - lse) on valid keys and live queries, else 0;
-        // column j of n-tile nt is query 8 nt + perm(j)
+        // element e of n-tile nt is query O::col(nt, e, t)
         float p[C::NT][4];
-        rows_dot<D, C::NT>(p, ks, r0, qt, g, t);
+        O::template rows_dot<C::NT>(p, ks, r0, qt, g, t);
 #pragma unroll
         for (int nt = 0; nt < C::NT; ++nt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int qi = 8 * nt + t + 4 * (e & 1);
+            const int qi = O::col(nt, e, t);
             const bool live = key_ok[e >> 1] && q0 + qi < a.lq;
             p[nt][e] = live ? expf(p[nt][e] - lse_t[qi]) : 0.f;
           }
         }
-        weight_rows<D, C::NT>(dv, p, dot, 1.f, 1.f, g, t);  // dV += P^T.dO
+        O::template weight_rows<C::NT>(dv, p, dot, 1.f, 1.f, g, t);  // dV += P^T.dO
 
         // dS^T = P^T (V.dO^T - delta)
         float ds[C::NT][4];
-        rows_dot<D, C::NT>(ds, vs, r0, dot, g, t);
+        O::template rows_dot<C::NT>(ds, vs, r0, dot, g, t);
 #pragma unroll
         for (int nt = 0; nt < C::NT; ++nt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            ds[nt][e] = p[nt][e] * (ds[nt][e] - delta_t[8 * nt + t + 4 * (e & 1)]);
+            ds[nt][e] = p[nt][e] * (ds[nt][e] - delta_t[O::col(nt, e, t)]);
           }
         }
-        weight_rows<D, C::NT>(dk, ds, qt, 1.f, 1.f, g, t);  // dK += dS^T.Q
+        O::template weight_rows<C::NT>(dk, ds, qt, 1.f, 1.f, g, t);  // dK += dS^T.Q
       }
       __syncthreads();  // every warp is done with buf before it is refilled
     }
@@ -362,20 +308,24 @@ __device__ __forceinline__ void dkv_tile(const Args& a, int tile, int h, int b, 
     const int64_t off = keys[i] * stride + 2 * t;
 #pragma unroll
     for (int n = 0; n < C::DT; ++n) {
-      *reinterpret_cast<float2*>(dkb + off + 8 * n) = make_float2(dk[n][2 * i], dk[n][2 * i + 1]);
-      *reinterpret_cast<float2*>(dvb + off + 8 * n) = make_float2(dv[n][2 * i], dv[n][2 * i + 1]);
+      bf16mma::store_pair(dkb + off + 8 * n, dk[n][2 * i], dk[n][2 * i + 1]);
+      bf16mma::store_pair(dvb + off + 8 * n, dv[n][2 * i], dv[n][2 * i + 1]);
     }
   }
 }
 
 // dq for query rows [tile * R, tile * R + R) of (batch b, head h)
-template <int D, int kWarps, int BK, bool kBle, int kHeld = 0>
-__device__ __forceinline__ void dq_tile(const Args& a, int tile, int h, int b, float* smem) {
-  using C = DqCfg<D, kWarps, BK>;
-  float* qs = smem;                  // [R, D]
-  float* dos = qs + C::R * D;        // [R, D]
-  float* ks = dos + C::R * D;        // [2][BK, D]
-  float* vs = ks + 2 * C::TILE;      // [2][BK, D]
+template <int D, int kWarps, int BK, bool kBle, int kHeld = 0, int kMode = kF32>
+__device__ __forceinline__ void dq_tile(const Args<Elem<kMode>>& a, int tile, int h, int b,
+                                        float* smem) {
+  static_assert(kHeld == 0 || kMode == kF32, "held split fragments are 3xTF32's");
+  using T = Elem<kMode>;
+  using C = DqCfg<D, kWarps, BK, T>;
+  using O = Ops<kMode, D>;
+  T* qs = reinterpret_cast<T*>(smem);  // [R, D]
+  T* dos = qs + C::R * D;              // [R, D]
+  T* ks = dos + C::R * D;              // [2][BK, D]
+  T* vs = ks + 2 * C::TILE;            // [2][BK, D]
   uint8_t* valid = reinterpret_cast<uint8_t*>(vs + 2 * C::TILE);  // [2][BK]
 
   const int tid = threadIdx.x;
@@ -388,15 +338,15 @@ __device__ __forceinline__ void dq_tile(const Args& a, int tile, int h, int b, f
   const int r0 = warp * 16;                            // the warp's rows in the tile
   const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};  // this thread's query rows
   const bool warp_live = q0 + r0 < a.lq;
-  const float* kb = a.k + k_base;
-  const float* vb = a.v + k_base;
+  const T* kb = a.k + k_base;
+  const T* vb = a.v + k_base;
   const uint8_t* mb = a.mask + static_cast<int64_t>(b) * a.lk;
 
   const int n_tiles = (a.lk + C::BK - 1) / C::BK;
-  stage_rows<D, C::R, C::kThreads>(qs, a.q + q_base, q0, a.lq, stride);
-  stage_rows<D, C::R, C::kThreads>(dos, a.dout + q_base, q0, a.lq, stride);
-  stage_rows<D, C::BK, C::kThreads>(ks, kb, 0, a.lk, stride);
-  stage_rows<D, C::BK, C::kThreads>(vs, vb, 0, a.lk, stride);
+  O::template stage<C::R, C::kThreads>(qs, a.q + q_base, q0, a.lq, stride);
+  O::template stage<C::R, C::kThreads>(dos, a.dout + q_base, q0, a.lq, stride);
+  O::template stage<C::BK, C::kThreads>(ks, kb, 0, a.lk, stride);
+  O::template stage<C::BK, C::kThreads>(vs, vb, 0, a.lk, stride);
   cp_async_commit();
   uint8_t mv = tid < C::BK && tid < a.lk ? mb[tid] : 0;  // next tile's flag
 
@@ -433,8 +383,8 @@ __device__ __forceinline__ void dq_tile(const Args& a, int tile, int h, int b, f
     if (tid < C::BK) valid[buf * C::BK + tid] = mine;
     if (it + 1 < n_tiles) {  // prefetch tile it + 1 into the other buffer
       const int k1 = (it + 1) * C::BK;
-      stage_rows<D, C::BK, C::kThreads>(ks + (buf ^ 1) * C::TILE, kb, k1, a.lk, stride);
-      stage_rows<D, C::BK, C::kThreads>(vs + (buf ^ 1) * C::TILE, vb, k1, a.lk, stride);
+      O::template stage<C::BK, C::kThreads>(ks + (buf ^ 1) * C::TILE, kb, k1, a.lk, stride);
+      O::template stage<C::BK, C::kThreads>(vs + (buf ^ 1) * C::TILE, vb, k1, a.lk, stride);
       mv = tid < C::BK && k1 + tid < a.lk ? mb[k1 + tid] : 0;
     }
     cp_async_commit();
@@ -442,34 +392,34 @@ __device__ __forceinline__ void dq_tile(const Args& a, int tile, int h, int b, f
     if (!__syncthreads_or(mine)) continue;  // every key of the tile is masked
 
     if (warp_live) {
-      const float* kt = ks + buf * C::TILE;
-      const float* vt = vs + buf * C::TILE;
+      const T* kt = ks + buf * C::TILE;
+      const T* vt = vs + buf * C::TILE;
       const uint8_t* ok = valid + buf * C::BK;
 
-      // S = Q.K^T and dP = dO.V^T; column j of n-tile nt holds key 8 nt + perm(j)
+      // S = Q.K^T and dP = dO.V^T; element e of n-tile nt holds key O::col(nt, e, t)
       float s[C::NT][4], dp[C::NT][4];
       if constexpr (kHeld > 0) {
         frags_dot<D, C::NT>(s, qh, ql, kt, g, t);
       } else {
-        rows_dot<D, C::NT>(s, qs, r0, kt, g, t);
+        O::template rows_dot<C::NT>(s, qs, r0, kt, g, t);
       }
       if constexpr (kHeld > 1) {
         frags_dot<D, C::NT>(dp, dh, dl, vt, g, t);
       } else {
-        rows_dot<D, C::NT>(dp, dos, r0, vt, g, t);
+        O::template rows_dot<C::NT>(dp, dos, r0, vt, g, t);
       }
       // dS = P (dP - delta), P = exp(S - lse) on valid keys, else 0
 #pragma unroll
       for (int nt = 0; nt < C::NT; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const bool live = ok[8 * nt + t + 4 * (e & 1)];
+          const bool live = ok[O::col(nt, e, t)];
           const float p = live ? expf(s[nt][e] - lse[e >> 1]) : 0.f;
           s[nt][e] = p * (dp[nt][e] - delta[e >> 1]);
         }
       }
-      // dQ += dS.K: n-tile nt of dS is the A fragment of k-step nt
-      weight_rows<D, C::NT>(dq, s, kt, 1.f, 1.f, g, t);
+      // dQ += dS.K: dS's C fragments are the A fragments of the product
+      O::template weight_rows<C::NT>(dq, s, kt, 1.f, 1.f, g, t);
     }
     __syncthreads();  // every warp is done with buf before it is refilled
   }
@@ -478,10 +428,10 @@ __device__ __forceinline__ void dq_tile(const Args& a, int tile, int h, int b, f
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (rows[i] >= a.lq) continue;
-    float* row = a.dq + q_base + rows[i] * stride + 2 * t;
+    T* row = a.dq + q_base + rows[i] * stride + 2 * t;
 #pragma unroll
     for (int n = 0; n < C::DT; ++n) {
-      *reinterpret_cast<float2*>(row + 8 * n) = make_float2(dq[n][2 * i], dq[n][2 * i + 1]);
+      bf16mma::store_pair(row + 8 * n, dq[n][2 * i], dq[n][2 * i + 1]);
     }
   }
 }

@@ -1,6 +1,7 @@
 // Device helpers shared by the tensor-core attention kernels (sm_90a):
-// 3xTF32 products on mma.sync, cp.async staging, quad reductions and the
-// shared-memory swizzle.
+// 3xTF32 products on mma.sync (whole products over a tile: rows_dot,
+// frags_dot, weight_rows; the f32 mode of flash_ops.cuh), cp.async
+// staging, quad reductions and the shared-memory swizzle.
 //
 // 3xTF32. A TF32 operand keeps 10 explicit mantissa bits, so one TF32
 // product carries ~5e-4 relative error: too coarse for the port's f32
@@ -168,6 +169,61 @@ __device__ __forceinline__ void weight_rows(float (&acc)[D / 8][4], const float 
       acc[n0 + n][3] = fmaf(acc[n0 + n][3], scale_hi, part[n][3]);
     }
   }
+}
+
+// A fragment of rows [r0, r0 + 16) of a resident swizzled [*, D] tile, k-step kk
+template <int D>
+__device__ __forceinline__ void load_a(const float* tile, int r0, int kk, int g, int t,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float x[4] = {tile[swz<D>(r0 + g, 8 * kk + t)], tile[swz<D>(r0 + g + 8, 8 * kk + t)],
+                      tile[swz<D>(r0 + g, 8 * kk + t + 4)],
+                      tile[swz<D>(r0 + g + 8, 8 * kk + t + 4)]};
+  split(x, hi, lo);
+}
+
+// acc[nt] += A.X^T over k-step kk for the NT n-tiles of a streamed [8 NT, D]
+// tile X read in perm order, A given split
+template <int D, int NT>
+__device__ __forceinline__ void dot_step(float (&acc)[NT][4], const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4], const float* x, int kk,
+                                         int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int r = 8 * nt + perm(g);
+    const float b[2] = {x[swz<D>(r, 8 * kk + t)], x[swz<D>(r, 8 * kk + t + 4)]};
+    uint32_t bh_[2], bl_[2];
+    split(b, bh_, bl_);
+    mma3(acc[nt], ah, al, bh_, bl_);
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+}
+
+// acc[nt] = A.X^T over D (A: the warp's rows of a resident tile)
+template <int D, int NT>
+__device__ __forceinline__ void rows_dot(float (&acc)[NT][4], const float* res, int r0,
+                                         const float* x, int g, int t) {
+  zero(acc);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    load_a<D>(res, r0, kk, g, t, ah, al);
+    dot_step<D, NT>(acc, ah, al, x, kk, g, t);
+  }
+}
+
+// acc[nt] = A.X^T over D (A: the warp's rows as split fragments in registers)
+template <int D, int NT>
+__device__ __forceinline__ void frags_dot(float (&acc)[NT][4], const uint32_t (&ah)[D / 8][4],
+                                          const uint32_t (&al)[D / 8][4], const float* x, int g,
+                                          int t) {
+  zero(acc);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) dot_step<D, NT>(acc, ah[kk], al[kk], x, kk, g, t);
 }
 
 // reductions over the 4 lanes of a quad (one row of a C fragment)

@@ -5,7 +5,7 @@ with **True = valid**; rows with no valid key return 0 (torch's own
 attention would return NaN).
 
 Two forward kernels, one CUDA template on the tensor cores in 3xTF32
-(f32-grade), `csrc/flash_fwd.cu`:
+(f32-grade), `csrc/flash_fwd.cuh` (entry points in `flash_fwd.cu`):
 
 * `flash_fwd_ble` (replaces the TPU's `_fwd_kernel_ble`): q, k, v in the
   raw projection layout [B, L, E = H*D], heads split by column offset inside
@@ -28,12 +28,30 @@ tiles of `csrc/flash_bwd_tc.cuh`:
 
 * `flash_bwd_ble` (replaces `_bwd_kernel_ble`) and `flash_bwd_bhld_fused`
   (replaces `_bwd_fused_kernel`): dq, dk, dv in one launch, the two layouts
-  of one CUDA template, `csrc/flash_bwd_fused.cu`. The ble one computes
+  of one CUDA template, `csrc/flash_bwd_fused.cuh`. The ble one computes
   delta = rowsum(dO * O) in the kernel; the classic one is for
   single-block shapes (`single_block`).
 * `flash_bwd_dq` and `flash_bwd_dkv` (replace `_bwd_dq_kernel` and
   `_bwd_dkv_kernel`): the blocked classic backward, two launches;
   `csrc/flash_bwd_dq.cu` and `csrc/flash_bwd_dkv.cu`.
+
+Q1 and Q2 also take bf16, in two product modes of their own (the same
+templates, `csrc/flash_ops.cuh`), each with its own C entry point, wrapper
+and launch counter (the JAX package's bf16 configuration,
+`compute_dtype="bfloat16"` and `fusion.flash_mxu_bf16`):
+
+* `flash_fwd_ble_bf16` / `flash_bwd_ble_bf16`: bf16 q, k, v (and o, dO),
+  every product f32-exact (a bf16 operand is exact in bf16; an f32 one, P
+  or dS, is split into three bf16 terms), softmax, lse and accumulators in
+  f32, o, dq, dk, dv rounded once to bf16;
+* `flash_fwd_ble_mxu` / `flash_bwd_ble_mxu` (`mxu_bf16`): every product's
+  operands, P and dS included, rounded to bf16 (to nearest even) with f32
+  accumulation; q, k, v, dO in f32 (rounded on load, f32 outputs) or bf16.
+
+Their plain versions are the ble ones with bf16 operands or
+`mxu_bf16=True`. The other four kernels take f32 only: a bf16 operand or
+`mxu_bf16` raises on the card (ROADMAP K1), while their plain versions on
+the CPU serve both, as the JAX reference does.
 
 `flash_mha_ble` and `flash_mha` run through a `torch.autograd.Function`
 per layout (`FlashAttentionBLE`, `FlashAttentionBHLD`) whose backward is
@@ -76,10 +94,12 @@ def mha_reference(q, k, v, kv_mask=None, scale=None):
     """softmax(QK^T * scale + mask)V in plain PyTorch.
 
     q: [B, H, Lq, D]; k, v: [B, H, Lk, D]; kv_mask: [B, Lk] bool True=valid.
-    Fully-masked query rows return 0."""
+    Fully-masked query rows return 0. Both products take f32 accumulation;
+    the weights are cast to v's dtype and the output to q's, as the JAX
+    reference does (bf16 operands under `compute_dtype="bfloat16"`)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if kv_mask is not None:
         valid = kv_mask[:, None, None, :]
         logits = torch.where(valid, logits, _NEG_INF)
@@ -89,7 +109,8 @@ def mha_reference(q, k, v, kv_mask=None, scale=None):
         unnorm = torch.where(valid, unnorm, 0.0)
     denom = unnorm.sum(dim=-1, keepdim=True)
     weights = unnorm / denom.clamp_min(1e-30)
-    return torch.einsum("bhqk,bhkd->bhqd", weights, v)
+    return torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype).float(),
+                        v.float()).to(q.dtype)
 
 
 def mha_reference_blocked(q, k, v, kv_mask=None, scale=None):
@@ -104,36 +125,64 @@ def mha_reference_blocked(q, k, v, kv_mask=None, scale=None):
 
 
 # ------------------------------------------------------------ plain versions
-def _softmax_fwd(q, k, v, valid):
+# Each takes q, k, v (and dO, o) in f32 or bf16 and computes in f32 from
+# their values: softmax, lse and sums in f32, outputs cast once to the
+# operands' dtype, lse [.., Lq] f32. `mxu_bf16` rounds every product's
+# operands to bf16 (to nearest even, as the JAX package's `_mxu_in`): q, k,
+# v, dO, and P and dS before their products.
+def _operand(x, mxu_bf16: bool):
+    """`x` as a product takes it: rounded to bf16 under `mxu_bf16`, in f32."""
+    return (x.to(torch.bfloat16) if mxu_bf16 else x).float()
+
+
+def _softmax_fwd(q, k, v, valid, mxu_bf16: bool = False):
     """The kernels' contract on pre-scaled q [..., Lq, D], k/v [..., Lk, D],
-    `valid` broadcastable to the logits: returns (o, lse [..., Lq])."""
+    `valid` broadcastable to the logits: returns (o in q's dtype, lse
+    [..., Lq] f32). P is exp(s - the row's max over all its keys) when it
+    is rounded, as the JAX ble kernel's single block takes it."""
+    dtype = q.dtype
+    q, k, v = (_operand(x, mxu_bf16) for x in (q, k, v))
     s = torch.where(valid, q @ k.transpose(-1, -2), _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)  # masked columns: exp(-1e30 - m) == 0 unless all are
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.where(m <= 0.5 * _NEG_INF, 0.0, (p @ v) / l)
-    return o, (m + torch.log(l)).squeeze(-1)
+    o = torch.where(m <= 0.5 * _NEG_INF, 0.0, (_operand(p, mxu_bf16) @ v) / l)
+    return o.to(dtype), (m + torch.log(l)).squeeze(-1)
 
 
-def flash_fwd_ble_plain(q, k, v, kv_mask, num_heads: int):
-    """Plain version of `flash_fwd_ble`: q [B, Lq, E], k/v [B, Lk, E] (q
-    already scaled), kv_mask [B, Lk] -> (o [B, Lq, E], lse [B, H, Lq])."""
-    B, Lq, E = q.shape
-    D = E // num_heads
-
-    def split(x):
-        return x.reshape(B, x.shape[1], num_heads, D).transpose(1, 2)
-
-    o, lse = _softmax_fwd(split(q), split(k), split(v), kv_mask[:, None, None, :])
-    return o.transpose(1, 2).reshape(B, Lq, E), lse
+def _split_heads(x, num_heads: int):
+    """[B, L, H*D] -> [B, H, L, D] (a view)."""
+    B, L, E = x.shape
+    return x.reshape(B, L, num_heads, E // num_heads).transpose(1, 2)
 
 
-def flash_fwd_bhld_plain(q, k, v, kv_mask):
+def _merge_heads(x):
+    """[B, H, L, D] -> [B, L, H*D]."""
+    B, H, L, D = x.shape
+    return x.transpose(1, 2).reshape(B, L, H * D)
+
+
+def flash_fwd_ble_plain(q, k, v, kv_mask, num_heads: int, mxu_bf16: bool = False):
+    """Plain version of `flash_fwd_ble` (f32), `flash_fwd_ble_bf16` (bf16
+    operands) and `flash_fwd_ble_mxu` (`mxu_bf16`): q [B, Lq, E], k/v
+    [B, Lk, E] (q already scaled), kv_mask [B, Lk] -> (o [B, Lq, E], lse
+    [B, H, Lq])."""
+    o, lse = _softmax_fwd(*(_split_heads(x, num_heads) for x in (q, k, v)),
+                          kv_mask[:, None, None, :], mxu_bf16)
+    return _merge_heads(o), lse
+
+
+def flash_fwd_ble_mxu_plain(q, k, v, kv_mask, num_heads: int):
+    """Plain version of `flash_fwd_ble_mxu`."""
+    return flash_fwd_ble_plain(q, k, v, kv_mask, num_heads, mxu_bf16=True)
+
+
+def flash_fwd_bhld_plain(q, k, v, kv_mask, mxu_bf16: bool = False):
     """Plain version of `flash_fwd_bhld`: q [B, H, Lq, D], k/v [B, H, Lk, D]
     (q already scaled) -> (o [B, H, Lq, D], lse [B, H, Lq]). Runs in chunks
     of query rows so whole-slide lengths never hold the full logits."""
     valid = kv_mask[:, None, None, :]
-    parts = [_softmax_fwd(q[:, :, s:s + _PLAIN_BLOCK_Q], k, v, valid)
+    parts = [_softmax_fwd(q[:, :, s:s + _PLAIN_BLOCK_Q], k, v, valid, mxu_bf16)
              for s in range(0, q.shape[2], _PLAIN_BLOCK_Q)]
     return (torch.cat([p[0] for p in parts], dim=2),
             torch.cat([p[1] for p in parts], dim=2))
@@ -145,70 +194,84 @@ def _bwd_probs(q, k, valid, lse):
     return torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
 
 
-def flash_bwd_dq_plain(q, k, v, kv_mask, do, lse, delta):
+def flash_bwd_dq_plain(q, k, v, kv_mask, do, lse, delta, mxu_bf16: bool = False):
     """Plain version of `flash_bwd_dq`: q/do [B, H, Lq, D], k/v
     [B, H, Lk, D], lse/delta [B, H, Lq] -> dq [B, H, Lq, D], in chunks of
     query rows."""
     valid = kv_mask[:, None, None, :]
+    qf, kf, vf, dof = (_operand(x, mxu_bf16) for x in (q, k, v, do))
     parts = []
     for s in range(0, q.shape[2], _PLAIN_BLOCK_Q):
         rows = slice(s, s + _PLAIN_BLOCK_Q)
-        p = _bwd_probs(q[:, :, rows], k, valid, lse[:, :, rows])
-        ds = p * (do[:, :, rows] @ v.transpose(-1, -2) - delta[:, :, rows, None])
-        parts.append(ds @ k)
-    return torch.cat(parts, dim=2)
+        p = _bwd_probs(qf[:, :, rows], kf, valid, lse[:, :, rows])
+        ds = p * (dof[:, :, rows] @ vf.transpose(-1, -2) - delta[:, :, rows, None])
+        parts.append(_operand(ds, mxu_bf16) @ kf)
+    return torch.cat(parts, dim=2).to(q.dtype)
 
 
-def flash_bwd_dkv_plain(q, k, v, kv_mask, do, lse, delta):
+def flash_bwd_dkv_plain(q, k, v, kv_mask, do, lse, delta, mxu_bf16: bool = False):
     """Plain version of `flash_bwd_dkv`: same inputs as `flash_bwd_dq_plain`
     -> (dk, dv) [B, H, Lk, D], summed over chunks of query rows."""
     valid = kv_mask[:, None, None, :]
-    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    qf, kf, vf, dof = (_operand(x, mxu_bf16) for x in (q, k, v, do))
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     for s in range(0, q.shape[2], _PLAIN_BLOCK_Q):
         rows = slice(s, s + _PLAIN_BLOCK_Q)
-        qc, doc = q[:, :, rows], do[:, :, rows]
-        p = _bwd_probs(qc, k, valid, lse[:, :, rows])
-        ds = p * (doc @ v.transpose(-1, -2) - delta[:, :, rows, None])
-        dv += p.transpose(-1, -2) @ doc
-        dk += ds.transpose(-1, -2) @ qc
-    return dk, dv
+        qc, doc = qf[:, :, rows], dof[:, :, rows]
+        p = _bwd_probs(qc, kf, valid, lse[:, :, rows])
+        ds = p * (doc @ vf.transpose(-1, -2) - delta[:, :, rows, None])
+        dv += _operand(p, mxu_bf16).transpose(-1, -2) @ doc
+        dk += _operand(ds, mxu_bf16).transpose(-1, -2) @ qc
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_bwd_bhld_fused_plain(q, k, v, kv_mask, do, lse, delta):
+def flash_bwd_bhld_fused_plain(q, k, v, kv_mask, do, lse, delta, mxu_bf16: bool = False):
     """Plain version of `flash_bwd_bhld_fused` -> (dq, dk, dv)."""
-    return (flash_bwd_dq_plain(q, k, v, kv_mask, do, lse, delta),
-            *flash_bwd_dkv_plain(q, k, v, kv_mask, do, lse, delta))
+    return (flash_bwd_dq_plain(q, k, v, kv_mask, do, lse, delta, mxu_bf16),
+            *flash_bwd_dkv_plain(q, k, v, kv_mask, do, lse, delta, mxu_bf16))
 
 
-def flash_bwd_ble_plain(q, k, v, kv_mask, o, lse, do, num_heads: int):
-    """Plain version of `flash_bwd_ble`: q/o/do [B, Lq, E], k/v [B, Lk, E],
-    lse [B, H, Lq] -> (dq, dk, dv) in the same layout; delta from o, do."""
-    B, Lq, E = q.shape
-    D = E // num_heads
+def flash_bwd_ble_plain(q, k, v, kv_mask, o, lse, do, num_heads: int,
+                        mxu_bf16: bool = False):
+    """Plain version of `flash_bwd_ble` (f32), `flash_bwd_ble_bf16` (bf16
+    operands) and `flash_bwd_ble_mxu` (`mxu_bf16`): q/o/do [B, Lq, E], k/v
+    [B, Lk, E], lse [B, H, Lq] -> (dq, dk, dv) in the same layout; delta
+    from the stored o and dO in f32 (dO unrounded, as the Pallas kernel)."""
+    q, k, v, o, do = (_split_heads(x, num_heads) for x in (q, k, v, o, do))
+    delta = (do.float() * o.float()).sum(-1)
+    grads = flash_bwd_bhld_fused_plain(q, k, v, kv_mask, do, lse, delta, mxu_bf16)
+    return tuple(_merge_heads(g) for g in grads)
 
-    def split(x):
-        return x.reshape(B, x.shape[1], num_heads, D).transpose(1, 2)
 
-    def merge(x):
-        return x.transpose(1, 2).reshape(B, x.shape[2], E)
+def flash_bwd_ble_mxu_plain(q, k, v, kv_mask, o, lse, do, num_heads: int):
+    """Plain version of `flash_bwd_ble_mxu`."""
+    return flash_bwd_ble_plain(q, k, v, kv_mask, o, lse, do, num_heads, mxu_bf16=True)
 
-    delta = (split(do) * split(o)).sum(-1)
-    grads = flash_bwd_bhld_fused_plain(split(q), split(k), split(v), kv_mask,
-                                       split(do), lse, delta)
-    return tuple(merge(g) for g in grads)
+
+flash_fwd_ble_bf16_plain = flash_fwd_ble_plain  # bf16 operands, f32 products
+flash_bwd_ble_bf16_plain = flash_bwd_ble_plain
 
 
 # ------------------------------------------------------------ kernel wrappers
-def _check_inputs(name, q, k, v, kv_mask, kv_shape, head_dim):
+_F32 = (torch.float32,)
+_BF16 = (torch.bfloat16,)
+_F32_OR_BF16 = (torch.float32, torch.bfloat16)
+
+
+def _check_inputs(name, q, k, v, kv_mask, kv_shape, head_dim, dtypes=_F32):
     """Raise on anything the kernel does not take. q's own shape defines
     B, Lq and the width; k and v must have `kv_shape`, whose first and
-    second-to-last entries are B and Lk in both layouts."""
+    second-to-last entries are B and Lk in both layouts, and q's dtype,
+    one of `dtypes`."""
     for n, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name}: {n} is on {t.device}; the kernel takes "
                              f"CUDA tensors on one device")
-        if t.dtype != torch.float32:
-            raise NotImplementedError(f"{name}: {n} is {t.dtype}; the kernel takes float32")
+        if t.dtype not in dtypes or t.dtype != q.dtype:
+            hint = ("; the bf16 modes of this kernel are not ported (ROADMAP K1)"
+                    if dtypes == _F32 and t.dtype == torch.bfloat16 else "")
+            raise NotImplementedError(f"{name}: {n} is {t.dtype} (q {q.dtype}); "
+                                      f"the kernel takes {dtypes}{hint}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {n} must be contiguous and 16-byte aligned")
         if t.requires_grad and torch.is_grad_enabled():
@@ -230,36 +293,73 @@ def _check_inputs(name, q, k, v, kv_mask, kv_shape, head_dim):
                          f"{mask_shape} tensor on {q.device}")
 
 
-def flash_fwd_ble(q, k, v, kv_mask, num_heads: int):
-    """Kernel `flash_fwd_ble` on pre-scaled q [B, Lq, E], k/v [B, Lk, E] and
-    kv_mask [B, Lk] bool -> (o [B, Lq, E], lse [B, H, Lq] f32)."""
-    if q.device.type == "cpu":
-        return flash_fwd_ble_plain(q, k, v, kv_mask, num_heads)
+def _launch_fwd_ble(name, q, k, v, kv_mask, num_heads, dtypes, *extra):
+    """Check, allocate and launch C entry point `name` of the ble forward
+    (with `extra` int arguments after the stream)."""
     B, Lq, E = q.shape
     Lk = k.shape[1]
     if E % num_heads:
         raise ValueError(f"E={E} not divisible by num_heads={num_heads}")
     D = E // num_heads
-    _check_inputs("flash_fwd_ble", q, k, v, kv_mask, (B, Lk, E), D)
+    _check_inputs(name, q, k, v, kv_mask, (B, Lk, E), D, dtypes)
     o = torch.empty_like(q)
     lse = torch.empty((B, num_heads, Lq), dtype=torch.float32, device=q.device)
-    build.launch("flash_fwd_ble", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    build.launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  kv_mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
                  B, Lq, Lk, num_heads, D,
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    flash_fwd_ble.launches += 1
+                 torch.cuda.current_stream(q.device).cuda_stream, *extra)
     return o, lse
+
+
+def flash_fwd_ble(q, k, v, kv_mask, num_heads: int):
+    """Kernel `flash_fwd_ble` on pre-scaled f32 q [B, Lq, E], k/v [B, Lk, E]
+    and kv_mask [B, Lk] bool -> (o [B, Lq, E], lse [B, H, Lq] f32)."""
+    if q.device.type == "cpu":
+        return flash_fwd_ble_plain(q, k, v, kv_mask, num_heads)
+    out = _launch_fwd_ble("flash_fwd_ble", q, k, v, kv_mask, num_heads, _F32)
+    flash_fwd_ble.launches += 1
+    return out
 
 
 flash_fwd_ble.launches = 0
 
 
-def flash_fwd_bhld(q, k, v, kv_mask):
+def flash_fwd_ble_bf16(q, k, v, kv_mask, num_heads: int):
+    """Kernel `flash_fwd_ble_bf16`: `flash_fwd_ble` on bf16 q, k, v with
+    f32-exact products -> (o bf16, lse f32)."""
+    if q.device.type == "cpu":
+        return flash_fwd_ble_plain(q, k, v, kv_mask, num_heads)
+    out = _launch_fwd_ble("flash_fwd_ble_bf16", q, k, v, kv_mask, num_heads, _BF16)
+    flash_fwd_ble_bf16.launches += 1
+    return out
+
+
+flash_fwd_ble_bf16.launches = 0
+
+
+def flash_fwd_ble_mxu(q, k, v, kv_mask, num_heads: int):
+    """Kernel `flash_fwd_ble_mxu`: `flash_fwd_ble` with every product's
+    operands (P too) rounded to bf16; q, k, v f32 or bf16, o in their
+    dtype, lse f32."""
+    if q.device.type == "cpu":
+        return flash_fwd_ble_mxu_plain(q, k, v, kv_mask, num_heads)
+    out = _launch_fwd_ble("flash_fwd_ble_mxu", q, k, v, kv_mask, num_heads,
+                          _F32_OR_BF16, int(q.dtype == torch.bfloat16))
+    flash_fwd_ble_mxu.launches += 1
+    return out
+
+
+flash_fwd_ble_mxu.launches = 0
+
+
+def flash_fwd_bhld(q, k, v, kv_mask, mxu_bf16: bool = False):
     """Kernel `flash_fwd_bhld` on pre-scaled q [B, H, Lq, D], k/v
     [B, H, Lk, D] and kv_mask [B, Lk] bool -> (o [B, H, Lq, D], lse
-    [B, H, Lq] f32)."""
+    [B, H, Lq] f32). f32 only on the card; the plain version on the CPU
+    also serves bf16 operands and `mxu_bf16`."""
     if q.device.type == "cpu":
-        return flash_fwd_bhld_plain(q, k, v, kv_mask)
+        return flash_fwd_bhld_plain(q, k, v, kv_mask, mxu_bf16)
+    _refuse_mxu("flash_fwd_bhld", mxu_bf16)
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     _check_inputs("flash_fwd_bhld", q, k, v, kv_mask, (B, H, Lk, D), D)
@@ -279,65 +379,112 @@ flash_fwd_bhld.launches = 0
 def _check_grad_inputs(name, q, named):
     """Raise on anything a backward kernel does not take, beyond what
     `_check_inputs` checks: `named` maps each extra operand's name to
-    (tensor, shape)."""
-    for n, (t, shape) in named.items():
-        if (t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous()
+    (tensor, shape) or (tensor, shape, dtype); the dtype defaults to f32."""
+    for n, (t, shape, *dtype) in named.items():
+        dtype = dtype[0] if dtype else torch.float32
+        if (t.device != q.device or t.dtype != dtype or not t.is_contiguous()
                 or t.data_ptr() % 16 or tuple(t.shape) != tuple(shape)):
             raise ValueError(f"{name}: {n} must be a contiguous, 16-byte aligned "
-                             f"float32 {tuple(shape)} tensor on {q.device}; got "
+                             f"{dtype} {tuple(shape)} tensor on {q.device}; got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _refuse_mxu(name, mxu_bf16: bool) -> None:
+    if mxu_bf16:
+        raise NotImplementedError(f"{name}: mxu_bf16 is not ported for this kernel "
+                                  f"(ROADMAP K1); only flash_fwd_ble / flash_bwd_ble "
+                                  f"have bf16 modes")
+
+
 def _launch_bwd(name, q, k, v, kv_mask, o, do, lse, delta, dq, dk, dv,
-                B, Lq, Lk, H, D):
+                B, Lq, Lk, H, D, *extra):
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     build.launch(name, *(ptr(t) for t in (q, k, v, kv_mask, o, do, lse, delta,
                                           dq, dk, dv)),
-                 B, Lq, Lk, H, D, torch.cuda.current_stream(q.device).cuda_stream)
+                 B, Lq, Lk, H, D, torch.cuda.current_stream(q.device).cuda_stream, *extra)
+
+
+def _launch_bwd_ble(name, q, k, v, kv_mask, o, lse, do, num_heads, dtypes, *extra):
+    """Check, allocate and launch C entry point `name` of the ble backward
+    (with `extra` int arguments after the stream)."""
+    B, Lq, E = q.shape
+    Lk = k.shape[1]
+    D = E // num_heads
+    _check_inputs(name, q, k, v, kv_mask, (B, Lk, E), D, dtypes)
+    _check_grad_inputs(name, q, {
+        "o": (o, q.shape, q.dtype), "do": (do, q.shape, q.dtype),
+        "lse": (lse, (B, num_heads, Lq), torch.float32)})
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd(name, q, k, v, kv_mask, o, do, lse, None, dq, dk, dv,
+                B, Lq, Lk, num_heads, D, *extra)
+    return dq, dk, dv
 
 
 def flash_bwd_ble(q, k, v, kv_mask, o, lse, do, num_heads: int):
-    """Kernel `flash_bwd_ble`: the forward's inputs (q pre-scaled), its
+    """Kernel `flash_bwd_ble`: the forward's f32 inputs (q pre-scaled), its
     outputs o [B, Lq, E] and lse [B, H, Lq], and dO [B, Lq, E] -> (dq, dk,
     dv) in the [B, L, E] layout."""
     if q.device.type == "cpu":
         return flash_bwd_ble_plain(q, k, v, kv_mask, o, lse, do, num_heads)
-    B, Lq, E = q.shape
-    Lk = k.shape[1]
-    D = E // num_heads
-    _check_inputs("flash_bwd_ble", q, k, v, kv_mask, (B, Lk, E), D)
-    _check_grad_inputs("flash_bwd_ble", q, {
-        "o": (o, q.shape), "do": (do, q.shape), "lse": (lse, (B, num_heads, Lq))})
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_bwd_ble", q, k, v, kv_mask, o, do, lse, None, dq, dk, dv,
-                B, Lq, Lk, num_heads, D)
+    out = _launch_bwd_ble("flash_bwd_ble", q, k, v, kv_mask, o, lse, do, num_heads, _F32)
     flash_bwd_ble.launches += 1
-    return dq, dk, dv
+    return out
 
 
 flash_bwd_ble.launches = 0
 
 
-def _bhld_bwd_checks(name, q, k, v, kv_mask, do, lse, delta):
+def flash_bwd_ble_bf16(q, k, v, kv_mask, o, lse, do, num_heads: int):
+    """Kernel `flash_bwd_ble_bf16`: `flash_bwd_ble` on bf16 q, k, v, o, dO
+    with f32-exact products -> bf16 (dq, dk, dv)."""
+    if q.device.type == "cpu":
+        return flash_bwd_ble_plain(q, k, v, kv_mask, o, lse, do, num_heads)
+    out = _launch_bwd_ble("flash_bwd_ble_bf16", q, k, v, kv_mask, o, lse, do, num_heads,
+                          _BF16)
+    flash_bwd_ble_bf16.launches += 1
+    return out
+
+
+flash_bwd_ble_bf16.launches = 0
+
+
+def flash_bwd_ble_mxu(q, k, v, kv_mask, o, lse, do, num_heads: int):
+    """Kernel `flash_bwd_ble_mxu`: `flash_bwd_ble` with every product's
+    operands (P and dS too) rounded to bf16; q, k, v, o, dO f32 or bf16,
+    dq, dk, dv in their dtype."""
+    if q.device.type == "cpu":
+        return flash_bwd_ble_mxu_plain(q, k, v, kv_mask, o, lse, do, num_heads)
+    out = _launch_bwd_ble("flash_bwd_ble_mxu", q, k, v, kv_mask, o, lse, do, num_heads,
+                          _F32_OR_BF16, int(q.dtype == torch.bfloat16))
+    flash_bwd_ble_mxu.launches += 1
+    return out
+
+
+flash_bwd_ble_mxu.launches = 0
+
+
+def _bhld_bwd_checks(name, q, k, v, kv_mask, do, lse, delta, mxu_bf16):
+    _refuse_mxu(name, mxu_bf16)
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     _check_inputs(name, q, k, v, kv_mask, (B, H, Lk, D), D)
     _check_grad_inputs(name, q, {
-        "do": (do, q.shape), "lse": (lse, (B, H, Lq)), "delta": (delta, (B, H, Lq))})
+        "do": (do, q.shape, torch.float32), "lse": (lse, (B, H, Lq), torch.float32),
+        "delta": (delta, (B, H, Lq), torch.float32)})
     return B, H, Lq, Lk, D
 
 
-def flash_bwd_bhld_fused(q, k, v, kv_mask, do, lse, delta):
+def flash_bwd_bhld_fused(q, k, v, kv_mask, do, lse, delta, mxu_bf16: bool = False):
     """Kernel `flash_bwd_bhld_fused`: q/do [B, H, Lq, D], k/v [B, H, Lk, D],
     lse and delta = rowsum(dO * O) [B, H, Lq] -> (dq, dk, dv), one launch.
     Meant for single-block shapes (`single_block`), as on the TPU; right
-    for any shape."""
+    for any shape. f32 only on the card (as the other bhld kernels)."""
     if q.device.type == "cpu":
-        return flash_bwd_bhld_fused_plain(q, k, v, kv_mask, do, lse, delta)
+        return flash_bwd_bhld_fused_plain(q, k, v, kv_mask, do, lse, delta, mxu_bf16)
     B, H, Lq, Lk, D = _bhld_bwd_checks("flash_bwd_bhld_fused", q, k, v, kv_mask,
-                                       do, lse, delta)
+                                       do, lse, delta, mxu_bf16)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _launch_bwd("flash_bwd_bhld_fused", q, k, v, kv_mask, None, do, lse, delta,
                 dq, dk, dv, B, Lq, Lk, H, D)
@@ -348,11 +495,12 @@ def flash_bwd_bhld_fused(q, k, v, kv_mask, do, lse, delta):
 flash_bwd_bhld_fused.launches = 0
 
 
-def flash_bwd_dq(q, k, v, kv_mask, do, lse, delta):
+def flash_bwd_dq(q, k, v, kv_mask, do, lse, delta, mxu_bf16: bool = False):
     """Kernel `flash_bwd_dq`: inputs as `flash_bwd_bhld_fused` -> dq."""
     if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, kv_mask, do, lse, delta)
-    B, H, Lq, Lk, D = _bhld_bwd_checks("flash_bwd_dq", q, k, v, kv_mask, do, lse, delta)
+        return flash_bwd_dq_plain(q, k, v, kv_mask, do, lse, delta, mxu_bf16)
+    B, H, Lq, Lk, D = _bhld_bwd_checks("flash_bwd_dq", q, k, v, kv_mask, do, lse,
+                                       delta, mxu_bf16)
     dq = torch.empty_like(q)
     _launch_bwd("flash_bwd_dq", q, k, v, kv_mask, None, do, lse, delta,
                 dq, None, None, B, Lq, Lk, H, D)
@@ -363,11 +511,12 @@ def flash_bwd_dq(q, k, v, kv_mask, do, lse, delta):
 flash_bwd_dq.launches = 0
 
 
-def flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta):
+def flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, mxu_bf16: bool = False):
     """Kernel `flash_bwd_dkv`: inputs as `flash_bwd_bhld_fused` -> (dk, dv)."""
     if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, kv_mask, do, lse, delta)
-    B, H, Lq, Lk, D = _bhld_bwd_checks("flash_bwd_dkv", q, k, v, kv_mask, do, lse, delta)
+        return flash_bwd_dkv_plain(q, k, v, kv_mask, do, lse, delta, mxu_bf16)
+    B, H, Lq, Lk, D = _bhld_bwd_checks("flash_bwd_dkv", q, k, v, kv_mask, do, lse,
+                                       delta, mxu_bf16)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd("flash_bwd_dkv", q, k, v, kv_mask, None, do, lse, delta,
                 None, dk, dv, B, Lq, Lk, H, D)
@@ -378,7 +527,8 @@ def flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta):
 flash_bwd_dkv.launches = 0
 
 KERNELS = (flash_fwd_ble, flash_fwd_bhld, flash_bwd_ble, flash_bwd_bhld_fused,
-           flash_bwd_dq, flash_bwd_dkv)
+           flash_bwd_dq, flash_bwd_dkv, flash_fwd_ble_bf16, flash_fwd_ble_mxu,
+           flash_bwd_ble_bf16, flash_bwd_ble_mxu)
 
 
 def reset_launch_counts() -> None:
@@ -425,35 +575,49 @@ def single_block(Lq: int, Lk: int) -> bool:
     return -(-Lq // 8) * 8 <= SINGLE_BLOCK_Q and -(-Lk // 128) * 128 <= SINGLE_BLOCK_K
 
 
+def _ble_kernels(dtype, mxu_bf16: bool):
+    """The (forward, backward) wrappers of the ble pair for the operands'
+    dtype and the product mode, looked up when called."""
+    if mxu_bf16:
+        return flash_fwd_ble_mxu, flash_bwd_ble_mxu
+    if dtype == torch.bfloat16:
+        return flash_fwd_ble_bf16, flash_bwd_ble_bf16
+    return flash_fwd_ble, flash_bwd_ble
+
+
 class FlashAttentionBLE(torch.autograd.Function):
-    """o = flash_fwd_ble(q, k, v) with `flash_bwd_ble` as its backward."""
+    """o = flash_fwd_ble(q, k, v) with `flash_bwd_ble` as its backward, or
+    the bf16 / `mxu_bf16` pair of the same two kernels (`_ble_kernels`);
+    the gradients come in the operands' dtype."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, num_heads):
-        o, lse = flash_fwd_ble(q, k, v, kv_mask, num_heads)
+    def forward(ctx, q, k, v, kv_mask, num_heads, mxu_bf16=False):
+        fwd, _ = _ble_kernels(q.dtype, mxu_bf16)
+        o, lse = fwd(q, k, v, kv_mask, num_heads)
         ctx.save_for_backward(q, k, v, kv_mask, o, lse)
-        ctx.num_heads = num_heads
+        ctx.num_heads, ctx.mxu_bf16 = num_heads, mxu_bf16
         return o
 
     @staticmethod
     @once_differentiable
     def backward(ctx, do):
         q, k, v, kv_mask, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd_ble(q, k, v, kv_mask, o, lse, do.contiguous(),
-                                   ctx.num_heads)
-        return dq, dk, dv, None, None
+        _, bwd = _ble_kernels(q.dtype, ctx.mxu_bf16)
+        dq, dk, dv = bwd(q, k, v, kv_mask, o, lse, do.contiguous(), ctx.num_heads)
+        return dq, dk, dv, None, None, None
 
 
 class FlashAttentionBHLD(torch.autograd.Function):
     """o = flash_fwd_bhld(q, k, v) with the JAX package's backward dispatch:
     `flash_bwd_bhld_fused` for single-block shapes, else `flash_bwd_dq` and
-    `flash_bwd_dkv`. delta = rowsum(dO * O) is a plain tensor op here, as
-    on the TPU."""
+    `flash_bwd_dkv`. delta = rowsum(dO * O) in f32 is a plain tensor op
+    here, as on the TPU."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask):
-        o, lse = flash_fwd_bhld(q, k, v, kv_mask)
+    def forward(ctx, q, k, v, kv_mask, mxu_bf16=False):
+        o, lse = flash_fwd_bhld(q, k, v, kv_mask, mxu_bf16)
         ctx.save_for_backward(q, k, v, kv_mask, o, lse)
+        ctx.mxu_bf16 = mxu_bf16
         return o
 
     @staticmethod
@@ -461,14 +625,14 @@ class FlashAttentionBHLD(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, kv_mask, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        delta = (do * o).sum(-1)
-        args = (q, k, v, kv_mask, do, lse, delta)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, kv_mask, do, lse, delta, ctx.mxu_bf16)
         if single_block(q.shape[2], k.shape[2]):
             dq, dk, dv = flash_bwd_bhld_fused(*args)
         else:
             dq = flash_bwd_dq(*args)
             dk, dv = flash_bwd_dkv(*args)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def _full_mask(kv_mask, B, Lk, device):
@@ -477,7 +641,15 @@ def _full_mask(kv_mask, B, Lk, device):
     return kv_mask.contiguous()
 
 
-def flash_mha_ble(q, k, v, kv_mask=None, scale=None, num_heads: int = 4):
+def _scale_q(q, scale: float):
+    """q * scale with the scale rounded to q's dtype first, as the JAX
+    package folds it (`q * jnp.asarray(scale, q.dtype)`); a host float, so
+    a CUDA graph can capture the multiply."""
+    return q * float(torch.tensor(scale, dtype=q.dtype))
+
+
+def flash_mha_ble(q, k, v, kv_mask=None, scale=None, num_heads: int = 4,
+                  mxu_bf16: bool = False):
     """E-layout flash attention: q [B, Lq, E], k/v [B, Lk, E] -> [B, Lq, E].
     The softmax scale is folded into q before the kernel; differentiable
     through `FlashAttentionBLE`."""
@@ -487,23 +659,25 @@ def flash_mha_ble(q, k, v, kv_mask=None, scale=None, num_heads: int = 4):
     if scale is None:
         scale = (E // num_heads) ** -0.5
     mask = _full_mask(kv_mask, q.shape[0], k.shape[1], q.device)
-    return FlashAttentionBLE.apply(q * scale, k, v, mask, num_heads)
+    return FlashAttentionBLE.apply(_scale_q(q, scale), k, v, mask, num_heads,
+                                   bool(mxu_bf16))
 
 
-def flash_mha(q, k, v, kv_mask=None, scale=None):
+def flash_mha(q, k, v, kv_mask=None, scale=None, mxu_bf16: bool = False):
     """Classic-layout flash attention: q [B, H, Lq, D], k/v [B, H, Lk, D] ->
     [B, H, Lq, D]. The softmax scale is folded into q before the kernel;
     differentiable through `FlashAttentionBHLD`."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     mask = _full_mask(kv_mask, q.shape[0], k.shape[2], q.device)
-    return FlashAttentionBHLD.apply(q * scale, k, v, mask)
+    return FlashAttentionBHLD.apply(_scale_q(q, scale), k, v, mask, bool(mxu_bf16))
 
 
 def masked_mha(q, k, v, kv_mask=None, scale=None, use_pallas: bool = True,
-               layout: str = "bhld", num_heads: int = None):
+               layout: str = "bhld", num_heads: int = None, mxu_bf16: bool = False):
     """Dispatch, as the JAX package's `masked_mha`: the kernels for
-    non-tiny query lengths when `use_pallas`, else the plain references.
+    non-tiny query lengths when `use_pallas`, else the plain references
+    (which, as the JAX ones, ignore `mxu_bf16`).
 
     `layout="ble"` (requires `num_heads`): q/k/v and the output are
     [B, L, E]. Single-block shapes (MIN_PALLAS_LQ <= Lq, both L <=
@@ -512,25 +686,19 @@ def masked_mha(q, k, v, kv_mask=None, scale=None, use_pallas: bool = True,
     if layout == "ble":
         if num_heads is None:
             raise ValueError("layout='ble' requires num_heads")
-        B, Lq, E = q.shape
-        Lk = k.shape[1]
+        Lq, Lk = q.shape[1], k.shape[1]
         if (use_pallas and MIN_PALLAS_LQ <= Lq <= BLE_MAX_L
                 and Lk <= BLE_MAX_L):
             return flash_mha_ble(q, k, v, kv_mask, scale=scale,
-                                 num_heads=num_heads)
-        D = E // num_heads
-
-        def split(x):
-            return x.reshape(B, x.shape[1], num_heads, D).transpose(1, 2)
-
-        out = masked_mha(split(q), split(k), split(v), kv_mask, scale=scale,
-                         use_pallas=use_pallas)
-        return out.transpose(1, 2).reshape(B, Lq, E)
+                                 num_heads=num_heads, mxu_bf16=mxu_bf16)
+        out = masked_mha(*(_split_heads(x, num_heads) for x in (q, k, v)), kv_mask,
+                         scale=scale, use_pallas=use_pallas, mxu_bf16=mxu_bf16)
+        return _merge_heads(out)
     if layout != "bhld":
         raise ValueError(f"unknown layout {layout!r}")
     if use_pallas and q.shape[2] >= MIN_PALLAS_LQ:
         return flash_mha(q.contiguous(), k.contiguous(), v.contiguous(),
-                         kv_mask, scale=scale)
+                         kv_mask, scale=scale, mxu_bf16=mxu_bf16)
     if q.shape[2] >= BLOCKED_REF_MIN_LK or k.shape[2] >= BLOCKED_REF_MIN_LK:
         return mha_reference_blocked(q, k, v, kv_mask, scale=scale)
     return mha_reference(q, k, v, kv_mask, scale=scale)

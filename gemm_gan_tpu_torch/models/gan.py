@@ -12,9 +12,12 @@ lecun-normal kernels (truncated normal, std sqrt(1/fan_in) corrected for
 the truncation at two standard deviations), zero biases, unit LayerNorm
 scales, and a truncated-normal(0.02) CLS token.
 
-The port runs f32 only: `compute_dtype` other than "float32",
-`fusion.flash_mxu_bf16=True`, `fusion.sequence_parallel=True` and fusion
-kinds other than `film_xattn` / `none` raise `NotImplementedError`.
+Params stay f32. `compute_dtype="bfloat16"` runs the fusion and the
+trunks' hidden Linears in bf16 (the trunks' heads, LayerNorms and the
+condition vector `embed_cond` returns stay f32), as the JAX modules with
+`dtype=jnp.bfloat16`; `fusion.flash_mxu_bf16` rounds the flash kernels'
+product operands to bf16. `fusion.sequence_parallel=True` and fusion kinds
+other than `film_xattn` / `none` raise `NotImplementedError`.
 Modules are built in train mode (dropout active), as `nn.Module`s are;
 `GeneratorServer` switches its generator to eval mode.
 """
@@ -28,6 +31,7 @@ from torch import nn
 
 from gemm_gan_tpu_torch.config import ModelConfig
 from gemm_gan_tpu_torch.fusion.modules import build_fusion, cond_dim_of
+from gemm_gan_tpu_torch.ops.linear import DTYPES
 from gemm_gan_tpu_torch.ops.mlp import MLPTrunk
 from gemm_gan_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -36,12 +40,9 @@ _TRUNCATED_STD = 0.87962566103423978
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` for settings this slice does not serve."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port serves float32 only")
-    if cfg.fusion.flash_mxu_bf16:
-        raise NotImplementedError("fusion.flash_mxu_bf16=True is not ported")
+    """Raise `NotImplementedError` for settings the port does not serve."""
+    if cfg.compute_dtype not in DTYPES:
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r} not in {sorted(DTYPES)}")
     if cfg.fusion.sequence_parallel:
         raise NotImplementedError("fusion.sequence_parallel=True is not ported")
 
@@ -76,10 +77,11 @@ class _Conditioned(nn.Module):
         check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
-        self.fusion = build_fusion(cfg.fusion)
+        dtype = DTYPES[cfg.compute_dtype]
+        self.fusion = build_fusion(cfg.fusion, dtype)
         self.trunk = MLPTrunk(in_features + cond_dim_of(cfg.fusion), hidden_dims,
                               out_dim, negative_slope=cfg.negative_slope,
-                              use_batchnorm=cfg.use_batchnorm)
+                              use_batchnorm=cfg.use_batchnorm, dtype=dtype)
         init_flax_like_(self, generator)
         self.to(dev)
 
@@ -91,7 +93,7 @@ class _Conditioned(nn.Module):
             raise ValueError(
                 f"fusion kind {self.cfg.fusion.kind!r} requires conditioning inputs "
                 f"(batch keys like 'tokens'/'patches'), got none")
-        return self.fusion(cond)
+        return self.fusion(cond).float()
 
     def score(self, x: torch.Tensor, cvec: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Trunk half: [B, in_features] (+ fixed cond vector) -> [B, out_dim]."""

@@ -6,6 +6,11 @@ ReLU feed-forward. LayerNorm eps is 1e-6, Flax's value (torch's default is
 `kernels.flash_attention.masked_mha`, which takes the CUDA kernels on the
 card when `use_pallas` (the JAX config's name, kept so run dirs load).
 
+Under a bf16 compute dtype the q, k, v and out projections and the FFN
+Linears compute in bf16 (`ops.linear.Linear`), attention takes bf16
+operands (`mxu_bf16` passed through), and both LayerNorms run in f32 on
+the residual sums, as JAX's `nn.LayerNorm(dtype=jnp.float32)`.
+
 Dropout sits where the JAX modules put it (the attention output, after the
 FFN ReLU and after the FFN output) and is active in `train()` mode, as the
 JAX modules' `deterministic=False`; the serving path runs in `eval()` mode.
@@ -22,6 +27,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from gemm_gan_tpu_torch.kernels.flash_attention import masked_mha
+from gemm_gan_tpu_torch.ops.linear import Linear
 
 LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
 
@@ -32,7 +38,8 @@ class MaskedMultiHeadAttention(nn.Module):
     Call: (q_in [B, Lq, E], kv_in [B, Lk, E], kv_mask [B, Lk] or None)."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
-                 use_pallas: bool = True, flash_layout: str = "ble"):
+                 use_pallas: bool = True, flash_layout: str = "ble",
+                 mxu_bf16: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("num_heads must divide embed_dim")
@@ -41,10 +48,11 @@ class MaskedMultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.use_pallas = use_pallas
         self.flash_layout = flash_layout
-        self.q_proj = nn.Linear(embed_dim, embed_dim)
-        self.k_proj = nn.Linear(embed_dim, embed_dim)
-        self.v_proj = nn.Linear(embed_dim, embed_dim)
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.mxu_bf16 = mxu_bf16
+        self.q_proj = Linear(embed_dim, embed_dim, dtype)
+        self.k_proj = Linear(embed_dim, embed_dim, dtype)
+        self.v_proj = Linear(embed_dim, embed_dim, dtype)
+        self.out_proj = Linear(embed_dim, embed_dim, dtype)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
@@ -53,7 +61,7 @@ class MaskedMultiHeadAttention(nn.Module):
         H = self.num_heads
         if self.flash_layout == "ble":
             out = masked_mha(q, k, v, kv_mask, use_pallas=self.use_pallas,
-                             layout="ble", num_heads=H)
+                             layout="ble", num_heads=H, mxu_bf16=self.mxu_bf16)
         else:
             B, Lq, E = q.shape
 
@@ -61,7 +69,7 @@ class MaskedMultiHeadAttention(nn.Module):
                 return x.reshape(B, x.shape[1], H, E // H).transpose(1, 2)
 
             out = masked_mha(split(q), split(k), split(v), kv_mask,
-                             use_pallas=self.use_pallas)
+                             use_pallas=self.use_pallas, mxu_bf16=self.mxu_bf16)
             out = out.transpose(1, 2).reshape(B, Lq, E)
         return self.dropout(self.out_proj(out))
 
@@ -69,23 +77,24 @@ class MaskedMultiHeadAttention(nn.Module):
 class TransformerEncoderLayer(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, ff_dim: int,
                  dropout: float = 0.1, use_pallas: bool = True,
-                 flash_layout: str = "ble"):
+                 flash_layout: str = "ble", mxu_bf16: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.self_attn = MaskedMultiHeadAttention(
             embed_dim, num_heads, dropout=dropout, use_pallas=use_pallas,
-            flash_layout=flash_layout)
+            flash_layout=flash_layout, mxu_bf16=mxu_bf16, dtype=dtype)
         self.norm1 = nn.LayerNorm(embed_dim, eps=LAYER_NORM_EPS)
-        self.linear1 = nn.Linear(embed_dim, ff_dim)
-        self.linear2 = nn.Linear(ff_dim, embed_dim)
+        self.linear1 = Linear(embed_dim, ff_dim, dtype)
+        self.linear2 = Linear(ff_dim, embed_dim, dtype)
         self.norm2 = nn.LayerNorm(embed_dim, eps=LAYER_NORM_EPS)
         self.dropout1 = nn.Dropout(dropout)
         self.dropout2 = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x, x, mask))
+        x = self.norm1((x + self.self_attn(x, x, mask)).float())
         h = self.dropout1(F.relu(self.linear1(x)))
         h = self.dropout2(self.linear2(h))
-        return self.norm2(x + h)
+        return self.norm2((x + h).float())
 
 
 class TransformerEncoder(nn.Module):
@@ -98,14 +107,16 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int,
                  ff_dim: int, dropout: float = 0.1, use_pallas: bool = True,
-                 flash_layout: str = "ble", remat: bool = False):
+                 flash_layout: str = "ble", remat: bool = False,
+                 mxu_bf16: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.remat = remat
         self.dropout = dropout
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(embed_dim, num_heads, ff_dim, dropout,
                                     use_pallas=use_pallas,
-                                    flash_layout=flash_layout)
+                                    flash_layout=flash_layout,
+                                    mxu_bf16=mxu_bf16, dtype=dtype)
             for _ in range(num_layers))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:

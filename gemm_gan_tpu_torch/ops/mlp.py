@@ -1,9 +1,10 @@
 """MLP building blocks for the generator trunk.
 
-Counterpart of `gemm_gan_tpu/ops/mlp.py`: Linear -> LeakyReLU blocks and a
-final un-activated Linear head, all f32 (the slice serves
-`compute_dtype="float32"` only). BatchNorm blocks are not ported yet:
-`use_batchnorm=True` raises.
+Counterpart of `gemm_gan_tpu/ops/mlp.py`: Linear -> LeakyReLU blocks in the
+compute dtype (`ops.linear.Linear`: bf16 under `compute_dtype="bfloat16"`,
+the LeakyReLU on the bf16 values) and a final un-activated Linear head in
+f32, as in JAX (`ops/mlp.py:57-59`), so samples and critic scores leave in
+f32. BatchNorm blocks are not ported yet: `use_batchnorm=True` raises.
 """
 
 from __future__ import annotations
@@ -14,29 +15,35 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from gemm_gan_tpu_torch.ops.linear import Linear
+
 
 class LinearBlock(nn.Module):
-    def __init__(self, in_features: int, features: int, negative_slope: float = 0.0):
+    def __init__(self, in_features: int, features: int, negative_slope: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.negative_slope = negative_slope
-        self.linear = nn.Linear(in_features, features)
+        # the slope in the compute dtype, as JAX's weakly typed scalar is
+        # taken (0.2 is 0.2001953125 in bf16)
+        self.negative_slope = float(torch.tensor(negative_slope, dtype=dtype))
+        self.linear = Linear(in_features, features, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.leaky_relu(self.linear(x), self.negative_slope)
 
 
 class MLPTrunk(nn.Module):
-    """Hidden LeakyReLU blocks followed by a linear output head."""
+    """Hidden LeakyReLU blocks in `dtype` followed by an f32 linear head."""
 
     def __init__(self, in_features: int, hidden_dims: Sequence[int], out_dim: int,
-                 negative_slope: float = 0.0, use_batchnorm: bool = False):
+                 negative_slope: float = 0.0, use_batchnorm: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if use_batchnorm:
             raise NotImplementedError("MLPTrunk: use_batchnorm=True is not ported")
         dims = [in_features, *hidden_dims]
         self.blocks = nn.ModuleList(
-            LinearBlock(i, o, negative_slope) for i, o in zip(dims[:-1], dims[1:]))
-        self.head = nn.Linear(dims[-1], out_dim)
+            LinearBlock(i, o, negative_slope, dtype) for i, o in zip(dims[:-1], dims[1:]))
+        self.head = Linear(dims[-1], out_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.blocks:

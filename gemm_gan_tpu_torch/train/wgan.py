@@ -49,10 +49,18 @@ device; seed it with `torch.manual_seed` for a repeatable run. Both are
 registered with a captured graph, so a replayed step draws what the same
 step run eagerly would.
 
+The bench configuration, `compute_dtype="bfloat16"` (and
+`fusion.flash_mxu_bf16`), runs the same step: the nets compute in bf16
+(`ops/linear.py`) around the bf16 modes of the ble kernels, while params,
+optimizer state, z, alpha, the interpolates, the noise and the penalty's
+norm stay f32 (the penalty's gradient reaches the interpolates in f32
+through the trunk's casts), as in the JAX engine.
+
 Not ported (raise `NotImplementedError`): `grad_accum > 1`,
 `hoist_fakes=True` on the per_update batched path, and what
-`models.gan.check_supported` refuses (bf16, other fusions). `critic_scan`
-changes nothing here: the critic updates are a Python loop either way.
+`models.gan.check_supported` refuses (sequence parallelism, other
+fusions). `critic_scan` changes nothing here: the critic updates are a
+Python loop either way.
 """
 
 from __future__ import annotations

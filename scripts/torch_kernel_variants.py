@@ -84,19 +84,19 @@ VARIANTS = {
     "fwd": ("new", "flash_fwd.cu", "flash_fwd_bhld", {}),
     "fwd_direct_acc": ("new", "flash_fwd.cu", "flash_fwd_bhld", {"tf32x3.cuh": DIRECT}),
     "fwd_bk64": ("new", "flash_fwd.cu", "flash_fwd_bhld",
-                 {"flash_fwd.cu": [("int BK = 32;", "int BK = 64;")]}),
+                 {"flash_fwd.cuh": [("int BK = 32;", "int BK = 64;")]}),
     "fwd_3_blocks": ("new", "flash_fwd.cu", "flash_fwd_bhld",
-                     {"flash_fwd.cu": [(FWD_LB, "__launch_bounds__(kThreads, 3)")]}),
+                     {"flash_fwd.cuh": [(FWD_LB, "__launch_bounds__(kThreads, 3)")]}),
     "fwd_q_raw": ("new", "flash_fwd.cu", "flash_fwd_bhld",
-                  {"flash_fwd.cu": [("kQSplit = D <= 64;", "kQSplit = false;")]}),
-    "fwd_fast_exp": ("new", "flash_fwd.cu", "flash_fwd_bhld", {"flash_fwd.cu": FAST_EXP}),
+                  {"flash_ops.cuh": [("kQSplit = D <= 64;", "kQSplit = false;")]}),
+    "fwd_fast_exp": ("new", "flash_fwd.cu", "flash_fwd_bhld", {"flash_fwd.cuh": FAST_EXP}),
     "fwd_cvt_rna": ("new", "flash_fwd.cu", "flash_fwd_bhld", {"tf32x3.cuh": CVT_RNA}),
     # flash_fwd_ble (Q1), canonical: blocks of 16 to 80 query rows
-    **{f"ble_{16 * w}rows": ("new", "flash_fwd.cu", "flash_fwd_ble", {"flash_fwd.cu": [warps(w)]})
+    **{f"ble_{16 * w}rows": ("new", "flash_fwd.cu", "flash_fwd_ble", {"flash_fwd.cuh": [warps(w)]})
        for w in (1, 2, 3, 4, 5)},
     "ble_bk64": ("new", "flash_fwd.cu", "flash_fwd_ble",
-                 {"flash_fwd.cu": [("int BK = 32;", "int BK = 64;")]}),
-    "ble_fast_exp": ("new", "flash_fwd.cu", "flash_fwd_ble", {"flash_fwd.cu": FAST_EXP}),
+                 {"flash_fwd.cuh": [("int BK = 32;", "int BK = 64;")]}),
+    "ble_fast_exp": ("new", "flash_fwd.cu", "flash_fwd_ble", {"flash_fwd.cuh": FAST_EXP}),
     "ble_cvt_rna": ("new", "flash_fwd.cu", "flash_fwd_ble", {"tf32x3.cuh": CVT_RNA}),
     "ble_lo_raw": ("new", "flash_fwd.cu", "flash_fwd_ble", {"tf32x3.cuh": LO_RAW}),
     # flash_bwd_dq (Q4), whole-slide: Q (1, shipped), Q and dO (2) or
@@ -133,17 +133,17 @@ VARIANTS = {
     "ble_bwd_parent": ("parent", "flash_bwd.cu", "flash_bwd_ble", {}),
     "ble_bwd": ("new", "flash_bwd_fused.cu", "flash_bwd_ble", {}),
     "ble_bwd_bq64": ("new", "flash_bwd_fused.cu", "flash_bwd_ble",
-                     {"flash_bwd_fused.cu": [(FUSED_BQ, "kQueries = D <= 64 ? 64 : 32;")]}),
+                     {"flash_bwd_fused.cuh": [(FUSED_BQ, "kQueries = D <= 64 ? 64 : 32;")]}),
     "ble_bwd_32rows": ("new", "flash_bwd_fused.cu", "flash_bwd_ble",
-                       {"flash_bwd_fused.cu": [FUSED_2_WARPS]}),
+                       {"flash_bwd_fused.cuh": [FUSED_2_WARPS]}),
     # flash_bwd_bhld_fused (Q6), canonical: 64-row tiles (4 warps, dk/dv
     # tiles of 64 or 32 queries), 32-row tiles (2 warps, 32 queries)
     "fused_parent": ("parent", "flash_bwd_fused.cu", "flash_bwd_bhld_fused", {}),
     "fused": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused", {}),
     "fused_bq32": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
-                   {"flash_bwd_fused.cu": [FUSED_BQ32]}),
+                   {"flash_bwd_fused.cuh": [FUSED_BQ32]}),
     "fused_32rows": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
-                     {"flash_bwd_fused.cu": [FUSED_2_WARPS, FUSED_BQ32]}),
+                     {"flash_bwd_fused.cuh": [FUSED_2_WARPS, FUSED_BQ32]}),
     "fused_fast_exp": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
                        {"flash_bwd_tc.cuh": FAST_EXP}),
     "fused_cvt_rna": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused", {"tf32x3.cuh": CVT_RNA}),
@@ -153,11 +153,11 @@ VARIANTS = {
     # timing split only: one kind of tile launched, the other's outputs
     # left unwritten (NaN)
     "fused_dkv_only": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
-                       {"flash_bwd_fused.cu": [("const int n_dq = (a.lq", "const int n_dq = 0 * (a.lq")]}),
+                       {"flash_bwd_fused.cuh": [("const int n_dq = (a.lq", "const int n_dq = 0 * (a.lq")]}),
     "fused_dq_only": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
-                      {"flash_bwd_fused.cu": [("const int n_dkv = (a.lk", "const int n_dkv = 0 * (a.lk")]}),
+                      {"flash_bwd_fused.cuh": [("const int n_dkv = (a.lk", "const int n_dkv = 0 * (a.lk")]}),
     "fused_dq_bk64": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
-                      {"flash_bwd_fused.cu": [("constexpr int kKeys = 32;",
+                      {"flash_bwd_fused.cuh": [("constexpr int kKeys = 32;",
                                                "constexpr int kKeys = 64;")]}),
 }
 _FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]

@@ -2,9 +2,9 @@
 
 `chip_smoke.py` names every kernel template instantiation in nvcc's ptxas
 report by its entry point (both layouts of the forward template and of the
-fused backward template, which holds flash_bwd_ble (Q2), and the dq kernel
-(Q4) among them), and must fail on one it does not know rather than leave
-it out; `scripts/torch_kernel_variants.py` builds its variants by text
+fused backward template, which holds flash_bwd_ble (Q2), the dq kernel
+(Q4), and the bf16 product modes of Q1 and Q2 among them), and must fail on
+one it does not know rather than leave it out; `scripts/torch_kernel_variants.py` builds its variants by text
 substitution of the sources under `csrc/`, so every substitution must
 still find its target there (Q2's and Q4's variants included).
 """
@@ -42,6 +42,21 @@ MANGLED = {
         ("flash_bwd_dkv", 64),
     "_ZN12_GLOBAL__N_122flash_bwd_fused_kernelILi16ELb0EEEvN12flash_bwd_tc4ArgsEi":
         ("flash_bwd_bhld_fused", 16),
+    # the templates with their product mode (csrc/flash_ops.cuh): f32 is mode 0
+    "_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELb1ELi0EEEvNS_4ArgsIfEE": ("flash_fwd_ble", 64),
+    "_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELb1ELi1EEEvNS_4ArgsI13__nv_bfloat16EE":
+        ("flash_fwd_ble_bf16", 64),
+    "_ZN12_GLOBAL__N_116flash_fwd_kernelILi8ELb1ELi2EEEvNS_4ArgsIfEE": ("flash_fwd_ble_mxu", 8),
+    "_ZN12_GLOBAL__N_116flash_fwd_kernelILi128ELb1ELi3EEEvNS_4ArgsI13__nv_bfloat16EE":
+        ("flash_fwd_ble_mxu", 128),
+    "_ZN12_GLOBAL__N_122flash_bwd_fused_kernelILi64ELb1ELi1EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EEi":
+        ("flash_bwd_ble_bf16", 64),
+    "_ZN12_GLOBAL__N_122flash_bwd_fused_kernelILi32ELb1ELi2EEEvN12flash_bwd_tc4ArgsIfEEi":
+        ("flash_bwd_ble_mxu", 32),
+    "_ZN12_GLOBAL__N_122flash_bwd_fused_kernelILi64ELb1ELi3EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EEi":
+        ("flash_bwd_ble_mxu", 64),
+    "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64EEEvN12flash_bwd_tc4ArgsIfEE":
+        ("flash_bwd_dq", 64),
 }
 
 
@@ -59,6 +74,8 @@ def test_every_kernel_has_a_ptxas_name():
     # the CUDA-core backward template of earlier sources (flash_bwd.cu), gone
     "_ZN12_GLOBAL__N_116flash_bwd_kernelILi64ELb1ELb1ELb1EEEvNS_4ArgsEi",
     "_ZN12_GLOBAL__N_121flash_fwd_bhld_kernelILi64EEEvNS_4ArgsE",
+    # no bf16 mode of the classic layout is built (ROADMAP K1)
+    "_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELb0ELi1EEEvNS_4ArgsI13__nv_bfloat16EE",
     "_Z6helperv",
 ])
 def test_unknown_ptxas_names_raise(mangled):

@@ -225,12 +225,21 @@ def test_init_follows_flax_distributions():
 
 
 def test_unsupported_settings_raise():
+    """What the port still does not serve raises; bf16 compute and
+    `flash_mxu_bf16` are served (tests/test_torch_bf16.py)."""
     m = _port_cfg(_jax_cfg()).model
-    for bad in (dataclasses.replace(m, compute_dtype="bfloat16"),
-                dataclasses.replace(m, fusion=dataclasses.replace(m.fusion, flash_mxu_bf16=True)),
-                dataclasses.replace(m, fusion=dataclasses.replace(m.fusion, kind="film"))):
+    for bad in (dataclasses.replace(m, fusion=dataclasses.replace(m.fusion,
+                                                                  sequence_parallel=True)),
+                *(dataclasses.replace(m, fusion=dataclasses.replace(m.fusion, kind=kind))
+                  for kind in ("film", "concat", "xattn"))):
         with pytest.raises(NotImplementedError):
             Generator(bad, device="cpu")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        Generator(dataclasses.replace(m, compute_dtype="float16"), device="cpu")
+    for served in (dataclasses.replace(m, compute_dtype="bfloat16"),
+                   dataclasses.replace(m, fusion=dataclasses.replace(m.fusion,
+                                                                     flash_mxu_bf16=True))):
+        Generator(served, device="cpu")
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, jax_params):
