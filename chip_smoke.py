@@ -9,9 +9,9 @@ imports nothing of JAX or of the JAX package. Phases:
    per source, in parallel, into the ignored build dir) and print the build
    time, nvcc's register/spill/shared-memory report for every kernel and
    head dim and product mode (a kernel template it cannot name raises),
-   every kernel's dynamic shared memory and blocks per SM (all ten (kernel,
-   mode) entry points run on the tensor cores), and the card's name and
-   power limit.
+   every kernel's dynamic shared memory and blocks per SM (all eighteen
+   (kernel, mode) entry points run on the tensor cores), and the card's
+   name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it plus ragged and
    fully-masked cases and D 8 / 128, and time kernel, plain version and the
@@ -19,11 +19,13 @@ imports nothing of JAX or of the JAX package. Phases:
    through `torch.autograd.grad`; a yardstick only: the port never calls
    it) by CUDA events, kernel and library also by their device time
    (torch.profiler), with the names of the CUDA kernels the library ran.
-   The bf16 modes of Q1 and Q2 (`flash_fwd_ble_bf16`, `flash_fwd_ble_mxu`,
-   `flash_bwd_ble_bf16`, `flash_bwd_ble_mxu`; mxu_bf16 on bf16 and on f32
-   inputs) are held to their plain versions within BF16_ULPS bf16 ulp of
-   each row's largest entry (each side rounds once from f32), lse within
-   LSE_ATOL, and timed on bf16 inputs against the library's bf16 SDPA.
+   The bf16 modes of every kernel (`<kernel>_bf16` and `<kernel>_mxu`;
+   mxu_bf16 on bf16 and on f32 inputs; Q3-Q5 at the whole-slide shape, Q1,
+   Q2, Q6 at L 257, and ragged, fully-masked, D 8 / 128 and, for the
+   classic forward, Lk 600 cases: BF16_SHAPES) are held to their plain
+   versions within BF16_ULPS bf16 ulp of each row's largest entry (each
+   side rounds once from f32), lse within LSE_ATOL, and timed on bf16
+   inputs against the library's bf16 SDPA.
 3. Serving, the main path: `GeneratorServer.sample_all` with the flagship
    `film_cross_attention` generator at canonical widths (random weights from
    a seeded numpy tree in Flax layout, carried over by `convert.py`),
@@ -85,8 +87,22 @@ imports nothing of JAX or of the JAX package. Phases:
    epoch of phase 8's bank: steps/s and the replays' busy share, device
    events and top kernels beside phase 8's f32 figures, launches 16 Q1 and
    12 Q2 per step in the bf16 mode and no other kernel. (d) (a) and (b)
-   with `fusion.flash_mxu_bf16=True`. (e) A bf16 `flash_layout="bhld"`
-   model raises `NotImplementedError` on the card (ROADMAP K1).
+   with `fusion.flash_mxu_bf16=True`. (e) A canonical bf16
+   `flash_layout="bhld"` step: 16 Q3 and 12 Q6 launches in the bf16 mode
+   and no other, one dropout-free step against `use_pallas=False` on the
+   card (`relative_step_gate` in bf16: params as phase 7, each metric
+   within PLAIN_LOOSE_FACTOR times the plain versions' distance or
+   BF16_STEP_RTOL of its value). (f) Whole-slide bf16 serving (Q3's bf16
+   mode), one batch against `use_pallas=False` on the card within
+   BF16_E2E_TOL. (g) Whole-slide bf16 training: 16 / 12 / 12 launches of
+   Q3 / Q4 / Q5 in the bf16 mode per step, steps/s beside phase 6's f32,
+   one dropout-free step against `use_pallas=False` as (e). (h) (f), (g)
+   and (e) with `flash_mxu_bf16=True` (the `_mxu` kernels). (i)
+   `train.grad_accum=2`: a whole-slide bf16 step at batch 16 (finite,
+   params moved, launches by `step_launches`, peak memory beside (g)'s
+   batch of 8); one dropout-free canonical f32 step against
+   `grad_accum=1` under phase 5's gate; a 4-step epoch of phase 8's small
+   cache graphed against eager steps under `step_diff`.
 10. Prints one `{"kernels": [...]}` JSON line, the card's line, then the
    contract line `{"ok": true, "device": {...}}` last.
 
@@ -123,21 +139,38 @@ KERNELS = {
     "flash_fwd_ble_mxu": (CSRC + "flash_fwd_bf16.cu", f"{TPU_KERNELS}:290"),
     "flash_bwd_ble_bf16": (CSRC + "flash_bwd_bf16.cu", f"{TPU_KERNELS}:317"),
     "flash_bwd_ble_mxu": (CSRC + "flash_bwd_mxu.cu", f"{TPU_KERNELS}:317"),
+    "flash_fwd_bhld_bf16": (CSRC + "flash_fwd_bhld_bf16.cu", f"{TPU_KERNELS}:84"),
+    "flash_fwd_bhld_mxu": (CSRC + "flash_fwd_bhld_bf16.cu", f"{TPU_KERNELS}:84"),
+    "flash_bwd_bhld_fused_bf16": (CSRC + "flash_bwd_bhld_bf16.cu", f"{TPU_KERNELS}:179"),
+    "flash_bwd_bhld_fused_mxu": (CSRC + "flash_bwd_bhld_mxu.cu", f"{TPU_KERNELS}:179"),
+    "flash_bwd_dq_bf16": (CSRC + "flash_bwd_dq_bf16.cu", f"{TPU_KERNELS}:142"),
+    "flash_bwd_dq_mxu": (CSRC + "flash_bwd_dq_bf16.cu", f"{TPU_KERNELS}:142"),
+    "flash_bwd_dkv_bf16": (CSRC + "flash_bwd_dkv_bf16.cu", f"{TPU_KERNELS}:220"),
+    "flash_bwd_dkv_mxu": (CSRC + "flash_bwd_dkv_bf16.cu", f"{TPU_KERNELS}:220"),
 }
+# the bf16 modes: Q1, Q2 (ble) and Q3, Q6, Q4, Q5 (the classic layout)
 BF16_KERNELS = ("flash_fwd_ble_bf16", "flash_fwd_ble_mxu", "flash_bwd_ble_bf16",
-                "flash_bwd_ble_mxu")
+                "flash_bwd_ble_mxu", "flash_fwd_bhld_bf16", "flash_fwd_bhld_mxu",
+                "flash_bwd_bhld_fused_bf16", "flash_bwd_bhld_fused_mxu", "flash_bwd_dq_bf16",
+                "flash_bwd_dq_mxu", "flash_bwd_dkv_bf16", "flash_bwd_dkv_mxu")
 # FLOP per (query, valid key, head-dim element) of each backward kernel:
 # s = q.k, dp = dO.v, then dv, dq, dk, 2 FLOP per multiply-add each
 BWD_FLOP = {"flash_bwd_ble": 10, "flash_bwd_bhld_fused": 10,
-            "flash_bwd_dq": 6, "flash_bwd_dkv": 8,
-            "flash_bwd_ble_bf16": 10, "flash_bwd_ble_mxu": 10}
+            "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+BWD_FLOP.update({f"{name}_{mode}": n for name, n in BWD_FLOP.items() for mode in ("bf16", "mxu")})
 # bf16 tensor-core passes per product of the bf16 modes (csrc/flash_ops.cuh):
 # the bf16 mode takes P and dS in 3 bf16 terms and the bf16 operands in one
-# (forward S 1 + P.V 3; backward S 1, dP 1, dV 3, dK 3, dQ 3 over the 5
-# products), mxu_bf16 one each, its forward S twice (a first pass for the
-# row max)
+# (forward S 1 + P.V 3; backward S 1, dP 1, then dV 3, dK 3, dQ 3 over the
+# products each kernel computes), mxu_bf16 one each, its forward S twice (a
+# first pass for the row max of each key block)
 BF16_PASSES = {"flash_fwd_ble_bf16": 4 / 2, "flash_fwd_ble_mxu": 3 / 2,
-               "flash_bwd_ble_bf16": 11 / 5, "flash_bwd_ble_mxu": 5 / 5}
+               "flash_bwd_ble_bf16": 11 / 5, "flash_bwd_ble_mxu": 5 / 5,
+               "flash_fwd_bhld_bf16": 4 / 2, "flash_fwd_bhld_mxu": 3 / 2,
+               "flash_bwd_bhld_fused_bf16": 11 / 5, "flash_bwd_bhld_fused_mxu": 5 / 5,
+               "flash_bwd_dq_bf16": 5 / 3, "flash_bwd_dq_mxu": 3 / 3,
+               "flash_bwd_dkv_bf16": 8 / 4, "flash_bwd_dkv_mxu": 4 / 4}
+# which of (dq, dk, dv) a backward kernel writes
+BWD_OUTPUTS = {"dq": ("dq",), "dkv": ("dk", "dv")}
 PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet)
 # a bf16 mode's output vs its plain version: each rounds once from f32
 # sums taken in another order, so within one bf16 ulp of the row's largest
@@ -217,7 +250,19 @@ PTXAS_ENTRIES = {("flash_fwd_kernel", (1,)): "flash_fwd_ble",
                  ("flash_fwd_kernel", (1,), 3): "flash_fwd_ble_mxu",
                  ("flash_bwd_fused_kernel", (1,), 1): "flash_bwd_ble_bf16",
                  ("flash_bwd_fused_kernel", (1,), 2): "flash_bwd_ble_mxu",
-                 ("flash_bwd_fused_kernel", (1,), 3): "flash_bwd_ble_mxu"}
+                 ("flash_bwd_fused_kernel", (1,), 3): "flash_bwd_ble_mxu",
+                 ("flash_fwd_kernel", (0,), 1): "flash_fwd_bhld_bf16",
+                 ("flash_fwd_kernel", (0,), 2): "flash_fwd_bhld_mxu",
+                 ("flash_fwd_kernel", (0,), 3): "flash_fwd_bhld_mxu",
+                 ("flash_bwd_fused_kernel", (0,), 1): "flash_bwd_bhld_fused_bf16",
+                 ("flash_bwd_fused_kernel", (0,), 2): "flash_bwd_bhld_fused_mxu",
+                 ("flash_bwd_fused_kernel", (0,), 3): "flash_bwd_bhld_fused_mxu",
+                 ("flash_bwd_dq_kernel", (), 1): "flash_bwd_dq_bf16",
+                 ("flash_bwd_dq_kernel", (), 2): "flash_bwd_dq_mxu",
+                 ("flash_bwd_dq_kernel", (), 3): "flash_bwd_dq_mxu",
+                 ("flash_bwd_dkv_kernel", (), 1): "flash_bwd_dkv_bf16",
+                 ("flash_bwd_dkv_kernel", (), 2): "flash_bwd_dkv_mxu",
+                 ("flash_bwd_dkv_kernel", (), 3): "flash_bwd_dkv_mxu"}
 MODE_REFS = {2: " (f32 refs)", 3: " (bf16 refs)"}
 
 
@@ -507,51 +552,71 @@ def assert_rows_within_ulps(got, want, num_heads, what):
     assert excess <= 0, (what, excess)
 
 
+def kernel_layout(name: str) -> str:
+    """"ble" for Q1 and Q2's entries, "bhld" for the classic layout's."""
+    return "ble" if "_ble" in name else "bhld"
+
+
 def bf16_args(fa, name, B, H, Lq, Lk, D, ragged, seed, dtype):
-    """The positional args of a bf16 mode `name` of Q1 or Q2 (and of its
-    plain version) on the card in `dtype`: q (pre-scaled), k, v, mask, and
-    for the backward the plain forward's o and lse of the same mode and a
-    random dO."""
+    """The positional args of bf16 mode `name` (and of its plain version)
+    on the card in `dtype`: q (pre-scaled), k, v, mask (and H for the ble
+    layout); for a backward, a random dO and the plain forward's o and lse
+    of the same mode (ble: o, lse, dO, H; bhld: dO, lse and delta =
+    rowsum(dO * o) from their f32 upcast)."""
     import torch
 
+    layout = kernel_layout(name)
+    heads = (H,) if layout == "ble" else ()
     q, k, v, mask = (x.to(dtype) if x.is_floating_point() else x
-                     for x in attention_inputs("ble", B, H, Lq, Lk, D, ragged, seed))
+                     for x in attention_inputs(layout, B, H, Lq, Lk, D, ragged, seed))
     if name.startswith("flash_fwd"):
-        return (q, k, v, mask, H)
+        return (q, k, v, mask, *heads)
     g = torch.Generator(device="cuda").manual_seed(seed + 1000)
     do = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
-    o, lse = getattr(fa, name.replace("bwd", "fwd") + "_plain")(q, k, v, mask, H)
-    return (q, k, v, mask, o, lse, do, H)
+    mode = name.rsplit("_", 1)[1]
+    o, lse = getattr(fa, f"flash_fwd_{layout}_{mode}_plain")(q, k, v, mask, *heads)
+    if layout == "ble":
+        return (q, k, v, mask, o, lse, do, H)
+    return (q, k, v, mask, do, lse, (do.float() * o.float()).sum(-1))
+
+
+def output_labels(name: str) -> tuple:
+    if name.startswith("flash_fwd"):
+        return ("o", "lse")
+    return BWD_OUTPUTS.get(name.split("_")[2], ("dq", "dk", "dv"))
 
 
 def check_bf16_kernel(fa, name, B, H, Lq, Lk, D, ragged, seed, dtype):
-    """A bf16 mode of Q1 or Q2 against its plain version on one input,
-    within BF16_ULPS of each row's largest entry (lse within LSE_ATOL);
-    returns (max |err| over its outputs, args)."""
+    """A bf16 mode against its plain version on one input, within
+    BF16_ULPS of each row's largest entry (lse within LSE_ATOL); returns
+    (max |err| over its outputs, args)."""
     import torch
 
+    layout = kernel_layout(name)
     args = bf16_args(fa, name, B, H, Lq, Lk, D, ragged, seed, dtype)
     got, want = getattr(fa, name)(*args), getattr(fa, name + "_plain")(*args)
+    got, want = ((x,) if isinstance(x, torch.Tensor) else x for x in (got, want))
     torch.cuda.synchronize()
-    labels = ("o", "lse") if name.startswith("flash_fwd") else ("dq", "dk", "dv")
+    labels = output_labels(name)
     err = 0.0
-    for label, a, b in zip(labels, got, want):
+    for label, a, b in zip(labels, got, want, strict=True):
         assert a.dtype == b.dtype, (name, label, a.dtype, b.dtype)
         if label == "lse":
             torch.testing.assert_close(a, b, rtol=0, atol=LSE_ATOL)
         else:
             assert a.dtype == dtype, (name, label, a.dtype)
-            assert_rows_within_ulps(a, b, H, f"{name} {label}")
+            assert_rows_within_ulps(a, b, H if layout == "ble" else 1, f"{name} {label}")
             err = max(err, float((a.float() - b.float()).abs().max()))
     if ragged:  # sample 0 has no valid key; dk = dv = 0 at masked keys
-        outs = got[:1] if name.startswith("flash_fwd") else got
-        for a in outs:
-            assert float(a[0].abs().max()) == 0.0, f"{name}: sample 0 not 0"
-        if not name.startswith("flash_fwd"):
-            mask = args[3]
-            for a in got[1:]:
-                assert float(a[~mask].abs().max()) == 0.0, f"{name}: masked keys not 0"
-    print(f"  {name:20s} {str(dtype).split('.')[-1]:8s} B={B} H={H} Lq={Lq} Lk={Lk} D={D} "
+        mask = args[3]
+        for label, a in zip(labels, got):
+            if label == "lse":
+                continue
+            assert float(a[0].abs().max()) == 0.0, f"{name} {label}: sample 0 not 0"
+            if label in ("dk", "dv"):
+                x = a if layout == "ble" else a.transpose(1, 2)
+                assert float(x[~mask].abs().max()) == 0.0, f"{name} {label}: masked keys not 0"
+    print(f"  {name:26s} {str(dtype).split('.')[-1]:8s} B={B} H={H} Lq={Lq} Lk={Lk} D={D} "
           f"{'ragged' if ragged else 'full  '} max|err|={err:.3e} (within {BF16_ULPS} bf16 ulp "
           f"of each row's largest entry)", flush=True)
     return err, args
@@ -561,19 +626,28 @@ def time_bf16_kernel(fa, name, args) -> dict:
     """CUDA-event and device times of bf16 mode `name` on `args`, of its
     plain version, and of `scaled_dot_product_attention` on the same inputs
     in their dtype with the same boolean mask (forward, or its backward by
-    `torch.autograd.grad` w.r.t. q, k and v); `bound_ms` the larger of
-    the mode's bf16 passes over the FLOPs at PEAK_BF16_FLOPS and the bytes
-    (each input read and each output written once) at PEAK_BYTES_PER_S."""
+    `torch.autograd.grad` w.r.t. what the kernel writes: q for dq, k and v
+    for dk/dv, all three otherwise); `bound_ms` the larger of the mode's
+    bf16 passes over the FLOPs at PEAK_BF16_FLOPS and the bytes (each input
+    read and each output written once) at PEAK_BYTES_PER_S."""
     import torch
     from torch.nn import functional as F
 
     q, k, v, mask = args[:4]
-    H = args[-1]
-    B, Lq, E = q.shape
-    D = E // H
+    if kernel_layout(name) == "ble":
+        H = args[-1]
+        B, Lq, E = q.shape
+        D = E // H
 
-    def heads(x):
-        return x.view(B, x.shape[1], H, D).transpose(1, 2)
+        def heads(x):
+            return x.view(B, x.shape[1], H, D).transpose(1, 2)
+        do = None if name.startswith("flash_fwd") else args[6]
+    else:
+        B, H, Lq, D = q.shape
+
+        def heads(x):
+            return x
+        do = None if name.startswith("flash_fwd") else args[4]
 
     kernel, plain = getattr(fa, name), getattr(fa, name + "_plain")
     attn_mask = mask[:, None, None, :]
@@ -585,10 +659,12 @@ def time_bf16_kernel(fa, name, args) -> dict:
     else:
         qs, ks, vs = (heads(x).detach().clone().requires_grad_(True) for x in (q, k, v))
         out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn_mask, scale=1.0)
-        dout = heads(args[6])
-        library = lambda: torch.autograd.grad(out, (qs, ks, vs), dout,  # noqa: E731
+        labels = output_labels(name)
+        wrt = tuple(x for label, x in zip(("dq", "dk", "dv"), (qs, ks, vs)) if label in labels)
+        library = lambda: torch.autograd.grad(out, wrt, heads(do),  # noqa: E731
                                               retain_graph=True)
-        flops, writes = BWD_FLOP[name] * H * Lq * D * int(mask.sum()), (q, k, v)
+        flops = BWD_FLOP[name] * H * Lq * D * int(mask.sum())
+        writes = tuple(x for label, x in zip(("dq", "dk", "dv"), (q, k, v)) if label in labels)
     with torch.inference_mode(name.startswith("flash_fwd")):
         ms = cuda_ms(lambda: kernel(*args))
         plain_ms = cuda_ms(lambda: plain(*args), iters=5)
@@ -597,7 +673,7 @@ def time_bf16_kernel(fa, name, args) -> dict:
               flush=True)
         device = {"device_ms": device_ms(lambda: kernel(*args)),
                   "library_device_ms": device_ms(library)}
-    nbytes = sum(x.numel() * x.element_size() for x in (*args[:-1], *writes)
+    nbytes = sum(x.numel() * x.element_size() for x in (*args, *writes)
                  if isinstance(x, torch.Tensor))
     t_ops = BF16_PASSES[name] * flops / PEAK_BF16_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
@@ -606,17 +682,31 @@ def time_bf16_kernel(fa, name, args) -> dict:
             "library_ms": library_ms, **device}
 
 
+# phase 2's shapes of the bf16 modes (B, H, Lq, Lk, D): each kernel's main
+# path shape first (checked ragged, then timed all-valid), then ragged ones
+# at D 8 / 64 / 128; the classic forward's Lk 600 is three key blocks of
+# 256, the last one short
+BF16_SHAPES = {
+    "ble": ((8, 4, 257, 257, 64), (2, 2, 136, 260, 8), (2, 2, 136, 260, 128)),
+    "bhld_fused": ((8, 4, 257, 257, 64), (2, 2, 130, 260, 64), (2, 2, 136, 260, 8),
+                   (2, 2, 136, 260, 128)),
+    "bhld": ((8, 4, WHOLE_SLIDE_PATCHES + 1, WHOLE_SLIDE_PATCHES + 1, 64),
+             (2, 2, 136, 600, 8), (2, 2, 136, 600, 64), (2, 2, 136, 600, 128)),
+}
+
+
 def check_bf16_modes(fa, errs: dict, timed: dict) -> None:
-    """Phase 2 for the bf16 modes of Q1 and Q2: each against its plain
-    version (bf16 inputs; mxu_bf16 also on f32 ones) at the canonical shape
-    and at D 8 / 128, ragged with a fully-masked sample; then timed at the
-    canonical shape on all-valid bf16 inputs. Fills errs and timed."""
+    """Phase 2 for the bf16 modes: each against its plain version (bf16
+    inputs; mxu_bf16 also on f32 ones) at its main path's shape and at D 8
+    / 128 (BF16_SHAPES), ragged with a fully-masked sample; then timed at
+    the main path's shape on all-valid bf16 inputs. Fills errs and timed."""
     import torch
 
     print(f"[2] bf16 modes vs plain (within {BF16_ULPS} bf16 ulp of each row's largest "
           f"entry, lse within {LSE_ATOL})", flush=True)
-    shapes = ((8, 4, 257, 257, 64), (2, 2, 136, 260, 8), (2, 2, 136, 260, 128))
     for i, name in enumerate(BF16_KERNELS):
+        layout = kernel_layout(name)
+        shapes = BF16_SHAPES["bhld_fused" if "bhld_fused" in name else layout]
         for dtype in ((torch.bfloat16, torch.float32) if "mxu" in name else (torch.bfloat16,)):
             for j, shape in enumerate(shapes):
                 err, _ = check_bf16_kernel(fa, name, *shape, True, 300 + 10 * i + j, dtype)
@@ -626,6 +716,7 @@ def check_bf16_modes(fa, errs: dict, timed: dict) -> None:
         timed[name] = time_bf16_kernel(fa, name, args)
         print(f"  {name}: {json.dumps(timed[name])}", flush=True)
         del args
+        torch.cuda.empty_cache()
 
 
 def bf16_serving(fa, cfg16, params, batches, label, kernel) -> dict:
@@ -710,6 +801,140 @@ def bf16_step(fa, exp16, params, d_params, batch, label) -> dict:
     return launches
 
 
+def with_train(cfg, **train):
+    """`cfg` with the given train fields."""
+    return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **train))
+
+
+def bhld_bf16_step(fa, exp16, params, d_params, batch, label) -> dict:
+    """Phase 9 (e) / (h): one canonical step of the bf16 model with
+    `flash_layout="bhld"` (its launches: the classic forward and the fused
+    backward in the model's mode, no other kernel), then one dropout-free
+    step against `use_pallas=False` on the card (`relative_step_gate`, as
+    phase 7, in bf16). Returns the launches."""
+    import torch
+
+    from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
+
+    cfg_ = train_cfg(exp16, flash_layout="bhld")
+    mode = "mxu" if exp16.model.fusion.flash_mxu_bf16 else "bf16"
+    engine = WGANGPEngine(cfg_, steps_per_epoch=1)
+    state = engine.state_from_flax(params, d_params)
+    fa.reset_launch_counts()
+    state, metrics = engine.step(state, batch)
+    torch.cuda.synchronize()
+    launches = fa.launch_counts()
+    metrics = floats(metrics)
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    n_fwd, n_bwd = step_launches(cfg_)
+    assert launches == {**dict.fromkeys(KERNELS, 0), f"flash_fwd_bhld_{mode}": n_fwd,
+                        f"flash_bwd_bhld_fused_{mode}": n_bwd}, launches
+    del engine, state
+    cmp, plain, limits = relative_step_gate(
+        fa, lambda **kw: train_cfg(exp16, dropout=0.0, flash_layout="bhld", **kw),
+        ("cuda", params, d_params, batch, random_draws(cfg_, seed=11)), bf16=True)
+    print(f"    ({label}) {mode} flash_layout='bhld' step: launches {launches}; metrics "
+          f"{json.dumps(metrics)}; kernels vs use_pallas=False, both on the card, one step at "
+          f"dropout 0: {json.dumps(cmp)}; the plain versions on the card vs the same: "
+          f"{json.dumps(plain)} (limits {json.dumps(limits)}: metrics by bf16_metric_tol, "
+          f"params beyond atol {PARAM_ATOL} per net)", flush=True)
+    return launches
+
+
+def whole_slide_bf16_serving(fa, cfg16, params, ws_batch, label) -> dict:
+    """Phase 9 (f) / (h): `sample_all` of one whole-slide batch with the
+    bf16 model (its launches: the classic forward in the model's mode once
+    per layer, no other kernel), then one batch against `use_pallas=False`
+    (the blocked reference), both on the card, within BF16_E2E_TOL of the
+    output's largest entry. Returns the launches."""
+    import torch
+
+    from gemm_gan_tpu_torch.serving import GeneratorServer
+
+    mode = "mxu" if cfg16.fusion.flash_mxu_bf16 else "bf16"
+    server = GeneratorServer.from_flax(cfg16, params)
+    server.sample_all([ws_batch], 1, torch.Generator().manual_seed(1))  # warm-up
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = server.sample_all([ws_batch], 1, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fa.launch_counts()
+    assert out["fake"].shape == (BATCH, cfg16.n_genes) and np.isfinite(out["fake"]).all()
+    assert launches == {**dict.fromkeys(KERNELS, 0),
+                        f"flash_fwd_bhld_{mode}": cfg16.fusion.num_layers}, launches
+    ref = dataclasses.replace(cfg16, fusion=dataclasses.replace(cfg16.fusion, use_pallas=False))
+    z = torch.randn(BATCH, cfg16.latent_dim, generator=torch.Generator().manual_seed(4))
+    with_kernels = server(z, ws_batch).cpu()
+    with_reference = GeneratorServer.from_flax(ref, params)(z, ws_batch).cpu()
+    scale = float(with_reference.abs().max())
+    err = float((with_kernels - with_reference).abs().max())
+    print(f"    ({label}) whole-slide {mode} serving, {WHOLE_SLIDE_PATCHES} patches x batch "
+          f"{BATCH}: {BATCH / seconds:.1f} profiles/s ({seconds * 1e3:.1f} ms) on {card_line()}; "
+          f"launches {launches}; kernels vs use_pallas=False (blocked reference), both on the "
+          f"card: max|err|={err:.3e} (max|out|={scale:.3f}; within {BF16_E2E_TOL} x max|out|)",
+          flush=True)
+    assert err <= BF16_E2E_TOL * scale, (err, scale)
+    return launches
+
+
+def whole_slide_bf16_training(fa, exp16, params, d_params, ws_batch, label, f32_sps):
+    """Phase 9 (g) / (h): WS_TRAIN_STEPS whole-slide steps of the bf16 model
+    after a warm-up one (their launches: Q3, Q4, Q5 in the model's mode,
+    16 / 12 / 12 per step, no other kernel), steps/s beside phase 6's f32
+    `f32_sps`; then one dropout-free step against `use_pallas=False`, both
+    on the card (`relative_step_gate`, as phase 6, in bf16). Returns (the
+    launches, the peak memory of the timed steps in bytes)."""
+    import torch
+
+    from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
+
+    cfg_ = train_cfg(exp16)
+    mode = "mxu" if exp16.model.fusion.flash_mxu_bf16 else "bf16"
+    engine = WGANGPEngine(cfg_, steps_per_epoch=1)
+    state = engine.state_from_flax(params, d_params)
+    torch.cuda.reset_peak_memory_stats()
+    state, seconds, launches, metrics = run_steps(engine, state, [ws_batch], WS_TRAIN_STEPS, fa)
+    peak = torch.cuda.max_memory_allocated()
+    n_fwd, n_bwd = step_launches(cfg_)
+    assert launches == {**dict.fromkeys(KERNELS, 0),
+                        f"flash_fwd_bhld_{mode}": n_fwd * WS_TRAIN_STEPS,
+                        f"flash_bwd_dq_{mode}": n_bwd * WS_TRAIN_STEPS,
+                        f"flash_bwd_dkv_{mode}": n_bwd * WS_TRAIN_STEPS}, launches
+    sps = WS_TRAIN_STEPS / seconds
+    print(f"    ({label}) whole-slide {mode} training: {WS_TRAIN_STEPS} steps of batch {BATCH} x "
+          f"{WHOLE_SLIDE_PATCHES} patches: {sps:.3f} steps/s ({seconds * 1e3 / WS_TRAIN_STEPS:.1f} "
+          f"ms per step) against phase 6's f32 {f32_sps:.3f} steps/s ({sps / f32_sps:.3f}x) on "
+          f"{card_line()}; peak memory {peak / 1e9:.3f} GB; launches {launches}; last metrics "
+          f"{json.dumps(metrics)}", flush=True)
+    print_device_busy(f"({label}) whole-slide {mode} step", engine, state, ws_batch, seconds
+                      / WS_TRAIN_STEPS)
+    del engine, state
+    cmp, plain, limits = relative_step_gate(
+        fa, lambda **kw: train_cfg(exp16, dropout=0.0, **kw),
+        ("cuda", params, d_params, ws_batch, random_draws(cfg_, seed=12)), bf16=True)
+    print(f"    ({label}) kernels vs use_pallas=False (blocked reference), both on the card, one "
+          f"whole-slide {mode} step at dropout 0: {json.dumps(cmp)}; the plain versions on the "
+          f"card vs the same: {json.dumps(plain)} (limits {json.dumps(limits)}: metrics by "
+          f"bf16_metric_tol, params beyond atol {PARAM_ATOL} per net)", flush=True)
+    return launches, peak
+
+
+def print_device_busy(label, engine, state, batch, step_s) -> None:
+    """One more step under torch.profiler (`device_busy`): its device time
+    against `step_s` seconds per step by the host clock, and its top
+    kernels."""
+    busy = device_busy(engine, state, batch)
+    if busy is None:
+        print(f"    {label}: device time not measured (the profiler saw no device time)",
+              flush=True)
+        return
+    print(f"    {label}: {busy['device_ms']:.1f} ms of device time (torch.profiler) against "
+          f"{step_s * 1e3:.1f} ms per step by the host clock; {busy['aten_ops']} aten ops on "
+          f"the host; top kernels (name, calls, ms): {json.dumps(busy['top'])}", flush=True)
+
+
 def device_breakdown(server, batch) -> dict:
     """CUDA-event times (ms) of the serving path's parts for one batch: the
     conditioning's copy to the card, the condition embedding (fusion stack,
@@ -782,14 +1007,17 @@ def train_cfg(cfg, **fusion):
                                   batched_scores=True))
 
 
-def step_launches(cfg) -> dict:
+def step_launches(cfg) -> tuple:
     """Launches of one fused per_update step, from `train/wgan.py`: the patch
     self-attention runs once per layer in every fusion forward: the
     generator's embedding (1), each critic update's (n_critic, with grad),
     the generator update's critic embedding (1) and generator forward (1,
-    with grad). Returns (forwards, backwards)."""
-    layers, n_critic = cfg.model.fusion.num_layers, cfg.train.n_critic
-    return layers * (n_critic + 3), layers * (n_critic + 1)
+    with grad). With `train.grad_accum` = M the critic updates' embeddings
+    and the generator's forward run once per microbatch (M times), the two
+    embeddings without grad once at full batch. Returns (forwards,
+    backwards)."""
+    layers, n_critic, M = cfg.model.fusion.num_layers, cfg.train.n_critic, cfg.train.grad_accum
+    return layers * (2 + (n_critic + 1) * M), layers * (n_critic + 1) * M
 
 
 def random_draws(cfg, seed):
@@ -872,19 +1100,44 @@ def step_diff(test, ref, max_loose=None, rtol=STEP_RTOL, atol=STEP_ATOL,
     return summary
 
 
-def relative_step_gate(fa, cfg_of, step_args):
+def relative_step_gate(fa, cfg_of, step_args, bf16: bool = False):
     """One step with the kernels against the same step with
     `use_pallas=False`, both on the card (`cfg_of(**fusion)` gives the
     config), gated by how far the kernels' own plain versions land from the
     same reference: per net at most PLAIN_LOOSE_FACTOR times their count of
     entries beyond PARAM_ATOL (or MAX_LOOSE, if more), besides the metrics
-    and bound gates of `step_diff`. Returns (kernels' summary, plain
-    versions' summary, the limits)."""
+    and bound gates of `step_diff`. In bf16 (`bf16`) the plain versions'
+    arithmetic (P and dS f32-exact) is not the reference's (P rounded to
+    bf16 before P.V), and RMSprop carries any difference in rounding to
+    the metrics: the plain versions' metrics are then not gated, and the
+    kernels' are held by `bf16_metric_tol`. Returns (kernels' summary,
+    plain versions' summary, the limits: params per net, and the metrics'
+    in bf16)."""
     ref = run_step(cfg_of(use_pallas=False), *step_args)
     with plain_kernels(fa):
-        plain = step_diff(run_step(cfg_of(), *step_args), ref, max_loose={})
+        plain = step_diff(run_step(cfg_of(), *step_args), ref, max_loose={},
+                          rtol=None if bf16 else STEP_RTOL)
     max_loose = loose_limits(plain)
-    return step_diff(run_step(cfg_of(), *step_args), ref, max_loose), plain, max_loose
+    metric_tol = bf16_metric_tol(ref[1], plain["metrics_test"]) if bf16 else None
+    limits = max_loose if metric_tol is None else {"params": max_loose, "metrics": metric_tol}
+    return (step_diff(run_step(cfg_of(), *step_args), ref, max_loose, metric_tol=metric_tol),
+            plain, limits)
+
+
+def bf16_metric_tol(ref: dict, yardstick: dict) -> dict:
+    """How far each metric of a bf16 step may land from the reference
+    step's `ref`: PLAIN_LOOSE_FACTOR times the yardstick step's distance,
+    or BF16_STEP_RTOL of the metric's scale if more. bf16 rounding reaches
+    the sign of most gradients, and RMSprop turns each sign into a +-10 lr
+    move, so after n_critic updates the metrics scatter by a share of the
+    critic's scores: the scale of d_loss, g_loss, d_real and d_fake (all in
+    the critic's units) is the larger of |d_real| and |d_fake|, that of the
+    penalty |gp|. (g_loss, small beside the scores, scattered by 21% of its
+    own value in a whole-slide bf16 step on an NVIDIA H100 80GB HBM3 at
+    700 W; 2% of the scores' scale.)"""
+    scores = max(abs(ref["d_real"]), abs(ref["d_fake"]))
+    return {k: max(BF16_STEP_RTOL * (abs(v) if k == "gp" else scores),
+                   PLAIN_LOOSE_FACTOR * abs(yardstick[k] - v)) for k, v in ref.items()}
 
 
 def loose_limits(yardstick: dict) -> dict:
@@ -1036,9 +1289,16 @@ def step_breakdown(engine, state, batch) -> dict:
                                         iters=5)}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="On-card smoke run of the PyTorch / CUDA port.")
+    ap.add_argument("--through", type=int, default=None, metavar="PHASE",
+                    help="stop after this phase, printing no result (to check the build "
+                         "and the kernels alone: --through 2)")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this run needs the card",
               file=sys.stderr)
@@ -1123,6 +1383,9 @@ def main() -> int:
         del args
     check_bf16_modes(fa, errs, timed)
     torch.cuda.empty_cache()
+    if opts.through == 2:
+        print("stopped after phase 2 (--through 2): no result", flush=True)
+        return 0
 
     # ---- 3. serving, the main path at full width
     exp = variant_config("film_cross_attention")
@@ -1253,6 +1516,8 @@ def main() -> int:
         **dict.fromkeys(KERNELS, 0), "flash_fwd_bhld": n_fwd * WS_TRAIN_STEPS,
         "flash_bwd_dq": n_bwd * WS_TRAIN_STEPS,
         "flash_bwd_dkv": n_bwd * WS_TRAIN_STEPS}, launches
+    print_device_busy("whole-slide f32 step", engine, state, ws_batch,
+                      ws_train_s / WS_TRAIN_STEPS)
     del engine, state
     cmp, plain, max_loose = relative_step_gate(
         fa, lambda **kw: train_cfg(exp, dropout=0.0, **kw),
@@ -1262,7 +1527,6 @@ def main() -> int:
           f"card vs the same: {json.dumps(plain)} (metrics rtol {STEP_RTOL}, atol "
           f"{STEP_ATOL}; params beyond atol {PARAM_ATOL} per net at most {max_loose})",
           flush=True)
-    del ws, ws_batch
     torch.cuda.empty_cache()
 
     # ---- 7. canonical training in the classic layout
@@ -1443,7 +1707,7 @@ def main() -> int:
               f"{busy['device_ms']:.2f} ms, {busy['device_events']:.0f} events, busy "
               f"{busy['device_ms'] / busy['host_ms']:.3f} on {card}; bf16 top kernels per step "
               f"(name, calls, ms): {json.dumps(busy16['top'])}", flush=True)
-    del engine, state, g_engine, g_state, bank, small
+    del engine, state, g_engine, g_state, bank
     torch.cuda.empty_cache()
 
     # (d) mxu_bf16 on the bf16 refs: serving and one step against the CPU
@@ -1453,18 +1717,67 @@ def main() -> int:
                                            "flash_fwd_ble_mxu")
     launches["mxu_training_step"] = bf16_step(fa, exp16m, params, d_params, batches[0], "d")
 
-    # (e) no bf16 mode of the classic layout's kernels is built (ROADMAP K1)
-    bhld16 = dataclasses.replace(cfg16, fusion=dataclasses.replace(cfg16.fusion,
-                                                                   flash_layout="bhld"))
-    z = torch.randn(BATCH, cfg.latent_dim, generator=torch.Generator().manual_seed(10))
-    try:
-        GeneratorServer.from_flax(bhld16, params)(z, batches[0])
-    except NotImplementedError as exc:
-        assert "K1" in str(exc), exc
-        print(f"    (e) bf16 flash_layout='bhld' on the card raises NotImplementedError: {exc}",
-              flush=True)
-    else:
-        raise AssertionError("a bf16 bhld model ran on the card without a bf16 kernel")
+    # (e) the classic layout in bf16: a canonical flash_layout="bhld" step
+    launches["bf16_bhld_training"] = bhld_bf16_step(fa, exp16, params, d_params, batches[0], "e")
+
+    # (f), (g) whole-slide bf16 serving and training
+    ws_sps = WS_TRAIN_STEPS / ws_train_s
+    launches["bf16_whole_slide_serving"] = whole_slide_bf16_serving(fa, cfg16, params, ws_batch,
+                                                                    "f")
+    launches["bf16_whole_slide_training"], ws_peak = whole_slide_bf16_training(
+        fa, exp16, params, d_params, ws_batch, "g", ws_sps)
+    torch.cuda.empty_cache()
+
+    # (h) the same with mxu_bf16, and a bhld mxu step (Q6's mxu mode)
+    launches["mxu_whole_slide_serving"] = whole_slide_bf16_serving(fa, exp16m.model, params,
+                                                                   ws_batch, "h")
+    launches["mxu_whole_slide_training"], _ = whole_slide_bf16_training(
+        fa, exp16m, params, d_params, ws_batch, "h", ws_sps)
+    launches["mxu_bhld_training"] = bhld_bf16_step(fa, exp16m, params, d_params, batches[0], "h")
+    torch.cuda.empty_cache()
+
+    # (i) train.grad_accum: a whole-slide bf16 step at batch 16 in 2 microbatches
+    ws16 = structured_dataset(n=2 * BATCH, n_genes=cfg.n_genes, num_patches=WHOLE_SLIDE_PATCHES)
+    ws16_batch = {k: ws16[k] for k in (*keys, "genes")}
+    acfg16 = with_train(train_cfg(exp16), grad_accum=2)
+    engine = WGANGPEngine(acfg16, steps_per_epoch=1)
+    state = engine.state_from_flax(params, d_params)
+    before = [p.detach().clone() for p in (state.gen.trunk.head.weight,
+                                           state.critic.trunk.head.weight)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = engine.step(state, ws16_batch)
+    torch.cuda.synchronize()
+    accum_s = time.perf_counter() - t0
+    accum_peak = torch.cuda.max_memory_allocated()
+    launches["bf16_whole_slide_accum"] = fa.launch_counts()
+    metrics = floats(metrics)
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    for old, new in zip(before, (state.gen.trunk.head.weight, state.critic.trunk.head.weight)):
+        assert not torch.equal(old, new.detach()), "params did not move"
+    a_fwd, a_bwd = step_launches(acfg16)
+    assert launches["bf16_whole_slide_accum"] == {
+        **dict.fromkeys(KERNELS, 0), "flash_fwd_bhld_bf16": a_fwd, "flash_bwd_dq_bf16": a_bwd,
+        "flash_bwd_dkv_bf16": a_bwd}, launches
+    print(f"    (i) grad_accum=2: one whole-slide bf16 step of batch {2 * BATCH} x "
+          f"{WHOLE_SLIDE_PATCHES} patches in 2 microbatches of {BATCH}: {accum_s * 1e3:.1f} ms "
+          f"(the first of its engine) on {card}; peak memory {accum_peak / 1e9:.3f} GB beside "
+          f"(g)'s batch of {BATCH}: {ws_peak / 1e9:.3f} GB; launches "
+          f"{launches['bf16_whole_slide_accum']} = step_launches {(a_fwd, a_bwd)}; metrics "
+          f"{json.dumps(metrics)}", flush=True)
+    del engine, state, ws16, ws16_batch
+    torch.cuda.empty_cache()
+    step_args = (params, d_params, batches[0], random_draws(tcfg, seed=13))
+    full = run_step(with_train(train_cfg(exp, dropout=0.0), grad_accum=1), "cuda", *step_args)
+    cmp = step_diff(run_step(with_train(train_cfg(exp, dropout=0.0), grad_accum=2), "cuda",
+                             *step_args), full)
+    print(f"    (i) grad_accum=2 vs grad_accum=1, one canonical f32 step at dropout 0 on the card: "
+          f"{json.dumps(cmp)} (metrics rtol {STEP_RTOL}, atol {STEP_ATOL}; at most {MAX_LOOSE} "
+          f"params beyond atol {PARAM_ATOL})", flush=True)
+    epoch_runs(with_train(tcfg, grad_accum=2), "i, grad_accum=2")
+    del small
     torch.cuda.empty_cache()
 
     # ---- 10. report
@@ -1473,7 +1786,15 @@ def main() -> int:
              "flash_bwd_dkv": "whole_slide_training",
              "flash_bwd_bhld_fused": "bhld_training",
              "flash_fwd_ble_bf16": "bf16_epoch_loop_1", "flash_bwd_ble_bf16": "bf16_epoch_loop_1",
-             "flash_fwd_ble_mxu": "mxu_training_step", "flash_bwd_ble_mxu": "mxu_training_step"}
+             "flash_fwd_ble_mxu": "mxu_training_step", "flash_bwd_ble_mxu": "mxu_training_step",
+             "flash_fwd_bhld_bf16": "bf16_whole_slide_training",
+             "flash_bwd_dq_bf16": "bf16_whole_slide_training",
+             "flash_bwd_dkv_bf16": "bf16_whole_slide_training",
+             "flash_bwd_bhld_fused_bf16": "bf16_bhld_training",
+             "flash_fwd_bhld_mxu": "mxu_whole_slide_training",
+             "flash_bwd_dq_mxu": "mxu_whole_slide_training",
+             "flash_bwd_dkv_mxu": "mxu_whole_slide_training",
+             "flash_bwd_bhld_fused_mxu": "mxu_bhld_training"}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -46,13 +46,14 @@ ENTRY_POINTS = {
     "flash_bwd_bhld_fused": _BWD_ARGS,
     "flash_bwd_dq": _BWD_ARGS,
     "flash_bwd_dkv": _BWD_ARGS,
-    # the bf16 modes of flash_fwd_ble and flash_bwd_ble (csrc/flash_ops.cuh):
-    # bf16 refs with f32-exact products; mxu_bf16, whose entry points take
-    # one more int, 1 for bf16 refs and 0 for f32 ones
-    "flash_fwd_ble_bf16": _FWD_ARGS,
-    "flash_fwd_ble_mxu": _FWD_ARGS + [ctypes.c_int],
-    "flash_bwd_ble_bf16": _BWD_ARGS,
-    "flash_bwd_ble_mxu": _BWD_ARGS + [ctypes.c_int],
+    # the bf16 modes of every kernel (csrc/flash_ops.cuh): bf16 refs with
+    # f32-exact products; mxu_bf16, whose entry points take one more int, 1
+    # for bf16 refs and 0 for f32 ones
+    **{f"flash_fwd_{layout}_{mode}": _FWD_ARGS + extra
+       for layout in ("ble", "bhld") for mode, extra in (("bf16", []), ("mxu", [ctypes.c_int]))},
+    **{f"flash_bwd_{kernel}_{mode}": _BWD_ARGS + extra
+       for kernel in ("ble", "bhld_fused", "dq", "dkv")
+       for mode, extra in (("bf16", []), ("mxu", [ctypes.c_int]))},
 }
 # the tensor-core kernels (every entry point above), each with an entry
 # `<name>_occupancy(head_dim, *smem_bytes, *blocks_per_sm)`

@@ -1,97 +1,19 @@
-// Masked flash-attention backward, dq, classic layout, on Hopper's tensor
-// cores (sm_90a), f32-grade through 3xTF32 products.
-//
-// flash_bwd_dq replaces the Pallas TPU kernel `_bwd_dq_kernel`
-// (gemm_gan_tpu/kernels/flash_attention.py:142): q, dO [B*H, Lq, D], k, v
-// [B*H, Lk, D], q already scaled, mask [B, Lk] (nonzero = valid), the
-// forward's lse and delta = rowsum(dO * O), both [B, H, Lq]. Per (batch,
-// head), with p_ij = exp(q_i . k_j - lse_i) for valid keys j (0 for masked
-// keys), dp_ij = dO_i . v_j and ds_ij = p_ij (dp_ij - delta_i):
-//   dq_i = sum_j ds_ij k_j.
-// A sample with no valid key gets dq = 0. dk and dv are flash_bwd_dkv's job
-// (flash_bwd_dkv.cu).
-//
-// What bounds it on an H100: at the whole-slide shape (B 8, H 4, L 4,097,
-// D 64) it is 206 GFLOP (s, dp, dq: 6 per query, key and head-dim element)
-// over ~170 MB, so operations bound it: 3.1 ms on the CUDA cores
-// (67 TFLOP/s f32), 1.25 ms in 3xTF32 on the tensor cores (495 TFLOP/s
-// dense TF32, three products per f32 product).
-//
-// Design: the dq tile of flash_bwd_tc.cuh (which the fused single-block
-// backward, flash_bwd_fused.cuh, shares; here in its classic-layout
-// instantiation, delta given): a block of 4 warps owns 64 query rows of one
-// (batch, head), grid (ceil(Lq / 64), H, B); Q and dO are staged once into
-// shared memory, K and V stream in 64-key tiles through a double-buffered
-// cp.async ring (96 KB per block at D = 64), dQ stays in registers; no
-// atomics. Unlike inside the fused kernel, the tile is not held to the
-// dk/dv tile's registers, so at D <= 64 Q's rows are split once into hi/lo
-// A fragments kept in registers (kHeld 1) instead of at each of the 65 key
-// tiles of L 4,097: 252 registers, no spill, two blocks per SM. At D = 128
-// the fragments would take 128 registers, and 32-key tiles keep the shared
-// memory at 128 KB. At the whole-slide shape this ran 3% faster than 32-key
-// tiles or than Q split at each use (4.41 against 4.55 and 4.56 ms device,
-// means of three, on an NVIDIA H100 80GB HBM3 at a 700 W limit; variants
-// dq, dq_bk32, dq_held0_bk32 of scripts/torch_kernel_variants.py, PERF.md).
+// Entry points of the masked flash-attention backward's dq kernel in f32
+// (3xTF32 on the tensor cores): flash_bwd_dq (Q4). The kernel template, its
+// design and what bounds it are in flash_bwd_dq.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_bwd_tc.cuh"
-
-namespace {
-
-using Args = flash_bwd_tc::Args<float>;
-
-constexpr int kWarps = 4;  // 64 query rows per block
-template <int D>
-constexpr int kKeys = D <= 64 ? 64 : 32;  // keys per streamed tile
-// Q's rows (1), or Q's and dO's (2), held in registers as split fragments
-template <int D>
-constexpr int kHeld = D <= 64 ? 1 : 0;
-
-template <int D>
-using Cfg = flash_bwd_tc::DqCfg<D, kWarps, kKeys<D>>;
-
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::kThreads) flash_bwd_dq_kernel(const Args a) {
-  extern __shared__ __align__(16) float smem[];
-  flash_bwd_tc::dq_tile<D, kWarps, kKeys<D>, false, kHeld<D>>(a, blockIdx.x, blockIdx.y,
-                                                               blockIdx.z, smem);
-}
-
-template <int D>
-cudaError_t prepare() {
-  return cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::SMEM);
-}
-
-template <int D>
-int launch(const Args& a, int batch, cudaStream_t stream) {
-  const cudaError_t err = prepare<D>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.lq + Cfg<D>::R - 1) / Cfg<D>::R, a.heads, batch);
-  flash_bwd_dq_kernel<D><<<grid, Cfg<D>::kThreads, Cfg<D>::SMEM, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "flash_bwd_dq.cuh"
 
 // [B*H, L, D]; reads q, k, v, mask, dout, lse, delta, writes dq.
 extern "C" int flash_bwd_dq(FLASH_BWD_PARAMS(float)) {
-  const Args a{q, k, v, mask, nullptr, dout, lse, delta, dq, nullptr, nullptr, lq, lk, heads};
-  return flash_bwd_tc::with_head_dim(head_dim, [&](auto d) {
-    return launch<decltype(d)::value>(a, batch, static_cast<cudaStream_t>(stream));
-  });
+  return dq_entry<flash_ops::kF32>(q, k, v, mask, o, dout, lse, delta, dq, dk, dv, batch, lq, lk,
+                                   heads, head_dim, stream);
 }
 
 // Dynamic shared memory per block and resident blocks per SM at head_dim.
 extern "C" int flash_bwd_dq_occupancy(int head_dim, int* smem_bytes, int* blocks_per_sm) {
-  return flash_bwd_tc::with_head_dim(head_dim, [&](auto d) {
-    constexpr int D = decltype(d)::value;
-    const cudaError_t err = prepare<D>();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    *smem_bytes = Cfg<D>::SMEM;
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, flash_bwd_dq_kernel<D>, Cfg<D>::kThreads, Cfg<D>::SMEM));
-  });
+  return occupancy<flash_ops::kF32>(head_dim, smem_bytes, blocks_per_sm);
 }

@@ -17,8 +17,8 @@ extern "C" int flash_bwd_ble(FLASH_BWD_PARAMS(float)) {
 
 // [B*H, L, D]; reads q, k, v, mask, dout, lse, delta, writes dq, dk, dv.
 extern "C" int flash_bwd_bhld_fused(FLASH_BWD_PARAMS(float)) {
-  const Args<float> a{q, k, v, mask, nullptr, dout, lse, delta, dq, dk, dv, lq, lk, heads};
-  return dispatch<false, flash_ops::kF32>(a, head_dim, batch, stream);
+  return bhld<flash_ops::kF32>(q, k, v, mask, o, dout, lse, delta, dq, dk, dv, batch, lq, lk,
+                               heads, head_dim, stream);
 }
 
 // Dynamic shared memory per block and resident blocks per SM at head_dim.

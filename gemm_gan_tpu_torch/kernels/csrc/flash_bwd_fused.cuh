@@ -2,7 +2,8 @@
 // tensor cores (sm_90a): one kernel template for both layouts and every
 // product mode of flash_ops.cuh. flash_bwd_fused.cu instantiates the f32
 // modes (3xTF32, f32-grade), flash_bwd_bf16.cu and flash_bwd_mxu.cu the
-// bf16 modes of the ble layout.
+// bf16 modes of the ble layout, flash_bwd_bhld_bf16.cu and
+// flash_bwd_bhld_mxu.cu those of the classic layout.
 //
 // Replaces two Pallas TPU kernels of gemm_gan_tpu/kernels/flash_attention.py:
 //   flash_bwd_ble        <- `_bwd_kernel_ble` (:317), reached via
@@ -47,8 +48,9 @@
 //    0.0894 ms device at the canonical shape on an NVIDIA H100 80GB HBM3
 //    at a 700 W limit; variants ble_bwd_bq64 and ble_bwd).
 //
-// The bf16 modes of flash_bwd_ble (Q2 with bf16 refs, or mxu_bf16) run the
-// same two tiles on m16n8k16 bf16 products (flash_ops.cuh): S^T, dP^T, S
+// The bf16 modes of flash_bwd_ble and flash_bwd_bhld_fused (Q2 and Q6 with
+// bf16 refs, or mxu_bf16) run the same two tiles on m16n8k16 bf16 products
+// (flash_ops.cuh): S^T, dP^T, S
 // and dP in one bf16 product per k-step; P^T.dO, dS^T.Q and dS.K with P or
 // dS in three bf16 terms (kBf16, f32-exact) or rounded once (mxu_bf16);
 // tiles staged in the element type (half the shared memory in bf16: 33 KB
@@ -143,6 +145,14 @@ template <int kMode>
 int ble(FLASH_BWD_PARAMS(Elem<kMode>)) {
   const Args<Elem<kMode>> a{q, k, v, mask, o, dout, lse, nullptr, dq, dk, dv, lq, lk, heads};
   return dispatch<true, kMode>(a, head_dim, batch, stream);
+}
+
+// the classic layout's entry points of one mode: reads q, k, v, mask, dout,
+// lse, delta, writes dq, dk, dv
+template <int kMode>
+int bhld(FLASH_BWD_PARAMS(Elem<kMode>)) {
+  const Args<Elem<kMode>> a{q, k, v, mask, nullptr, dout, lse, delta, dq, dk, dv, lq, lk, heads};
+  return dispatch<false, kMode>(a, head_dim, batch, stream);
 }
 
 }  // namespace

@@ -14,18 +14,10 @@
 
 // q, k, v, o, dO -> dq, dk, dv all f32 (bf16_refs 0) or all bf16 (1)
 extern "C" int flash_bwd_ble_mxu(FLASH_BWD_PARAMS(void), int bf16_refs) {
-  using B = __nv_bfloat16;
-  if (bf16_refs) {
-    return ble<flash_ops::kMxuBf16>(
-        static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v), mask,
-        static_cast<const B*>(o), static_cast<const B*>(dout), lse, delta, static_cast<B*>(dq),
-        static_cast<B*>(dk), static_cast<B*>(dv), batch, lq, lk, heads, head_dim, stream);
-  }
-  return ble<flash_ops::kMxuF32>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      mask, static_cast<const float*>(o), static_cast<const float*>(dout), lse, delta,
-      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), batch, lq, lk,
-      heads, head_dim, stream);
+  return flash_bwd_tc::mxu_call(bf16_refs, q, k, v, mask, o, dout, lse, delta, dq, dk, dv, batch,
+                                lq, lk, heads, head_dim, stream, [](auto mode, auto... args) {
+                                  return ble<decltype(mode)::value>(args...);
+                                });
 }
 
 // Dynamic shared memory per block and resident blocks per SM at head_dim

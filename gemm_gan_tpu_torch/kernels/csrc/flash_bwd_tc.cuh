@@ -1,6 +1,6 @@
 // The masked flash-attention backward's two kinds of tile on Hopper's
 // tensor cores (sm_90a), as device functions shared by the kernels that
-// launch them: flash_bwd_dkv.cu (dk/dv tiles), flash_bwd_dq.cu (dq tiles)
+// launch them: flash_bwd_dkv.cuh (dk/dv tiles), flash_bwd_dq.cuh (dq tiles)
 // and flash_bwd_fused.cuh (both kinds in one grid, either layout). Each
 // tile takes its products from a mode of flash_ops.cuh (template kMode):
 // f32-grade 3xTF32 (kF32, described below; the element type float), or the
@@ -89,9 +89,9 @@
 #include "flash_ops.cuh"
 #include "tf32x3.cuh"
 
-// Every backward entry point (flash_bwd_dkv.cu, flash_bwd_dq.cu,
-// flash_bwd_fused.cu, flash_bwd_bf16.cu, flash_bwd_mxu.cu) takes these
-// arguments, T the element type of its mode (flash_ops.cuh): the pointers of
+// Every backward entry point (flash_bwd_*.cu) takes these arguments, T the
+// element type of its mode (flash_ops.cuh; void for the mxu_bf16 ones,
+// which also take bf16_refs, see mxu_call): the pointers of
 // flash_bwd_tc::Args<T> in its order, then the batch, the two lengths, the
 // heads, the head dim and the CUDA stream. Each reads or writes only the
 // pointers it names and ignores the rest (pass null).
@@ -123,6 +123,22 @@ struct Args {
   T* dv;
   int lq, lk, heads;
 };
+
+// An mxu_bf16 entry point's call: its untyped pointers cast to the element
+// type of mode kMxuBf16 (bf16_refs 1) or kMxuF32 (0), passed with the mode
+// to f(std::integral_constant<int, mode>, q, k, ..., stream).
+template <class F>
+int mxu_call(int bf16_refs, FLASH_BWD_PARAMS(void), F f) {
+  auto call = [&](auto mode) {
+    using T = Elem<decltype(mode)::value>;
+    return f(mode, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+             mask, static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
+             static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), batch, lq, lk, heads,
+             head_dim, stream);
+  };
+  return bf16_refs ? call(std::integral_constant<int, flash_ops::kMxuBf16>{})
+                   : call(std::integral_constant<int, flash_ops::kMxuF32>{});
+}
 
 // elements between consecutive rows of one head
 template <int D, bool kBle>

@@ -1,7 +1,8 @@
 // Masked flash-attention forward on Hopper's tensor cores (sm_90a): one
 // kernel template for both layouts and every product mode of flash_ops.cuh.
 // flash_fwd.cu instantiates the f32 modes (3xTF32, f32-grade),
-// flash_fwd_bf16.cu the bf16 modes of the ble layout.
+// flash_fwd_bf16.cu the bf16 modes of the ble layout, flash_fwd_bhld_bf16.cu
+// those of the classic (bhld) layout.
 //
 // Replaces two Pallas TPU kernels of gemm_gan_tpu/kernels/flash_attention.py:
 //   flash_fwd_bhld <- `_fwd_kernel` (:84), reached via flash_mha: q, k, v
@@ -67,11 +68,16 @@
 // memory; or f32 under mxu_bf16 with f32 refs, rounded at each fragment
 // load), S = Q.K^T in one bf16 product per k-step, P.V with P in three bf16
 // terms (kBf16: f32-exact) or rounded once (mxu_bf16), o rounded once at
-// the store. Under mxu_bf16 a first pass over the key tiles takes each
-// row's max over all its keys (S only), so that P = exp(s - max) is the
-// value the single-block reference rounds (rounding exp(s - a running
-// max) and rescaling later gives other bf16 values); the second pass then
-// never rescales (alpha = exp(0) = 1). At the canonical shape (B 8, H 4,
+// the store. Under mxu_bf16 the rounded P depends on the key blocks, and
+// follows the JAX kernels': the ble kernel and a classic shape whose
+// 128-padded Lk fits 512 take all keys in one block; a longer classic one
+// takes blocks of kBlockK = 256 keys (8 tiles) from key 0. For each block a
+// first pass over its key tiles takes each row's max over the block (S
+// only), o and l are rescaled by exp(m_prev - m) to the new running max m,
+// and the second pass rounds P = exp(s - m), the value the reference's
+// block rounds (rounding exp(s - a per-tile running max) and rescaling
+// later gives other bf16 values), and never rescales within the block
+// (alpha = exp(0) = 1). At the canonical shape (B 8, H 4,
 // L 257, D 64) a product (S or P.V) is 0.27 GFLOP: the bf16 mode takes 4
 // bf16 passes (S once, P.V three times; 1.08 GFLOP, 0.0011 ms at 989
 // TFLOP/s dense bf16), mxu_bf16 3 (S twice, P.V once; 0.0008 ms), and q, k,
@@ -93,6 +99,7 @@ using flash_ops::Ops;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsQ = 16 * kWarps;  // query rows per block
+constexpr int kBlockK = 256;         // keys per block of JAX's classic forward (long Lk)
 
 template <class T>
 struct Args {
@@ -166,89 +173,111 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args<Elem<kMo
   };
 
   const int n_tiles = (a.lk + C::BK - 1) / C::BK;
-  if constexpr (flash_ops::kRoundsP<kMode>) {
-    // first pass, K only: each row's max over all its valid keys
-    O::template stage<C::BK, kThreads>(ks, kb, 0, a.lk, stride);
+  // the key blocks that P is rounded in (kRoundsP): JAX's classic forward
+  // takes blocks of kBlockK keys from key 0 once its 128-padded Lk exceeds
+  // 512, else (and in the ble kernel) one block of all the keys
+  const int block_tiles = !kBle && flash_ops::kRoundsP<kMode> && (a.lk + 127) / 128 * 128 > 512
+                              ? kBlockK / C::BK
+                              : n_tiles;
+  for (int t0 = 0; t0 < n_tiles; t0 += block_tiles) {
+    const int t1 = min(t0 + block_tiles, n_tiles);
+    if constexpr (flash_ops::kRoundsP<kMode>) {
+      // first pass over the block, K only: each row's max over the block's
+      // valid keys, then o and l rescaled to the new running max
+      O::template stage<C::BK, kThreads>(ks, kb, t0 * C::BK, a.lk, stride);
+      cp_async_commit();
+      uint8_t mv = tid < C::BK && t0 * C::BK + tid < a.lk ? mb[t0 * C::BK + tid] : 0;
+      float bm[2] = {kNegInf, kNegInf};
+      for (int it = t0; it < t1; ++it) {
+        const int buf = (it - t0) & 1;
+        const uint8_t mine = mv;
+        if (tid < C::BK) valid[buf * C::BK + tid] = mine;
+        if (it + 1 < t1) {
+          const int k1 = (it + 1) * C::BK;
+          O::template stage<C::BK, kThreads>(ks + (buf ^ 1) * C::TILE, kb, k1, a.lk, stride);
+          mv = tid < C::BK && k1 + tid < a.lk ? mb[k1 + tid] : 0;
+        }
+        cp_async_commit();
+        cp_async_wait<1>();
+        if (!__syncthreads_or(mine)) continue;
+        float s[C::NT][4];
+        scores(s, ks + buf * C::TILE, valid + buf * C::BK);
+#pragma unroll
+        for (int nt = 0; nt < C::NT; ++nt) {
+          bm[0] = fmaxf(bm[0], fmaxf(s[nt][0], s[nt][1]));
+          bm[1] = fmaxf(bm[1], fmaxf(s[nt][2], s[nt][3]));
+        }
+        __syncthreads();
+      }
+      cp_async_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float mx = fmaxf(m[i], quad_max(bm[i]));
+        const float alpha = expf(m[i] - mx);
+        m[i] = mx;
+        l[i] *= alpha;
+#pragma unroll
+        for (int n = 0; n < C::OT; ++n) {
+          o[n][2 * i] *= alpha;
+          o[n][2 * i + 1] *= alpha;
+        }
+      }
+      __syncthreads();  // the ring is refilled below
+    }
+
+    O::template stage<C::BK, kThreads>(ks, kb, t0 * C::BK, a.lk, stride);
+    O::template stage<C::BK, kThreads>(vs, vb, t0 * C::BK, a.lk, stride);
     cp_async_commit();
-    uint8_t mv = tid < C::BK && tid < a.lk ? mb[tid] : 0;  // next tile's flag
-    for (int it = 0; it < n_tiles; ++it) {
-      const int buf = it & 1;
+    uint8_t mv = tid < C::BK && t0 * C::BK + tid < a.lk ? mb[t0 * C::BK + tid] : 0;
+
+    for (int it = t0; it < t1; ++it) {
+      const int buf = (it - t0) & 1;
       const uint8_t mine = mv;
       if (tid < C::BK) valid[buf * C::BK + tid] = mine;
-      if (it + 1 < n_tiles) {
+      if (it + 1 < t1) {  // prefetch tile it + 1 into the other buffer
         const int k1 = (it + 1) * C::BK;
         O::template stage<C::BK, kThreads>(ks + (buf ^ 1) * C::TILE, kb, k1, a.lk, stride);
+        O::template stage<C::BK, kThreads>(vs + (buf ^ 1) * C::TILE, vb, k1, a.lk, stride);
         mv = tid < C::BK && k1 + tid < a.lk ? mb[k1 + tid] : 0;
       }
       cp_async_commit();
-      cp_async_wait<1>();
-      if (!__syncthreads_or(mine)) continue;
+      cp_async_wait<1>();  // tile it has landed (for this thread's copies)
+      if (!__syncthreads_or(mine)) continue;  // every key of the tile is masked
+
+      const T* vt = vs + buf * C::TILE;
       float s[C::NT][4];
       scores(s, ks + buf * C::TILE, valid + buf * C::BK);
+
+      // the online softmax (after a first pass m holds the block's max:
+      // alpha is 1)
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int nt = 0; nt < C::NT; ++nt) {
-        m[0] = fmaxf(m[0], fmaxf(s[nt][0], s[nt][1]));
-        m[1] = fmaxf(m[1], fmaxf(s[nt][2], s[nt][3]));
+        mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
       }
-      __syncthreads();
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = quad_max(mx[i]);
+        alpha[i] = expf(m[i] - mx[i]);
+        m[i] = mx[i];
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = expf(s[nt][e] - m[e >> 1]);  // masked: exp(-1e30 - m) == 0
+          l[e >> 1] += s[nt][e];
+        }
+      }
+      // O = alpha O + P.V: S's C fragments are P's A fragments
+      O::template weight_rows<C::NT>(o, s, vt, alpha[0], alpha[1], g, t);
+      __syncthreads();  // every warp is done with buf before it is refilled
     }
     cp_async_wait<0>();
-    m[0] = quad_max(m[0]);
-    m[1] = quad_max(m[1]);
-    __syncthreads();  // the ring is refilled below
   }
-
-  O::template stage<C::BK, kThreads>(ks, kb, 0, a.lk, stride);
-  O::template stage<C::BK, kThreads>(vs, vb, 0, a.lk, stride);
-  cp_async_commit();
-  uint8_t mv = tid < C::BK && tid < a.lk ? mb[tid] : 0;  // next tile's flag
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1;
-    const uint8_t mine = mv;
-    if (tid < C::BK) valid[buf * C::BK + tid] = mine;
-    if (it + 1 < n_tiles) {  // prefetch tile it + 1 into the other buffer
-      const int k1 = (it + 1) * C::BK;
-      O::template stage<C::BK, kThreads>(ks + (buf ^ 1) * C::TILE, kb, k1, a.lk, stride);
-      O::template stage<C::BK, kThreads>(vs + (buf ^ 1) * C::TILE, vb, k1, a.lk, stride);
-      mv = tid < C::BK && k1 + tid < a.lk ? mb[k1 + tid] : 0;
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // tile it has landed (for this thread's copies)
-    if (!__syncthreads_or(mine)) continue;  // every key of the tile is masked
-
-    const T* vt = vs + buf * C::TILE;
-    float s[C::NT][4];
-    scores(s, ks + buf * C::TILE, valid + buf * C::BK);
-
-    // the online softmax (after a first pass m is final: alpha is 1)
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < C::NT; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      alpha[i] = expf(m[i] - mx[i]);
-      m[i] = mx[i];
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < C::NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(s[nt][e] - m[e >> 1]);  // masked: exp(-1e30 - m) == 0
-        l[e >> 1] += s[nt][e];
-      }
-    }
-    // O = alpha O + P.V: S's C fragments are P's A fragments
-    O::template weight_rows<C::NT>(o, s, vt, alpha[0], alpha[1], g, t);
-    __syncthreads();  // every warp is done with buf before it is refilled
-  }
-  cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {

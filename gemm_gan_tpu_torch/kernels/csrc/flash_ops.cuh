@@ -47,8 +47,9 @@ template <int kMode>
 using Elem = std::conditional_t<kMode == kBf16 || kMode == kMxuBf16, __nv_bfloat16, float>;
 
 // whether P is rounded to bf16 before P.V (the forward then takes each
-// row's max over all its keys first, so that it rounds exp(s - max) as the
-// single-block reference does, not exp(s - a running max))
+// row's max over a key block first, so that it rounds exp(s - the running
+// max at the block's end) as the reference's block does, not exp(s - a
+// per-tile running max); flash_fwd.cuh)
 template <int kMode>
 constexpr bool kRoundsP = kMode == kMxuF32 || kMode == kMxuBf16;
 

@@ -33,25 +33,26 @@ tiles of `csrc/flash_bwd_tc.cuh`:
   single-block shapes (`single_block`).
 * `flash_bwd_dq` and `flash_bwd_dkv` (replace `_bwd_dq_kernel` and
   `_bwd_dkv_kernel`): the blocked classic backward, two launches;
-  `csrc/flash_bwd_dq.cu` and `csrc/flash_bwd_dkv.cu`.
+  `csrc/flash_bwd_dq.cuh` and `csrc/flash_bwd_dkv.cuh`.
 
-Q1 and Q2 also take bf16, in two product modes of their own (the same
+Every kernel also takes bf16, in two product modes of its own (the same
 templates, `csrc/flash_ops.cuh`), each with its own C entry point, wrapper
 and launch counter (the JAX package's bf16 configuration,
 `compute_dtype="bfloat16"` and `fusion.flash_mxu_bf16`):
 
-* `flash_fwd_ble_bf16` / `flash_bwd_ble_bf16`: bf16 q, k, v (and o, dO),
-  every product f32-exact (a bf16 operand is exact in bf16; an f32 one, P
-  or dS, is split into three bf16 terms), softmax, lse and accumulators in
-  f32, o, dq, dk, dv rounded once to bf16;
-* `flash_fwd_ble_mxu` / `flash_bwd_ble_mxu` (`mxu_bf16`): every product's
-  operands, P and dS included, rounded to bf16 (to nearest even) with f32
-  accumulation; q, k, v, dO in f32 (rounded on load, f32 outputs) or bf16.
+* `<kernel>_bf16` (`flash_fwd_ble_bf16`, ..., `flash_bwd_dkv_bf16`): bf16
+  q, k, v (and o, dO), every product f32-exact (a bf16 operand is exact in
+  bf16; an f32 one, P or dS, is split into three bf16 terms), softmax,
+  lse, delta and accumulators in f32, outputs rounded once to bf16;
+* `<kernel>_mxu` (`mxu_bf16`): every product's operands, P and dS
+  included, rounded to bf16 (to nearest even) with f32 accumulation; q, k,
+  v, dO in f32 (rounded on load, f32 outputs) or bf16. The classic
+  forward rounds P per key block as JAX's blocked kernel does
+  (`classic_block_k`).
 
-Their plain versions are the ble ones with bf16 operands or
-`mxu_bf16=True`. The other four kernels take f32 only: a bf16 operand or
-`mxu_bf16` raises on the card (ROADMAP K1), while their plain versions on
-the CPU serve both, as the JAX reference does.
+Their plain versions are the f32 ones with bf16 operands or
+`mxu_bf16=True`; `FlashAttentionBLE` and `FlashAttentionBHLD` pick the
+wrappers by the operands' dtype and the mode.
 
 `flash_mha_ble` and `flash_mha` run through a `torch.autograd.Function`
 per layout (`FlashAttentionBLE`, `FlashAttentionBHLD`) whose backward is
@@ -85,9 +86,11 @@ _REF_BLOCK_Q = 128    # query rows per block of `mha_reference_blocked`
 _PLAIN_BLOCK_Q = 512  # query rows per chunk of the plain classic version
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the kernels' template instantiations
 # the JAX package's classic blocking (`flash_mha` defaults): a shape is one
-# block, and takes the fused backward, when both padded lengths fit these
+# block, and takes the fused backward, when both padded lengths fit these;
+# longer key axes are cut into blocks of BLOCK_K keys
 SINGLE_BLOCK_Q = 512
 SINGLE_BLOCK_K = 512
+BLOCK_K = 256
 
 
 def mha_reference(q, k, v, kv_mask=None, scale=None):
@@ -135,19 +138,50 @@ def _operand(x, mxu_bf16: bool):
     return (x.to(torch.bfloat16) if mxu_bf16 else x).float()
 
 
-def _softmax_fwd(q, k, v, valid, mxu_bf16: bool = False):
+def _softmax_fwd(q, k, v, valid, mxu_bf16: bool = False, block_k: int = None):
     """The kernels' contract on pre-scaled q [..., Lq, D], k/v [..., Lk, D],
     `valid` broadcastable to the logits: returns (o in q's dtype, lse
-    [..., Lq] f32). P is exp(s - the row's max over all its keys) when it
-    is rounded, as the JAX ble kernel's single block takes it."""
+    [..., Lq] f32).
+
+    Where P is rounded (`mxu_bf16`) the rounded value depends on the key
+    blocks, and this follows the JAX kernels': with one block (`block_k`
+    None or >= Lk, the ble kernel and single-block classic shapes) P is
+    exp(s - the row's max over all its keys); with blocks of `block_k`
+    keys from key 0 (the blocked `_fwd_kernel`) each block rounds exp(s -
+    m), m the running max up to the block's end, and the sums taken so far
+    are rescaled by exp(m_prev - m). Without rounding the blocks change
+    only the summation order, so the sums are taken whole."""
     dtype = q.dtype
     q, k, v = (_operand(x, mxu_bf16) for x in (q, k, v))
     s = torch.where(valid, q @ k.transpose(-1, -2), _NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)  # masked columns: exp(-1e30 - m) == 0 unless all are
-    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.where(m <= 0.5 * _NEG_INF, 0.0, (_operand(p, mxu_bf16) @ v) / l)
+    Lk = s.shape[-1]
+    if not mxu_bf16 or block_k is None or block_k >= Lk:
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)  # masked columns: exp(-1e30 - m) == 0 unless all are
+        l = p.sum(dim=-1, keepdim=True)
+        acc = _operand(p, mxu_bf16) @ v
+    else:
+        m = torch.full_like(s[..., :1], _NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((*s.shape[:-1], v.shape[-1]), dtype=s.dtype, device=s.device)
+        for k0 in range(0, Lk, block_k):
+            sb = s[..., k0:k0 + block_k]
+            m_new = torch.maximum(m, sb.amax(dim=-1, keepdim=True))
+            p = torch.exp(sb - m_new)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + _operand(p, True) @ v[..., k0:k0 + block_k, :]
+            m = m_new
+    l = l.clamp_min(1e-30)
+    o = torch.where(m <= 0.5 * _NEG_INF, 0.0, acc / l)
     return o.to(dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def classic_block_k(Lk: int) -> int:
+    """Keys per block of the JAX package's classic forward (`_prep` with
+    block_k BLOCK_K): all of them when Lk padded to 128 fits
+    SINGLE_BLOCK_K, else BLOCK_K."""
+    return Lk if -(-Lk // 128) * 128 <= SINGLE_BLOCK_K else BLOCK_K
 
 
 def _split_heads(x, num_heads: int):
@@ -178,11 +212,14 @@ def flash_fwd_ble_mxu_plain(q, k, v, kv_mask, num_heads: int):
 
 
 def flash_fwd_bhld_plain(q, k, v, kv_mask, mxu_bf16: bool = False):
-    """Plain version of `flash_fwd_bhld`: q [B, H, Lq, D], k/v [B, H, Lk, D]
-    (q already scaled) -> (o [B, H, Lq, D], lse [B, H, Lq]). Runs in chunks
-    of query rows so whole-slide lengths never hold the full logits."""
+    """Plain version of `flash_fwd_bhld` (f32), `flash_fwd_bhld_bf16` (bf16
+    operands) and `flash_fwd_bhld_mxu` (`mxu_bf16`, P rounded per key block
+    of `classic_block_k`): q [B, H, Lq, D], k/v [B, H, Lk, D] (q already
+    scaled) -> (o [B, H, Lq, D], lse [B, H, Lq]). Runs in chunks of query
+    rows so whole-slide lengths never hold the full logits."""
     valid = kv_mask[:, None, None, :]
-    parts = [_softmax_fwd(q[:, :, s:s + _PLAIN_BLOCK_Q], k, v, valid, mxu_bf16)
+    block_k = classic_block_k(k.shape[2])
+    parts = [_softmax_fwd(q[:, :, s:s + _PLAIN_BLOCK_Q], k, v, valid, mxu_bf16, block_k)
              for s in range(0, q.shape[2], _PLAIN_BLOCK_Q)]
     return (torch.cat([p[0] for p in parts], dim=2),
             torch.cat([p[1] for p in parts], dim=2))
@@ -248,30 +285,69 @@ def flash_bwd_ble_mxu_plain(q, k, v, kv_mask, o, lse, do, num_heads: int):
     return flash_bwd_ble_plain(q, k, v, kv_mask, o, lse, do, num_heads, mxu_bf16=True)
 
 
-flash_fwd_ble_bf16_plain = flash_fwd_ble_plain  # bf16 operands, f32 products
+def flash_fwd_bhld_mxu_plain(q, k, v, kv_mask):
+    """Plain version of `flash_fwd_bhld_mxu`."""
+    return flash_fwd_bhld_plain(q, k, v, kv_mask, mxu_bf16=True)
+
+
+def flash_bwd_bhld_fused_mxu_plain(q, k, v, kv_mask, do, lse, delta):
+    """Plain version of `flash_bwd_bhld_fused_mxu`."""
+    return flash_bwd_bhld_fused_plain(q, k, v, kv_mask, do, lse, delta, mxu_bf16=True)
+
+
+def flash_bwd_dq_mxu_plain(q, k, v, kv_mask, do, lse, delta):
+    """Plain version of `flash_bwd_dq_mxu`."""
+    return flash_bwd_dq_plain(q, k, v, kv_mask, do, lse, delta, mxu_bf16=True)
+
+
+def flash_bwd_dkv_mxu_plain(q, k, v, kv_mask, do, lse, delta):
+    """Plain version of `flash_bwd_dkv_mxu`."""
+    return flash_bwd_dkv_plain(q, k, v, kv_mask, do, lse, delta, mxu_bf16=True)
+
+
+# bf16 operands, f32 products: the plain versions as they are
+flash_fwd_ble_bf16_plain = flash_fwd_ble_plain
 flash_bwd_ble_bf16_plain = flash_bwd_ble_plain
+flash_fwd_bhld_bf16_plain = flash_fwd_bhld_plain
+flash_bwd_bhld_fused_bf16_plain = flash_bwd_bhld_fused_plain
+flash_bwd_dq_bf16_plain = flash_bwd_dq_plain
+flash_bwd_dkv_bf16_plain = flash_bwd_dkv_plain
 
 
 # ------------------------------------------------------------ kernel wrappers
-_F32 = (torch.float32,)
-_BF16 = (torch.bfloat16,)
-_F32_OR_BF16 = (torch.float32, torch.bfloat16)
+# Each kernel comes in three modes, each with its own C entry point, wrapper
+# and launch counter: f32 (no suffix); `_bf16`, bf16 operands with f32-exact
+# products; `_mxu`, every product's operands rounded to bf16 (P and dS too)
+# on f32 or bf16 operands, whose entry points take one more int, 1 for bf16
+# refs. lse and delta are f32 in every mode; dO and o come in the operands'
+# dtype.
+_MODE_DTYPES = {"": (torch.float32,), "_bf16": (torch.bfloat16,),
+                "_mxu": (torch.float32, torch.bfloat16)}
 
 
-def _check_inputs(name, q, k, v, kv_mask, kv_shape, head_dim, dtypes=_F32):
-    """Raise on anything the kernel does not take. q's own shape defines
-    B, Lq and the width; k and v must have `kv_shape`, whose first and
-    second-to-last entries are B and Lk in both layouts, and q's dtype,
-    one of `dtypes`."""
+def _mode(name: str) -> str:
+    """The mode of entry point `name`: "", "_bf16" or "_mxu"."""
+    return next((m for m in ("_bf16", "_mxu") if name.endswith(m)), "")
+
+
+def _mode_args(name: str, q) -> tuple:
+    """The int arguments after the stream: bf16_refs for an `_mxu` entry."""
+    return (int(q.dtype == torch.bfloat16),) if _mode(name) == "_mxu" else ()
+
+
+def _check_inputs(name, q, k, v, kv_mask, kv_shape, head_dim):
+    """Raise on anything entry point `name` does not take. q's own shape
+    defines B, Lq and the width; k and v must have `kv_shape`, whose first
+    and second-to-last entries are B and Lk in both layouts, and q's dtype,
+    one that `name`'s mode takes."""
+    dtypes = _MODE_DTYPES[_mode(name)]
     for n, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name}: {n} is on {t.device}; the kernel takes "
                              f"CUDA tensors on one device")
         if t.dtype not in dtypes or t.dtype != q.dtype:
-            hint = ("; the bf16 modes of this kernel are not ported (ROADMAP K1)"
-                    if dtypes == _F32 and t.dtype == torch.bfloat16 else "")
             raise NotImplementedError(f"{name}: {n} is {t.dtype} (q {q.dtype}); "
-                                      f"the kernel takes {dtypes}{hint}")
+                                      f"the kernel takes {dtypes}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {n} must be contiguous and 16-byte aligned")
         if t.requires_grad and torch.is_grad_enabled():
@@ -293,87 +369,21 @@ def _check_inputs(name, q, k, v, kv_mask, kv_shape, head_dim, dtypes=_F32):
                          f"{mask_shape} tensor on {q.device}")
 
 
-def _launch_fwd_ble(name, q, k, v, kv_mask, num_heads, dtypes, *extra):
-    """Check, allocate and launch C entry point `name` of the ble forward
-    (with `extra` int arguments after the stream)."""
+def _launch_fwd_ble(name, q, k, v, kv_mask, num_heads):
+    """Check, allocate and launch C entry point `name` of the ble forward."""
     B, Lq, E = q.shape
     Lk = k.shape[1]
     if E % num_heads:
         raise ValueError(f"E={E} not divisible by num_heads={num_heads}")
     D = E // num_heads
-    _check_inputs(name, q, k, v, kv_mask, (B, Lk, E), D, dtypes)
+    _check_inputs(name, q, k, v, kv_mask, (B, Lk, E), D)
     o = torch.empty_like(q)
     lse = torch.empty((B, num_heads, Lq), dtype=torch.float32, device=q.device)
     build.launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  kv_mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
                  B, Lq, Lk, num_heads, D,
-                 torch.cuda.current_stream(q.device).cuda_stream, *extra)
+                 torch.cuda.current_stream(q.device).cuda_stream, *_mode_args(name, q))
     return o, lse
-
-
-def flash_fwd_ble(q, k, v, kv_mask, num_heads: int):
-    """Kernel `flash_fwd_ble` on pre-scaled f32 q [B, Lq, E], k/v [B, Lk, E]
-    and kv_mask [B, Lk] bool -> (o [B, Lq, E], lse [B, H, Lq] f32)."""
-    if q.device.type == "cpu":
-        return flash_fwd_ble_plain(q, k, v, kv_mask, num_heads)
-    out = _launch_fwd_ble("flash_fwd_ble", q, k, v, kv_mask, num_heads, _F32)
-    flash_fwd_ble.launches += 1
-    return out
-
-
-flash_fwd_ble.launches = 0
-
-
-def flash_fwd_ble_bf16(q, k, v, kv_mask, num_heads: int):
-    """Kernel `flash_fwd_ble_bf16`: `flash_fwd_ble` on bf16 q, k, v with
-    f32-exact products -> (o bf16, lse f32)."""
-    if q.device.type == "cpu":
-        return flash_fwd_ble_plain(q, k, v, kv_mask, num_heads)
-    out = _launch_fwd_ble("flash_fwd_ble_bf16", q, k, v, kv_mask, num_heads, _BF16)
-    flash_fwd_ble_bf16.launches += 1
-    return out
-
-
-flash_fwd_ble_bf16.launches = 0
-
-
-def flash_fwd_ble_mxu(q, k, v, kv_mask, num_heads: int):
-    """Kernel `flash_fwd_ble_mxu`: `flash_fwd_ble` with every product's
-    operands (P too) rounded to bf16; q, k, v f32 or bf16, o in their
-    dtype, lse f32."""
-    if q.device.type == "cpu":
-        return flash_fwd_ble_mxu_plain(q, k, v, kv_mask, num_heads)
-    out = _launch_fwd_ble("flash_fwd_ble_mxu", q, k, v, kv_mask, num_heads,
-                          _F32_OR_BF16, int(q.dtype == torch.bfloat16))
-    flash_fwd_ble_mxu.launches += 1
-    return out
-
-
-flash_fwd_ble_mxu.launches = 0
-
-
-def flash_fwd_bhld(q, k, v, kv_mask, mxu_bf16: bool = False):
-    """Kernel `flash_fwd_bhld` on pre-scaled q [B, H, Lq, D], k/v
-    [B, H, Lk, D] and kv_mask [B, Lk] bool -> (o [B, H, Lq, D], lse
-    [B, H, Lq] f32). f32 only on the card; the plain version on the CPU
-    also serves bf16 operands and `mxu_bf16`."""
-    if q.device.type == "cpu":
-        return flash_fwd_bhld_plain(q, k, v, kv_mask, mxu_bf16)
-    _refuse_mxu("flash_fwd_bhld", mxu_bf16)
-    B, H, Lq, D = q.shape
-    Lk = k.shape[2]
-    _check_inputs("flash_fwd_bhld", q, k, v, kv_mask, (B, H, Lk, D), D)
-    o = torch.empty_like(q)
-    lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
-    build.launch("flash_fwd_bhld", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 kv_mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                 B, Lq, Lk, H, D,
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    flash_fwd_bhld.launches += 1
-    return o, lse
-
-
-flash_fwd_bhld.launches = 0
 
 
 def _check_grad_inputs(name, q, named):
@@ -389,13 +399,6 @@ def _check_grad_inputs(name, q, named):
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _refuse_mxu(name, mxu_bf16: bool) -> None:
-    if mxu_bf16:
-        raise NotImplementedError(f"{name}: mxu_bf16 is not ported for this kernel "
-                                  f"(ROADMAP K1); only flash_fwd_ble / flash_bwd_ble "
-                                  f"have bf16 modes")
-
-
 def _launch_bwd(name, q, k, v, kv_mask, o, do, lse, delta, dq, dk, dv,
                 B, Lq, Lk, H, D, *extra):
     def ptr(t):
@@ -406,129 +409,135 @@ def _launch_bwd(name, q, k, v, kv_mask, o, do, lse, delta, dq, dk, dv,
                  B, Lq, Lk, H, D, torch.cuda.current_stream(q.device).cuda_stream, *extra)
 
 
-def _launch_bwd_ble(name, q, k, v, kv_mask, o, lse, do, num_heads, dtypes, *extra):
-    """Check, allocate and launch C entry point `name` of the ble backward
-    (with `extra` int arguments after the stream)."""
+def _launch_bwd_ble(name, q, k, v, kv_mask, o, lse, do, num_heads):
+    """Check, allocate and launch C entry point `name` of the ble backward."""
     B, Lq, E = q.shape
     Lk = k.shape[1]
     D = E // num_heads
-    _check_inputs(name, q, k, v, kv_mask, (B, Lk, E), D, dtypes)
+    _check_inputs(name, q, k, v, kv_mask, (B, Lk, E), D)
     _check_grad_inputs(name, q, {
         "o": (o, q.shape, q.dtype), "do": (do, q.shape, q.dtype),
         "lse": (lse, (B, num_heads, Lq), torch.float32)})
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _launch_bwd(name, q, k, v, kv_mask, o, do, lse, None, dq, dk, dv,
-                B, Lq, Lk, num_heads, D, *extra)
+                B, Lq, Lk, num_heads, D, *_mode_args(name, q))
     return dq, dk, dv
 
 
-def flash_bwd_ble(q, k, v, kv_mask, o, lse, do, num_heads: int):
-    """Kernel `flash_bwd_ble`: the forward's f32 inputs (q pre-scaled), its
-    outputs o [B, Lq, E] and lse [B, H, Lq], and dO [B, Lq, E] -> (dq, dk,
-    dv) in the [B, L, E] layout."""
-    if q.device.type == "cpu":
-        return flash_bwd_ble_plain(q, k, v, kv_mask, o, lse, do, num_heads)
-    out = _launch_bwd_ble("flash_bwd_ble", q, k, v, kv_mask, o, lse, do, num_heads, _F32)
-    flash_bwd_ble.launches += 1
-    return out
-
-
-flash_bwd_ble.launches = 0
-
-
-def flash_bwd_ble_bf16(q, k, v, kv_mask, o, lse, do, num_heads: int):
-    """Kernel `flash_bwd_ble_bf16`: `flash_bwd_ble` on bf16 q, k, v, o, dO
-    with f32-exact products -> bf16 (dq, dk, dv)."""
-    if q.device.type == "cpu":
-        return flash_bwd_ble_plain(q, k, v, kv_mask, o, lse, do, num_heads)
-    out = _launch_bwd_ble("flash_bwd_ble_bf16", q, k, v, kv_mask, o, lse, do, num_heads,
-                          _BF16)
-    flash_bwd_ble_bf16.launches += 1
-    return out
-
-
-flash_bwd_ble_bf16.launches = 0
-
-
-def flash_bwd_ble_mxu(q, k, v, kv_mask, o, lse, do, num_heads: int):
-    """Kernel `flash_bwd_ble_mxu`: `flash_bwd_ble` with every product's
-    operands (P and dS too) rounded to bf16; q, k, v, o, dO f32 or bf16,
-    dq, dk, dv in their dtype."""
-    if q.device.type == "cpu":
-        return flash_bwd_ble_mxu_plain(q, k, v, kv_mask, o, lse, do, num_heads)
-    out = _launch_bwd_ble("flash_bwd_ble_mxu", q, k, v, kv_mask, o, lse, do, num_heads,
-                          _F32_OR_BF16, int(q.dtype == torch.bfloat16))
-    flash_bwd_ble_mxu.launches += 1
-    return out
-
-
-flash_bwd_ble_mxu.launches = 0
-
-
-def _bhld_bwd_checks(name, q, k, v, kv_mask, do, lse, delta, mxu_bf16):
-    _refuse_mxu(name, mxu_bf16)
+def _launch_bhld(name, q, k, v, kv_mask, *grad_args):
+    """Check, allocate and launch C entry point `name` of a classic-layout
+    kernel on q [B, H, Lq, D], k/v [B, H, Lk, D]: the forward -> (o, lse);
+    given (do, lse, delta), a backward -> what its entry point writes: dq,
+    (dk, dv) or (dq, dk, dv)."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     _check_inputs(name, q, k, v, kv_mask, (B, H, Lk, D), D)
+    if not grad_args:
+        o = torch.empty_like(q)
+        lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+        build.launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
+                     o.data_ptr(), lse.data_ptr(), B, Lq, Lk, H, D,
+                     torch.cuda.current_stream(q.device).cuda_stream, *_mode_args(name, q))
+        return o, lse
+    do, lse, delta = grad_args
     _check_grad_inputs(name, q, {
-        "do": (do, q.shape, torch.float32), "lse": (lse, (B, H, Lq), torch.float32),
+        "do": (do, q.shape, q.dtype), "lse": (lse, (B, H, Lq), torch.float32),
         "delta": (delta, (B, H, Lq), torch.float32)})
-    return B, H, Lq, Lk, D
+    dq = None if name.startswith("flash_bwd_dkv") else torch.empty_like(q)
+    dk, dv = ((None, None) if name.startswith("flash_bwd_dq")
+              else (torch.empty_like(k), torch.empty_like(v)))
+    _launch_bwd(name, q, k, v, kv_mask, None, do, lse, delta, dq, dk, dv,
+                B, Lq, Lk, H, D, *_mode_args(name, q))
+    if dq is None:
+        return dk, dv
+    return dq if dk is None else (dq, dk, dv)
 
 
-def flash_bwd_bhld_fused(q, k, v, kv_mask, do, lse, delta, mxu_bf16: bool = False):
-    """Kernel `flash_bwd_bhld_fused`: q/do [B, H, Lq, D], k/v [B, H, Lk, D],
-    lse and delta = rowsum(dO * O) [B, H, Lq] -> (dq, dk, dv), one launch.
-    Meant for single-block shapes (`single_block`), as on the TPU; right
-    for any shape. f32 only on the card (as the other bhld kernels)."""
-    if q.device.type == "cpu":
-        return flash_bwd_bhld_fused_plain(q, k, v, kv_mask, do, lse, delta, mxu_bf16)
-    B, H, Lq, Lk, D = _bhld_bwd_checks("flash_bwd_bhld_fused", q, k, v, kv_mask,
-                                       do, lse, delta, mxu_bf16)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_bwd_bhld_fused", q, k, v, kv_mask, None, do, lse, delta,
-                dq, dk, dv, B, Lq, Lk, H, D)
-    flash_bwd_bhld_fused.launches += 1
-    return dq, dk, dv
+def _kernel(name: str, plain, launch, doc: str):
+    """The wrapper of C entry point `name`: `plain(*args)` for tensors on
+    the CPU, else `launch(name, *args)`, counted in its `launches`."""
+    def kernel(*args):
+        if args[0].device.type == "cpu":
+            return plain(*args)
+        out = launch(name, *args)
+        kernel.launches += 1
+        return out
+
+    kernel.__name__ = kernel.__qualname__ = name
+    kernel.__doc__ = doc
+    kernel.launches = 0
+    return kernel
 
 
-flash_bwd_bhld_fused.launches = 0
-
-
-def flash_bwd_dq(q, k, v, kv_mask, do, lse, delta, mxu_bf16: bool = False):
-    """Kernel `flash_bwd_dq`: inputs as `flash_bwd_bhld_fused` -> dq."""
-    if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, kv_mask, do, lse, delta, mxu_bf16)
-    B, H, Lq, Lk, D = _bhld_bwd_checks("flash_bwd_dq", q, k, v, kv_mask, do, lse,
-                                       delta, mxu_bf16)
-    dq = torch.empty_like(q)
-    _launch_bwd("flash_bwd_dq", q, k, v, kv_mask, None, do, lse, delta,
-                dq, None, None, B, Lq, Lk, H, D)
-    flash_bwd_dq.launches += 1
-    return dq
-
-
-flash_bwd_dq.launches = 0
-
-
-def flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, mxu_bf16: bool = False):
-    """Kernel `flash_bwd_dkv`: inputs as `flash_bwd_bhld_fused` -> (dk, dv)."""
-    if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, kv_mask, do, lse, delta, mxu_bf16)
-    B, H, Lq, Lk, D = _bhld_bwd_checks("flash_bwd_dkv", q, k, v, kv_mask, do, lse,
-                                       delta, mxu_bf16)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_bwd_dkv", q, k, v, kv_mask, None, do, lse, delta,
-                None, dk, dv, B, Lq, Lk, H, D)
-    flash_bwd_dkv.launches += 1
-    return dk, dv
-
-
-flash_bwd_dkv.launches = 0
+flash_fwd_ble = _kernel("flash_fwd_ble", flash_fwd_ble_plain, _launch_fwd_ble, """Kernel
+    `flash_fwd_ble`: (q, k, v, kv_mask, num_heads), pre-scaled f32 q [B, Lq,
+    E], k/v [B, Lk, E], kv_mask [B, Lk] bool -> (o [B, Lq, E], lse [B, H, Lq]
+    f32).""")
+flash_fwd_ble_bf16 = _kernel("flash_fwd_ble_bf16", flash_fwd_ble_plain, _launch_fwd_ble, """
+    Kernel `flash_fwd_ble_bf16`: `flash_fwd_ble` on bf16 q, k, v with
+    f32-exact products -> (o bf16, lse f32).""")
+flash_fwd_ble_mxu = _kernel("flash_fwd_ble_mxu", flash_fwd_ble_mxu_plain, _launch_fwd_ble, """
+    Kernel `flash_fwd_ble_mxu`: `flash_fwd_ble` with every product's operands
+    (P too) rounded to bf16; q, k, v f32 or bf16, o in their dtype, lse f32.""")
+flash_bwd_ble = _kernel("flash_bwd_ble", flash_bwd_ble_plain, _launch_bwd_ble, """Kernel
+    `flash_bwd_ble`: (q, k, v, kv_mask, o, lse, do, num_heads), the
+    forward's f32 inputs (q pre-scaled), its outputs o [B, Lq, E] and lse
+    [B, H, Lq], and dO [B, Lq, E] -> (dq, dk, dv) in the [B, L, E] layout.""")
+flash_bwd_ble_bf16 = _kernel("flash_bwd_ble_bf16", flash_bwd_ble_plain, _launch_bwd_ble, """
+    Kernel `flash_bwd_ble_bf16`: `flash_bwd_ble` on bf16 q, k, v, o, dO with
+    f32-exact products -> bf16 (dq, dk, dv).""")
+flash_bwd_ble_mxu = _kernel("flash_bwd_ble_mxu", flash_bwd_ble_mxu_plain, _launch_bwd_ble, """
+    Kernel `flash_bwd_ble_mxu`: `flash_bwd_ble` with every product's operands
+    (P and dS too) rounded to bf16; q, k, v, o, dO f32 or bf16, dq, dk, dv in
+    their dtype.""")
+flash_fwd_bhld = _kernel("flash_fwd_bhld", flash_fwd_bhld_plain, _launch_bhld, """Kernel
+    `flash_fwd_bhld`: (q, k, v, kv_mask), pre-scaled f32 q [B, H, Lq, D], k/v
+    [B, H, Lk, D], kv_mask [B, Lk] bool -> (o [B, H, Lq, D], lse [B, H, Lq]
+    f32).""")
+flash_fwd_bhld_bf16 = _kernel("flash_fwd_bhld_bf16", flash_fwd_bhld_plain, _launch_bhld, """
+    Kernel `flash_fwd_bhld_bf16`: `flash_fwd_bhld` on bf16 q, k, v with
+    f32-exact products -> (o bf16, lse f32).""")
+flash_fwd_bhld_mxu = _kernel("flash_fwd_bhld_mxu", flash_fwd_bhld_mxu_plain, _launch_bhld, """
+    Kernel `flash_fwd_bhld_mxu`: `flash_fwd_bhld` with every product's
+    operands rounded to bf16, P per key block of `classic_block_k` as JAX's
+    blocked kernel rounds it; q, k, v f32 or bf16, o in their dtype.""")
+flash_bwd_bhld_fused = _kernel(
+    "flash_bwd_bhld_fused", flash_bwd_bhld_fused_plain, _launch_bhld, """Kernel
+    `flash_bwd_bhld_fused`: (q, k, v, kv_mask, do, lse, delta), f32 q/do [B,
+    H, Lq, D], k/v [B, H, Lk, D], lse and delta = rowsum(dO * O) [B, H, Lq]
+    f32 -> (dq, dk, dv), one launch. Meant for single-block shapes
+    (`single_block`), as on the TPU; right for any shape.""")
+flash_bwd_bhld_fused_bf16 = _kernel(
+    "flash_bwd_bhld_fused_bf16", flash_bwd_bhld_fused_plain, _launch_bhld, """Kernel
+    `flash_bwd_bhld_fused_bf16`: `flash_bwd_bhld_fused` on bf16 q, k, v, dO
+    with f32-exact products -> bf16 (dq, dk, dv).""")
+flash_bwd_bhld_fused_mxu = _kernel(
+    "flash_bwd_bhld_fused_mxu", flash_bwd_bhld_fused_mxu_plain, _launch_bhld, """Kernel
+    `flash_bwd_bhld_fused_mxu`: `flash_bwd_bhld_fused` with every product's
+    operands (P and dS too) rounded to bf16; q, k, v, dO f32 or bf16, the
+    gradients in their dtype.""")
+flash_bwd_dq = _kernel("flash_bwd_dq", flash_bwd_dq_plain, _launch_bhld, """Kernel
+    `flash_bwd_dq`: inputs as `flash_bwd_bhld_fused` -> dq.""")
+flash_bwd_dq_bf16 = _kernel("flash_bwd_dq_bf16", flash_bwd_dq_plain, _launch_bhld, """Kernel
+    `flash_bwd_dq_bf16`: `flash_bwd_dq` on bf16 operands, f32-exact products.""")
+flash_bwd_dq_mxu = _kernel("flash_bwd_dq_mxu", flash_bwd_dq_mxu_plain, _launch_bhld, """Kernel
+    `flash_bwd_dq_mxu`: `flash_bwd_dq` with every product's operands rounded
+    to bf16.""")
+flash_bwd_dkv = _kernel("flash_bwd_dkv", flash_bwd_dkv_plain, _launch_bhld, """Kernel
+    `flash_bwd_dkv`: inputs as `flash_bwd_bhld_fused` -> (dk, dv).""")
+flash_bwd_dkv_bf16 = _kernel("flash_bwd_dkv_bf16", flash_bwd_dkv_plain, _launch_bhld, """
+    Kernel `flash_bwd_dkv_bf16`: `flash_bwd_dkv` on bf16 operands, f32-exact
+    products.""")
+flash_bwd_dkv_mxu = _kernel("flash_bwd_dkv_mxu", flash_bwd_dkv_mxu_plain, _launch_bhld, """
+    Kernel `flash_bwd_dkv_mxu`: `flash_bwd_dkv` with every product's operands
+    rounded to bf16.""")
 
 KERNELS = (flash_fwd_ble, flash_fwd_bhld, flash_bwd_ble, flash_bwd_bhld_fused,
            flash_bwd_dq, flash_bwd_dkv, flash_fwd_ble_bf16, flash_fwd_ble_mxu,
-           flash_bwd_ble_bf16, flash_bwd_ble_mxu)
+           flash_bwd_ble_bf16, flash_bwd_ble_mxu,
+           flash_fwd_bhld_bf16, flash_fwd_bhld_mxu, flash_bwd_bhld_fused_bf16,
+           flash_bwd_bhld_fused_mxu, flash_bwd_dq_bf16, flash_bwd_dq_mxu,
+           flash_bwd_dkv_bf16, flash_bwd_dkv_mxu)
 
 
 def reset_launch_counts() -> None:
@@ -575,14 +584,23 @@ def single_block(Lq: int, Lk: int) -> bool:
     return -(-Lq // 8) * 8 <= SINGLE_BLOCK_Q and -(-Lk // 128) * 128 <= SINGLE_BLOCK_K
 
 
+def _wrappers(names, dtype, mxu_bf16: bool) -> tuple:
+    """The wrappers of kernels `names` in the mode that the operands' dtype
+    and `mxu_bf16` select, looked up when called."""
+    mode = "_mxu" if mxu_bf16 else "_bf16" if dtype == torch.bfloat16 else ""
+    return tuple(globals()[name + mode] for name in names)
+
+
 def _ble_kernels(dtype, mxu_bf16: bool):
-    """The (forward, backward) wrappers of the ble pair for the operands'
-    dtype and the product mode, looked up when called."""
-    if mxu_bf16:
-        return flash_fwd_ble_mxu, flash_bwd_ble_mxu
-    if dtype == torch.bfloat16:
-        return flash_fwd_ble_bf16, flash_bwd_ble_bf16
-    return flash_fwd_ble, flash_bwd_ble
+    """The (forward, backward) wrappers of the ble pair."""
+    return _wrappers(("flash_fwd_ble", "flash_bwd_ble"), dtype, mxu_bf16)
+
+
+def _bhld_kernels(dtype, mxu_bf16: bool):
+    """The (forward, fused backward, dq, dk/dv) wrappers of the classic
+    layout."""
+    return _wrappers(("flash_fwd_bhld", "flash_bwd_bhld_fused", "flash_bwd_dq",
+                      "flash_bwd_dkv"), dtype, mxu_bf16)
 
 
 class FlashAttentionBLE(torch.autograd.Function):
@@ -610,12 +628,13 @@ class FlashAttentionBLE(torch.autograd.Function):
 class FlashAttentionBHLD(torch.autograd.Function):
     """o = flash_fwd_bhld(q, k, v) with the JAX package's backward dispatch:
     `flash_bwd_bhld_fused` for single-block shapes, else `flash_bwd_dq` and
-    `flash_bwd_dkv`. delta = rowsum(dO * O) in f32 is a plain tensor op
-    here, as on the TPU."""
+    `flash_bwd_dkv`; or the bf16 / `mxu_bf16` modes of the same kernels
+    (`_bhld_kernels`). delta = rowsum(dO * O) in f32 (from the f32 upcast of
+    dO and O) is a plain tensor op here, as on the TPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, mxu_bf16=False):
-        o, lse = flash_fwd_bhld(q, k, v, kv_mask, mxu_bf16)
+        o, lse = _bhld_kernels(q.dtype, mxu_bf16)[0](q, k, v, kv_mask)
         ctx.save_for_backward(q, k, v, kv_mask, o, lse)
         ctx.mxu_bf16 = mxu_bf16
         return o
@@ -624,14 +643,15 @@ class FlashAttentionBHLD(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, do):
         q, k, v, kv_mask, o, lse = ctx.saved_tensors
+        _, fused, dq_kernel, dkv_kernel = _bhld_kernels(q.dtype, ctx.mxu_bf16)
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(-1)
-        args = (q, k, v, kv_mask, do, lse, delta, ctx.mxu_bf16)
+        args = (q, k, v, kv_mask, do, lse, delta)
         if single_block(q.shape[2], k.shape[2]):
-            dq, dk, dv = flash_bwd_bhld_fused(*args)
+            dq, dk, dv = fused(*args)
         else:
-            dq = flash_bwd_dq(*args)
-            dk, dv = flash_bwd_dkv(*args)
+            dq = dq_kernel(*args)
+            dk, dv = dkv_kernel(*args)
         return dq, dk, dv, None, None
 
 

@@ -56,11 +56,21 @@ optimizer state, z, alpha, the interpolates, the noise and the penalty's
 norm stay f32 (the penalty's gradient reaches the interpolates in f32
 through the trunk's casts), as in the JAX engine.
 
-Not ported (raise `NotImplementedError`): `grad_accum > 1`,
-`hoist_fakes=True` on the per_update batched path, and what
-`models.gan.check_supported` refuses (sequence parallelism, other
-fusions). `critic_scan` changes nothing here: the critic updates are a
-Python loop either way.
+`train.grad_accum` = M > 1 accumulates, as the JAX engine does: each
+update takes its batch in M strided microbatches (sample i in microbatch
+i % M), every per-sample draw (z, alpha, the instance noise) made once at
+full batch and sliced the same way, the generator's (and, for the
+generator update, the critic's) per_update embedding made once at full
+batch; gradients and metrics are averaged over the M, then the optimizer
+updates once. At dropout 0 that is the full-batch step up to the
+summation order. The microbatches are a loop inside the step, so a CUDA
+graph captures them all; a batch that M does not divide raises
+`ValueError`.
+
+Not ported (raise `NotImplementedError`): `hoist_fakes=True` on the
+per_update batched path, and what `models.gan.check_supported` refuses
+(sequence parallelism, other fusions). `critic_scan` changes nothing here:
+the critic updates are a Python loop either way.
 """
 
 from __future__ import annotations
@@ -98,6 +108,23 @@ def _buffer_dtype(x: torch.Tensor) -> torch.dtype:
 def _row(buffer: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """Row `i` (a one-element device index) of `buffer`, on the device."""
     return buffer.index_select(0, i)[0]
+
+
+def _micro(x, m: int, M: int):
+    """Microbatch `m` of `M` of a batch-leading tensor (or a dict of them,
+    or None): the strided samples m, m + M, m + 2M, ..., as the JAX engine
+    regroups them; the batch itself when M is 1."""
+    if M == 1 or x is None:
+        return x
+    if isinstance(x, dict):
+        return {k: v[m::M] for k, v in x.items()}
+    return x[m::M]
+
+
+def _accumulate(total, part):
+    """Element-wise sums of two equal-length sequences of tensors (`total`
+    None at the first part)."""
+    return list(part) if total is None else [a + b for a, b in zip(total, part)]
 
 
 class _StepGraph:
@@ -175,12 +202,10 @@ class WGANGPEngine:
             raise ValueError(f"cond_embed_reuse must be 'per_call' or 'per_update', "
                              f"got {t.cond_embed_reuse!r}")
         self.reuse = t.cond_embed_reuse == "per_update"
-        for name, unported in (
-                ("train.grad_accum > 1", t.grad_accum > 1),
-                ("train.hoist_fakes=True", t.hoist_fakes and self.reuse
-                 and t.batched_scores)):
-            if unported:
-                raise NotImplementedError(f"{name} is not ported")
+        if t.grad_accum < 1:
+            raise ValueError(f"train.grad_accum must be >= 1, got {t.grad_accum}")
+        if t.hoist_fakes and self.reuse and t.batched_scores:
+            raise NotImplementedError("train.hoist_fakes=True is not ported")
         self.cfg = cfg
         self.steps_per_epoch = steps_per_epoch
         self.device = resolve_device(device)
@@ -231,11 +256,17 @@ class WGANGPEngine:
         state.d_opt.count += n * self.cfg.train.n_critic
 
     # ------------------------------------------------------------- the step
+    def _check_batch_size(self, B: int) -> None:
+        M = self.cfg.train.grad_accum
+        if B % M:
+            raise ValueError(f"batch size {B} is not divisible by train.grad_accum={M}")
+
     def _tensors(self, batch: Batch):
         """(real [B, n_genes] f32, cond dict or None) on the device."""
         missing = [k for k in ("genes", *self.keys) if k not in batch]
         if missing:
             raise ValueError(f"batch lacks keys {missing}")
+        self._check_batch_size(len(batch["genes"]))
         real = torch.as_tensor(batch["genes"], dtype=torch.float32, device=self.device)
         cond = ({k: to_device(batch[k], self.device) for k in self.keys}
                 if self.keys else None)
@@ -292,36 +323,63 @@ class WGANGPEngine:
         D(fake)). The update descends that loss + gp_weight * gp (+ drift).
         `noise` = (gate, noise_real, noise_fake) adds instance noise, gate *
         noise * norm_scale, to real and fake. Advances the critic
-        optimizer's device count only (`_advance` does the host's)."""
+        optimizer's device count only (`_advance` does the host's).
+
+        With `train.grad_accum` = M > 1 the batch is taken in M strided
+        microbatches (`_micro`), each with its slice of the full-batch draws
+        and of `g_cvec`; their gradients and the returned terms are averaged,
+        then the optimizer updates once."""
         t = self.cfg.train
-        with torch.no_grad():
-            fake = (state.gen.score(z, g_cvec) if g_cvec is not None
-                    else state.gen(z, cond))
-        if noise is not None:
-            gate, noise_real, noise_fake = noise
-            fake = fake + gate * (noise_fake * t.norm_scale)
-            real = real + gate * (noise_real * t.norm_scale)
-        d_real, d_fake, gp = self._critic_scores(state.critic, real, fake, cond, alpha)
-        loss = losses.d_loss(d_real, d_fake)[0]
-        total = loss + t.gp_weight * gp
-        if t.drift_epsilon > 0:
-            total = total + t.drift_epsilon * losses.drift_penalty(d_real, d_fake)
-        state.d_opt.update(torch.autograd.grad(total, state.d_opt.params))
-        return tuple(x.detach() for x in (loss, gp, d_real.mean(), d_fake.mean()))
+        M = t.grad_accum
+        grads = aux = None
+        for m in range(M):
+            real_m, cond_m, g_cvec_m, z_m = (_micro(x, m, M) for x in (real, cond, g_cvec, z))
+            with torch.no_grad():
+                fake = (state.gen.score(z_m, g_cvec_m) if g_cvec_m is not None
+                        else state.gen(z_m, cond_m))
+            if noise is not None:
+                gate, noise_real, noise_fake = noise
+                fake = fake + gate * (_micro(noise_fake, m, M) * t.norm_scale)
+                real_m = real_m + gate * (_micro(noise_real, m, M) * t.norm_scale)
+            d_real, d_fake, gp = self._critic_scores(state.critic, real_m, fake, cond_m,
+                                                     _micro(alpha, m, M))
+            loss = losses.d_loss(d_real, d_fake)[0]
+            total = loss + t.gp_weight * gp
+            if t.drift_epsilon > 0:
+                total = total + t.drift_epsilon * losses.drift_penalty(d_real, d_fake)
+            grads = _accumulate(grads, torch.autograd.grad(total, state.d_opt.params))
+            aux = _accumulate(aux, (x.detach() for x in (loss, gp, d_real.mean(),
+                                                           d_fake.mean())))
+        if M > 1:
+            grads, aux = [g / M for g in grads], [a / M for a in aux]
+        state.d_opt.update(grads)
+        return tuple(aux)
 
     def generator_update(self, state: GANTrainState, cond, z) -> torch.Tensor:
-        """One generator update; returns the detached generator loss."""
+        """One generator update; returns the detached generator loss. With
+        `train.grad_accum` = M > 1, M strided microbatches of `z` (and
+        `cond`), gradients and loss averaged; under per_update the critic
+        embeds the full batch once, sliced per microbatch."""
         critic = state.critic
+        M = self.cfg.train.grad_accum
         d_cvec = None
         if self.reuse and cond is not None:
             # no generator gradient flows through the critic's fusion
             with torch.no_grad():
                 d_cvec = critic.embed_cond(cond)
-        fake = state.gen(z, cond)
-        scores = critic.score(fake, d_cvec) if d_cvec is not None else critic(fake, cond)
-        gl = losses.g_loss(scores)
-        state.g_opt.update(torch.autograd.grad(gl, state.g_opt.params))
-        return gl.detach()
+        grads = gl = None
+        for m in range(M):
+            cond_m = _micro(cond, m, M)
+            fake = state.gen(_micro(z, m, M), cond_m)
+            scores = (critic.score(fake, _micro(d_cvec, m, M)) if d_cvec is not None
+                      else critic(fake, cond_m))
+            loss = losses.g_loss(scores)
+            grads = _accumulate(grads, torch.autograd.grad(loss, state.g_opt.params))
+            gl = loss.detach() if gl is None else gl + loss.detach()
+        if M > 1:
+            grads, gl = [g / M for g in grads], gl / M
+        state.g_opt.update(grads)
+        return gl
 
     @torch.no_grad()
     def _update_ema(self, state: GANTrainState) -> None:
@@ -337,6 +395,7 @@ class WGANGPEngine:
         """The step's device work on device inputs; no host state changes
         and no host synchronisation, so a CUDA graph can capture it."""
         t = self.cfg.train
+        self._check_batch_size(real.shape[0])
         if draws is None:
             draws = self._draws(state, real.shape[0])
         state.gen.train()

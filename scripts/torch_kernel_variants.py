@@ -57,8 +57,7 @@ LO_RAW = [("lo = to_tf32(x - __uint_as_float(hi));",
            "lo = __float_as_uint(x - __uint_as_float(hi));")]
 NO_WARP_SKIP = [("if (__any_sync(0xffffffffu, key_ok[0] || key_ok[1])) {", "if (true) {")]
 FWD_LB = "__launch_bounds__(kThreads)"
-BWD_LB = "__launch_bounds__(Cfg<D>::kThreads)"
-BLOCKS_3 = (BWD_LB, "__launch_bounds__(Cfg<D>::kThreads, 3)")  # at most 168 registers
+BLOCKS_3 = (FWD_LB, "__launch_bounds__(kThreads, 3)")  # Q4, Q5: at most 168 registers
 DKV_BQ32 = ("kQueries = D <= 64 ? 64 : 32;", "kQueries = 32;")
 # Q6 with 32-row tiles: 2 warps, and 32-query dk/dv tiles
 FUSED_2_WARPS = ("constexpr int kWarps = 4;", "constexpr int kWarps = 2;")
@@ -104,19 +103,19 @@ VARIANTS = {
     # 2, 4 or 8 warps; 3 blocks per SM
     "dq_parent": ("parent", "flash_bwd.cu", "flash_bwd_dq", {}),
     "dq": ("new", "flash_bwd_dq.cu", "flash_bwd_dq", {}),
-    "dq_bk32": ("new", "flash_bwd_dq.cu", "flash_bwd_dq", {"flash_bwd_dq.cu": [DQ_BK32]}),
-    **{f"dq_held{n}": ("new", "flash_bwd_dq.cu", "flash_bwd_dq", {"flash_bwd_dq.cu": [held(n)]})
+    "dq_bk32": ("new", "flash_bwd_dq.cu", "flash_bwd_dq", {"flash_bwd_dq.cuh": [DQ_BK32]}),
+    **{f"dq_held{n}": ("new", "flash_bwd_dq.cu", "flash_bwd_dq", {"flash_bwd_dq.cuh": [held(n)]})
        for n in (0, 2)},
     **{f"dq_held{n}_bk32": ("new", "flash_bwd_dq.cu", "flash_bwd_dq",
-                            {"flash_bwd_dq.cu": [held(n), DQ_BK32]}) for n in (0, 2)},
-    **{f"dq_{w}_warps": ("new", "flash_bwd_dq.cu", "flash_bwd_dq", {"flash_bwd_dq.cu": [warps(w)]})
+                            {"flash_bwd_dq.cuh": [held(n), DQ_BK32]}) for n in (0, 2)},
+    **{f"dq_{w}_warps": ("new", "flash_bwd_dq.cu", "flash_bwd_dq", {"flash_bwd_dq.cuh": [warps(w)]})
        for w in (2, 8)},
     "dq_held0_bk32_2_warps": ("new", "flash_bwd_dq.cu", "flash_bwd_dq",
-                              {"flash_bwd_dq.cu": [held(0), DQ_BK32, warps(2)]}),
+                              {"flash_bwd_dq.cuh": [held(0), DQ_BK32, warps(2)]}),
     "dq_bk32_3_blocks": ("new", "flash_bwd_dq.cu", "flash_bwd_dq",
-                         {"flash_bwd_dq.cu": [DQ_BK32, BLOCKS_3]}),
+                         {"flash_bwd_dq.cuh": [DQ_BK32, BLOCKS_3]}),
     "dq_held0_bk32_3_blocks": ("new", "flash_bwd_dq.cu", "flash_bwd_dq",
-                               {"flash_bwd_dq.cu": [held(0), DQ_BK32, BLOCKS_3]}),
+                               {"flash_bwd_dq.cuh": [held(0), DQ_BK32, BLOCKS_3]}),
     # flash_bwd_dkv (Q5), whole-slide
     "dkv_parent": ("parent", "flash_bwd_dkv.cu", "flash_bwd_dkv", {}),
     "dkv": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv", {}),
@@ -125,9 +124,9 @@ VARIANTS = {
     "dkv_cvt_rna": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv", {"tf32x3.cuh": CVT_RNA}),
     "dkv_no_warp_skip": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv",
                          {"flash_bwd_tc.cuh": NO_WARP_SKIP}),
-    "dkv_bq32": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv", {"flash_bwd_dkv.cu": [DKV_BQ32]}),
+    "dkv_bq32": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv", {"flash_bwd_dkv.cuh": [DKV_BQ32]}),
     "dkv_bq32_3_blocks": ("new", "flash_bwd_dkv.cu", "flash_bwd_dkv",
-                          {"flash_bwd_dkv.cu": [DKV_BQ32, BLOCKS_3]}),
+                          {"flash_bwd_dkv.cuh": [DKV_BQ32, BLOCKS_3]}),
     # flash_bwd_ble (Q2), canonical: the ble instantiation of Q6's template,
     # 32-query dk/dv tiles (shipped) or 64; 32-row tiles (2 warps)
     "ble_bwd_parent": ("parent", "flash_bwd.cu", "flash_bwd_ble", {}),

@@ -235,6 +235,8 @@ def test_film_matches_flax_in_bf16():
     (130, 130, True, "ble", True),    # Q1's mxu_bf16 mode
     (130, 130, True, "bhld", False),  # the classic layout's plain version
     (600, 600, True, "ble", True),    # > BLE_MAX_L: the blocked classic path
+    (600, 600, True, "ble", False),   # > BLE_MAX_L in bf16: Q3, Q4, Q5's bf16 modes
+    (600, 600, True, "bhld", False),  # the classic layout, three key blocks
     (130, 130, False, "ble", False),  # kernels off
 ])
 def test_masked_multi_head_attention_matches_flax_in_bf16(Lq, Lk, use_pallas, layout, mxu,

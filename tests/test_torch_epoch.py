@@ -179,3 +179,26 @@ def test_launch_counts_of_a_replayed_graph():
     assert tfa.launch_counts() == {**dict.fromkeys(tfa.launch_counts(), 0),
                                    "flash_fwd_ble": 64, "flash_bwd_ble": 36}
     tfa.reset_launch_counts()
+
+
+def test_grad_accum_graphed_epoch_body_matches_eager_steps_bit_for_bit():
+    """On the CPU `step_many_cached` runs the body a CUDA graph captures on
+    the card, the microbatch loop inside it; with `grad_accum=2` (dropout
+    0.1) an epoch of it equals the eager steps over `cache.epoch(0)` bit for
+    bit."""
+    cfg = _port_cfg(_with_train(_jax_cfg(dropout=0.1), grad_accum=2))
+    cache = _cache()
+    batch = next(iter(cache.epoch(0)))
+    runs = []
+    for cached in (True, False):
+        eng = WGANGPEngine(cfg, steps_per_epoch=3, device="cpu")
+        torch.manual_seed(0)
+        state = eng.init_state(0, batch)
+        if cached:
+            state, m = eng.step_many_cached(state, cache, 0)
+        else:
+            for b in cache.epoch(0):
+                state, m = eng.step(state, b)
+        runs.append((state, m))
+    _assert_same(*runs)
+    assert all(np.isfinite(float(v)) for v in runs[0][1].values())

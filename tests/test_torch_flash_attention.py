@@ -197,9 +197,11 @@ def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC_DIR", str(src))
     assert build.library_path() == first  # same sources, same library
     assert build.sources() == [n for n in names if n.endswith(".cu")]
-    assert build.sources() == ["flash_bwd_bf16.cu", "flash_bwd_dkv.cu", "flash_bwd_dq.cu",
+    assert build.sources() == ["flash_bwd_bf16.cu", "flash_bwd_bhld_bf16.cu",
+                              "flash_bwd_bhld_mxu.cu", "flash_bwd_dkv.cu",
+                              "flash_bwd_dkv_bf16.cu", "flash_bwd_dq.cu", "flash_bwd_dq_bf16.cu",
                               "flash_bwd_fused.cu", "flash_bwd_mxu.cu", "flash_fwd.cu",
-                              "flash_fwd_bf16.cu"]
+                              "flash_fwd_bf16.cu", "flash_fwd_bhld_bf16.cu"]
     # a header is part of the key: editing it must not load a stale library
     (src / "tf32x3.cuh").write_text("// changed\n")
     header_changed = build.library_path()

@@ -2,9 +2,9 @@
 
 `chip_smoke.py` names every kernel template instantiation in nvcc's ptxas
 report by its entry point (both layouts of the forward template and of the
-fused backward template, which holds flash_bwd_ble (Q2), the dq kernel
-(Q4), and the bf16 product modes of Q1 and Q2 among them), and must fail on
-one it does not know rather than leave it out; `scripts/torch_kernel_variants.py` builds its variants by text
+fused backward template, the dq (Q4) and dk/dv (Q5) kernels, and the bf16
+product modes of every kernel), and must fail on one it does not know
+rather than leave it out; `scripts/torch_kernel_variants.py` builds its variants by text
 substitution of the sources under `csrc/`, so every substitution must
 still find its target there (Q2's and Q4's variants included).
 """
@@ -57,6 +57,34 @@ MANGLED = {
         ("flash_bwd_ble_mxu", 64),
     "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64EEEvN12flash_bwd_tc4ArgsIfEE":
         ("flash_bwd_dq", 64),
+    # the classic layout's kernels with their product mode
+    "_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELb0ELi1EEEvNS_4ArgsI13__nv_bfloat16EE":
+        ("flash_fwd_bhld_bf16", 64),
+    "_ZN12_GLOBAL__N_116flash_fwd_kernelILi8ELb0ELi2EEEvNS_4ArgsIfEE": ("flash_fwd_bhld_mxu", 8),
+    "_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELb0ELi3EEEvNS_4ArgsI13__nv_bfloat16EE":
+        ("flash_fwd_bhld_mxu", 64),
+    "_ZN12_GLOBAL__N_122flash_bwd_fused_kernelILi64ELb0ELi1EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EEi":
+        ("flash_bwd_bhld_fused_bf16", 64),
+    "_ZN12_GLOBAL__N_122flash_bwd_fused_kernelILi128ELb0ELi2EEEvN12flash_bwd_tc4ArgsIfEEi":
+        ("flash_bwd_bhld_fused_mxu", 128),
+    "_ZN12_GLOBAL__N_122flash_bwd_fused_kernelILi64ELb0ELi3EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EEi":
+        ("flash_bwd_bhld_fused_mxu", 64),
+    "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64ELi0EEEvN12flash_bwd_tc4ArgsIfEE":
+        ("flash_bwd_dq", 64),
+    "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64ELi1EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EE":
+        ("flash_bwd_dq_bf16", 64),
+    "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi16ELi2EEEvN12flash_bwd_tc4ArgsIfEE":
+        ("flash_bwd_dq_mxu", 16),
+    "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64ELi3EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EE":
+        ("flash_bwd_dq_mxu", 64),
+    "_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelILi32ELi0EEEvN12flash_bwd_tc4ArgsIfEE":
+        ("flash_bwd_dkv", 32),
+    "_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelILi64ELi1EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EE":
+        ("flash_bwd_dkv_bf16", 64),
+    "_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelILi8ELi2EEEvN12flash_bwd_tc4ArgsIfEE":
+        ("flash_bwd_dkv_mxu", 8),
+    "_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelILi64ELi3EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EE":
+        ("flash_bwd_dkv_mxu", 64),
 }
 
 
@@ -74,8 +102,8 @@ def test_every_kernel_has_a_ptxas_name():
     # the CUDA-core backward template of earlier sources (flash_bwd.cu), gone
     "_ZN12_GLOBAL__N_116flash_bwd_kernelILi64ELb1ELb1ELb1EEEvNS_4ArgsEi",
     "_ZN12_GLOBAL__N_121flash_fwd_bhld_kernelILi64EEEvNS_4ArgsE",
-    # no bf16 mode of the classic layout is built (ROADMAP K1)
-    "_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELb0ELi1EEEvNS_4ArgsI13__nv_bfloat16EE",
+    # a product mode that flash_ops.cuh does not define
+    "_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELb0ELi4EEEvNS_4ArgsI13__nv_bfloat16EE",
     "_Z6helperv",
 ])
 def test_unknown_ptxas_names_raise(mangled):

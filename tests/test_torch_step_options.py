@@ -1,12 +1,16 @@
 """The step's options that the port took over in its epoch-loop slice,
 against the JAX package on the CPU: Adam and AdamW under the halving
-schedule with clipping (against optax), the generator's EMA and instance
-noise (`p_aug`) (against the JAX engine, with the draws rebuilt from its key
-schedule, dropout 0).
+schedule with clipping (against optax), the generator's EMA, instance
+noise (`p_aug`) and gradient accumulation (`grad_accum`) (against the JAX
+engine, with the draws rebuilt from its key schedule, dropout 0).
 
 Tolerances: optimizer trajectories on identical gradients rtol 1e-5 / atol
 1e-8; the EMA's closed form rtol 1e-6 / atol 1e-7 (tests/test_engine.py);
-whole steps as tests/test_torch_train.py holds them.
+whole steps as tests/test_torch_train.py holds them, also the accumulated
+step against the port's own full-batch step (the full-batch run's RMSprop
+accumulator tells the entries whose gradient is rounding: a reordered sum
+flips their +-10 lr move; the second step's metrics come from params moved
+apart so: measured 1.3e-3 relative in g_loss).
 """
 
 import dataclasses
@@ -21,8 +25,9 @@ from gemm_gan_tpu.train.schedules import make_optimizer
 from gemm_gan_tpu.train.wgan import WGANGPEngine as JEngine
 from gemm_gan_tpu_torch.train.schedules import ScheduledOptimizer
 from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
-from test_torch_train import (STEP_ATOL, STEP_RTOL, B, _assert_params_match, _batches, _close,
-                              _jax_cfg, _jax_draws, _no_launches_on_cpu, _port_cfg, _t)
+from test_torch_train import (NEGLIGIBLE_GRAD, PARAM_ATOL, STEP_ATOL, STEP_RTOL, B,
+                              _assert_params_match, _batches, _close, _jax_cfg, _jax_draws,
+                              _no_launches_on_cpu, _port_cfg, _t)
 
 assert _no_launches_on_cpu  # the autouse fixture applies here too
 
@@ -164,3 +169,59 @@ def test_instance_noise_draws_from_the_state_rng():
 
     assert torch.equal(step(1.0), step(1.0))
     assert not torch.equal(step(1.0), step(0.0))
+
+
+@pytest.mark.parametrize("reuse,train_kw", [
+    ("per_update", {}),              # the production path: batched_scores, per_update
+    ("per_call", {}),                # the library default
+    ("per_update", dict(p_aug=0.5)),  # instance noise sliced per microbatch
+])
+def test_grad_accum_steps_match_jax_engine(reuse, train_kw):
+    """Two steps with `grad_accum=2` (batch 4: two strided microbatches of
+    2) against the JAX engine's accumulated steps, the same full-batch draws
+    (`jax_draws`, unchanged by accumulation)."""
+    jcfg = _with_train(_jax_cfg(reuse), grad_accum=2, **train_kw)
+    _two_steps_match(jcfg, seed=3)
+
+
+@pytest.mark.parametrize("reuse", ["per_update", "per_call"])
+def test_grad_accum_step_equals_full_batch_step(reuse):
+    """Twin of tests/test_grad_accum.py: at dropout 0 the accumulated step
+    is the full-batch step, up to the summation order."""
+    batches = _batches()
+    runs = []
+    for accum in (1, 2):
+        cfg = _port_cfg(_with_train(_jax_cfg(reuse), grad_accum=accum, p_aug=0.5))
+        eng = WGANGPEngine(cfg, steps_per_epoch=2, device="cpu")
+        state = eng.init_state(0, batches[0])
+        for batch in batches:
+            state, metrics = eng.step(state, batch)
+        runs.append((state, metrics))
+    (full, m_full), (acc, m_acc) = runs
+    for k in m_full:
+        _close(m_acc[k], m_full[k].numpy(), STEP_RTOL, STEP_ATOL, k)
+    for net, got, want in (("generator", acc.g_opt, full.g_opt),
+                           ("critic", acc.d_opt, full.d_opt)):
+        rms = [nu.sqrt() for nu in want.nu]
+        net_rms = float(torch.cat([r.flatten() for r in rms]).square().mean().sqrt())
+        negligible, total = 0, 0
+        for p_got, p_want, r in zip(got.params, want.params, rms):
+            diff = (p_got - p_want).detach().abs()
+            sure = (r > NEGLIGIBLE_GRAD * net_rms) | (r == 0)
+            assert not bool((diff[sure] > PARAM_ATOL).any()), (net, float(diff.max()))
+            assert float(diff.max()) <= 2 * 10 * want.base_lr * want.count, net
+            negligible += int((~sure).sum())
+            total += diff.numel()
+        assert negligible < 0.05 * total, (net, negligible, total)
+
+
+def test_grad_accum_rejects_an_indivisible_batch():
+    cfg = _port_cfg(_with_train(_jax_cfg(), grad_accum=3))
+    eng = WGANGPEngine(cfg, device="cpu")
+    batch = _batches(1)[0]
+    with pytest.raises(ValueError, match="not divisible"):
+        eng.init_state(0, batch)
+    state = WGANGPEngine(_port_cfg(_jax_cfg()), device="cpu").init_state(0, batch)
+    with pytest.raises(ValueError, match="not divisible"):
+        eng.step(state, batch)
+
