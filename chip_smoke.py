@@ -7,8 +7,9 @@ imports nothing of JAX or of the JAX package. Phases:
 
 1. Build the CUDA kernels from `gemm_gan_tpu_torch/kernels/csrc/` (one nvcc
    per source, in parallel, into the ignored build dir) and print the build
-   time, nvcc's register/spill/shared-memory report for every kernel and
-   head dim and product mode (a kernel template it cannot name raises),
+   time, nvcc's register/spill/shared-memory report and ptxas' advice
+   (such as wgmma serialized) for every kernel and head dim and product
+   mode (a kernel template it cannot name raises),
    every kernel's dynamic shared memory and blocks per SM (all eighteen
    (kernel, mode) entry points run on the tensor cores), and the card's
    name and power limit.
@@ -22,7 +23,9 @@ imports nothing of JAX or of the JAX package. Phases:
    The bf16 modes of every kernel (`<kernel>_bf16` and `<kernel>_mxu`;
    mxu_bf16 on bf16 and on f32 inputs; Q3-Q5 at the whole-slide shape, Q1,
    Q2, Q6 at L 257, and ragged, fully-masked, D 8 / 128 and, for the
-   classic forward, Lk 600 cases: BF16_SHAPES) are held to their plain
+   classic forward, Lk 600 cases; Q2 and Q6, whose bf16-ref modes run the
+   wgmma tiles, also at L 512, Lq 300 against Lk 257 and D 16 / 32, their
+   main path shape three times: BF16_SHAPES) are held to their plain
    versions within BF16_ULPS bf16 ulp of each row's largest entry (each
    side rounds once from f32), lse within LSE_ATOL, and timed on bf16
    inputs against the library's bf16 SDPA.
@@ -262,7 +265,13 @@ PTXAS_ENTRIES = {("flash_fwd_kernel", (1,)): "flash_fwd_ble",
                  ("flash_bwd_dq_kernel", (), 3): "flash_bwd_dq_mxu",
                  ("flash_bwd_dkv_kernel", (), 1): "flash_bwd_dkv_bf16",
                  ("flash_bwd_dkv_kernel", (), 2): "flash_bwd_dkv_mxu",
-                 ("flash_bwd_dkv_kernel", (), 3): "flash_bwd_dkv_mxu"}
+                 ("flash_bwd_dkv_kernel", (), 3): "flash_bwd_dkv_mxu",
+                 # the bf16-ref modes of Q2 and Q6 on the wgmma tiles
+                 # (csrc/flash_bwd_wg.cuh), D 16, 32, 64
+                 ("flash_bwd_wg_kernel", (1,), 1): "flash_bwd_ble_bf16",
+                 ("flash_bwd_wg_kernel", (1,), 3): "flash_bwd_ble_mxu",
+                 ("flash_bwd_wg_kernel", (0,), 1): "flash_bwd_bhld_fused_bf16",
+                 ("flash_bwd_wg_kernel", (0,), 3): "flash_bwd_bhld_fused_mxu"}
 MODE_REFS = {2: " (f32 refs)", 3: " (bf16 refs)"}
 
 
@@ -293,6 +302,32 @@ def ptxas_label(mangled: str) -> str:
     """"entry D=d" of an instantiation, with mxu_bf16's element type."""
     entry, D = ptxas_entry(mangled)
     return f"{entry} D={D}{MODE_REFS.get(_ptxas_key(mangled)[2], '')}"
+
+
+def ptxas_records(log: str):
+    """(mangled kernel name, text) for each line of nvcc's ptxas -v output
+    worth printing: "" where a kernel's own report starts, then its
+    registers, spills and warnings; ptxas' advice (such as C7512, wgmma
+    serialized) under the function it names, which ptxas prints before
+    that function's own report."""
+    current = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        advice = re.search(r"\((C\d+)\) (.*?) for the function '(\w+)'", line)
+        if entry:
+            current = entry.group(1)
+            yield current, ""
+        elif advice:
+            yield advice.group(3), f"ptxas {advice.group(1)} {advice.group(2)}"
+        elif current and any(w in line for w in ("registers", "spill", "arning")):
+            yield current, line.replace("ptxas info    :", "").strip()
+
+
+def ptxas_report(log: str) -> list:
+    """Phase 1's lines of `ptxas_records`, each kernel by its label."""
+    return [f"    {ptxas_label(name)}:" if not text else
+            f"    {ptxas_label(name)}: {text}" if text.startswith("ptxas ") else f"      {text}"
+            for name, text in ptxas_records(log)]
 
 
 def card_line() -> str:
@@ -538,9 +573,11 @@ def time_bwd_kernel(fa, name, layout, H, args):
             "library_ms": library_ms, **device}
 
 
-def assert_rows_within_ulps(got, want, num_heads, what):
-    """Each row (one head's D entries) of `got` within BF16_ULPS bf16 ulps
-    of the largest entry of that row of `want` (exactly 0 where it is 0)."""
+def ulp_excess(got, want, num_heads) -> float:
+    """The largest amount by which an entry of `got` lies farther from
+    `want` than BF16_ULPS bf16 ulps of the largest entry of its row (one
+    head's D entries) of `want`; <= 0 when every row is within (a row of
+    `want` that is all 0 must be exactly 0)."""
     import torch
 
     shape = (*want.shape[:-1], num_heads, want.shape[-1] // num_heads)
@@ -548,7 +585,13 @@ def assert_rows_within_ulps(got, want, num_heads, what):
     top = w.abs().amax(-1, keepdim=True)
     _, e = torch.frexp(top)
     ulp = torch.where(top > 0, torch.ldexp(torch.ones_like(top), e - 8), torch.zeros_like(top))
-    excess = float(((g - w).abs() - BF16_ULPS * ulp).max())
+    return float(((g - w).abs() - BF16_ULPS * ulp).max())
+
+
+def assert_rows_within_ulps(got, want, num_heads, what):
+    """Each row (one head's D entries) of `got` within BF16_ULPS bf16 ulps
+    of the largest entry of that row of `want` (exactly 0 where it is 0)."""
+    excess = ulp_excess(got, want, num_heads)
     assert excess <= 0, (what, excess)
 
 
@@ -685,11 +728,20 @@ def time_bf16_kernel(fa, name, args) -> dict:
 # phase 2's shapes of the bf16 modes (B, H, Lq, Lk, D): each kernel's main
 # path shape first (checked ragged, then timed all-valid), then ragged ones
 # at D 8 / 64 / 128; the classic forward's Lk 600 is three key blocks of
-# 256, the last one short
+# 256, the last one short. The single-block backward (Q2, Q6), whose
+# bf16-ref modes run the wgmma tiles at D 16 / 32 / 64, also at L 512 (the
+# largest single-block length: 8 tiles of each kind, no tail), Lq 300
+# against Lk 257 (CrossAttentionFusion's text queries over the patches)
+# and D 16 / 32; its main path shape is checked MAIN_REPEATS times, so that
+# a missing fence shows as a mismatch.
+SINGLE_BLOCK_SHAPES = ((4, 4, 512, 512, 64), (2, 4, 300, 257, 64), (2, 2, 136, 260, 32),
+                       (2, 2, 136, 260, 16))
+MAIN_REPEATS = 3
 BF16_SHAPES = {
-    "ble": ((8, 4, 257, 257, 64), (2, 2, 136, 260, 8), (2, 2, 136, 260, 128)),
+    "ble": ((8, 4, 257, 257, 64), (2, 2, 136, 260, 8), (2, 2, 136, 260, 128),
+            *SINGLE_BLOCK_SHAPES),
     "bhld_fused": ((8, 4, 257, 257, 64), (2, 2, 130, 260, 64), (2, 2, 136, 260, 8),
-                   (2, 2, 136, 260, 128)),
+                   (2, 2, 136, 260, 128), *SINGLE_BLOCK_SHAPES),
     "bhld": ((8, 4, WHOLE_SLIDE_PATCHES + 1, WHOLE_SLIDE_PATCHES + 1, 64),
              (2, 2, 136, 600, 8), (2, 2, 136, 600, 64), (2, 2, 136, 600, 128)),
 }
@@ -707,10 +759,13 @@ def check_bf16_modes(fa, errs: dict, timed: dict) -> None:
     for i, name in enumerate(BF16_KERNELS):
         layout = kernel_layout(name)
         shapes = BF16_SHAPES["bhld_fused" if "bhld_fused" in name else layout]
+        repeats = MAIN_REPEATS if name.startswith(("flash_bwd_ble", "flash_bwd_bhld_fused")) else 1
         for dtype in ((torch.bfloat16, torch.float32) if "mxu" in name else (torch.bfloat16,)):
             for j, shape in enumerate(shapes):
-                err, _ = check_bf16_kernel(fa, name, *shape, True, 300 + 10 * i + j, dtype)
-                errs[name] = max(errs[name], err)
+                for r in range(repeats if j == 0 else 1):
+                    err, _ = check_bf16_kernel(fa, name, *shape, True,
+                                               300 + 10 * i + j + 1000 * r, dtype)
+                    errs[name] = max(errs[name], err)
         err, args = check_bf16_kernel(fa, name, *shapes[0], False, 400 + i, torch.bfloat16)
         errs[name] = max(errs[name], err)
         timed[name] = time_bf16_kernel(fa, name, args)
@@ -1327,12 +1382,8 @@ def main(argv=None) -> int:
     _, build_s, log = build.build()
     build.load()
     print(f"[1] built kernels in {build_s:.1f} s", flush=True)
-    for line in log.splitlines():  # ptxas -v, one entry per template instantiation
-        entry = re.search(r"Compiling entry function '(\w+)'", line)
-        if entry:
-            print(f"    {ptxas_label(entry.group(1))}:")
-        elif "registers" in line or "spill" in line:
-            print("      " + line.replace("ptxas info    :", "").strip())
+    for line in ptxas_report(log):  # ptxas -v, one entry per template instantiation
+        print(line)
     for name in build.TENSOR_CORE_KERNELS:  # dynamic shared memory
         for D in fa.HEAD_DIMS:
             smem, blocks = build.occupancy(name, D)

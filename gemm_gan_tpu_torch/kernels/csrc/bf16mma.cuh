@@ -147,6 +147,28 @@ __device__ __forceinline__ void stage_rows(T* tile, const T* src, int r0, int n_
 template <int D>
 constexpr int kSteps = (D + 15) / 16;
 
+// Whether bf16 tiles hand their fragments to the products by ldmatrix.x4
+// (one instruction for four 8 x 8 blocks, .trans for a tile's columns)
+// instead of 32- and 16-bit shared-memory loads. Off: the loads as measured
+// in PERF.md; scripts/torch_kernel_variants.py times it on (`*_ldmatrix`).
+constexpr bool kLdmatrix = false;
+template <class T, int D>
+constexpr bool kLdsm = kLdmatrix && std::is_same_v<T, __nv_bfloat16> && D % 16 == 0;
+
+// four 8 x 8 bf16 blocks from the 16-byte rows whose addresses lanes 8i to
+// 8i + 7 give (block i), in mma fragment order; .trans transposes each block
+template <bool kTrans>
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* row) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  if constexpr (kTrans) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  }
+}
+
 // A fragments of rows (g, g + 8) over D: ld(i, c) gives the pair at row
 // g + 8 i, columns c, c + 1 (the k8 step fills a0, a1 only)
 template <int D, class Ld>
@@ -171,6 +193,23 @@ template <class T, int D, int NT>
 __device__ __forceinline__ void frags_dot(float (&acc)[NT][4], const uint32_t (&a)[kSteps<D>][4],
                                           const T* x, int g, int t) {
   zero(acc);
+  if constexpr (kLdsm<T, D> && NT % 2 == 0) {
+    // lane l: row 8 (nt + l / 16) + l % 8 of n-tiles nt, nt + 1, columns
+    // 16 kk + 8 ((l / 8) % 2): b0, b1 of n-tile nt, then of nt + 1
+    const int l = 4 * g + t;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        uint32_t b[4];
+        ldsm4<false>(b, x + swz<T, D>(8 * (nt + (l >> 4)) + (l & 7), 16 * kk + 8 * ((l >> 3) & 1)));
+        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+        mma16(acc[nt], a[kk], b0);
+        mma16(acc[nt + 1], a[kk], b1);
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int c = 16 * kk + 2 * t;
@@ -193,7 +232,16 @@ template <class T, int D, int NT>
 __device__ __forceinline__ void rows_dot(float (&acc)[NT][4], const T* res, int r0, const T* x,
                                          int g, int t) {
   uint32_t a[kSteps<D>][4];
-  a_frags<D>(a, t, [&](int i, int c) { return row_pair<T, D>(res, r0 + g + 8 * i, c); });
+  if constexpr (kLdsm<T, D>) {
+    // lane l: row r0 + l % 16, columns 16 kk + 8 (l / 16): a0 .. a3
+    const int l = 4 * g + t;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      ldsm4<false>(a[kk], res + swz<T, D>(r0 + (l & 15), 16 * kk + 8 * (l >> 4)));
+    }
+  } else {
+    a_frags<D>(a, t, [&](int i, int c) { return row_pair<T, D>(res, r0 + g + 8 * i, c); });
+  }
   frags_dot<T, D, NT>(acc, a, x, g, t);
 }
 
@@ -220,15 +268,36 @@ __device__ __forceinline__ void weight_rows(float (&acc)[D / 8][4], const float 
       split(w[2 * j][2], w[2 * j][3], p[1]);
       split(w[2 * j + 1][0], w[2 * j + 1][1], p[2]);
       split(w[2 * j + 1][2], w[2 * j + 1][3], p[3]);
+      if constexpr (kLdsm<T, D> && NC % 2 == 0) {
+        // lane l: row 16 j + l % 8 + 8 ((l / 8) % 2), columns 8 (n0 + n +
+        // l / 16), transposed: b0, b1 of n-tile n, then of n + 1
+        const int l = 4 * g + t;
 #pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        const int c = 8 * (n0 + n) + g;
-        const uint32_t b[2] = {col_pair<T, D>(x, 16 * j + 2 * t, c),
-                               col_pair<T, D>(x, 16 * j + 2 * t + 8, c)};
+        for (int n = 0; n < NC; n += 2) {
+          uint32_t bb[4];
+          ldsm4<true>(bb, x + swz<T, D>(16 * j + (l & 7) + 8 * ((l >> 3) & 1),
+                                        8 * (n0 + n + (l >> 4))));
 #pragma unroll
-        for (int k = kTerms - 1; k >= 0; --k) {
-          const uint32_t a[4] = {p[0][k], p[1][k], p[2][k], p[3][k]};
-          mma16(part[n], a, b);
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t b[2] = {bb[2 * h], bb[2 * h + 1]};
+#pragma unroll
+            for (int k = kTerms - 1; k >= 0; --k) {
+              const uint32_t a[4] = {p[0][k], p[1][k], p[2][k], p[3][k]};
+              mma16(part[n + h], a, b);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          const int c = 8 * (n0 + n) + g;
+          const uint32_t b[2] = {col_pair<T, D>(x, 16 * j + 2 * t, c),
+                                 col_pair<T, D>(x, 16 * j + 2 * t + 8, c)};
+#pragma unroll
+          for (int k = kTerms - 1; k >= 0; --k) {
+            const uint32_t a[4] = {p[0][k], p[1][k], p[2][k], p[3][k]};
+            mma16(part[n], a, b);
+          }
         }
       }
     }

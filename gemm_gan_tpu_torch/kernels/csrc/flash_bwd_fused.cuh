@@ -1,6 +1,8 @@
 // Masked flash-attention backward, dq, dk and dv in one launch, on Hopper's
-// tensor cores (sm_90a): one kernel template for both layouts and every
-// product mode of flash_ops.cuh. flash_bwd_fused.cu instantiates the f32
+// tensor cores (sm_90a): one grid for both layouts and every product mode
+// of flash_ops.cuh (the bf16-ref modes on the warpgroup-MMA tiles of
+// flash_bwd_wg.cuh, the others on flash_bwd_tc.cuh's mma.sync tiles: see
+// below). flash_bwd_fused.cu instantiates the f32
 // modes (3xTF32, f32-grade), flash_bwd_bf16.cu and flash_bwd_mxu.cu the
 // bf16 modes of the ble layout, flash_bwd_bhld_bf16.cu and
 // flash_bwd_bhld_mxu.cu those of the classic layout.
@@ -49,17 +51,32 @@
 //    at a 700 W limit; variants ble_bwd_bq64 and ble_bwd).
 //
 // The bf16 modes of flash_bwd_ble and flash_bwd_bhld_fused (Q2 and Q6 with
-// bf16 refs, or mxu_bf16) run the same two tiles on m16n8k16 bf16 products
-// (flash_ops.cuh): S^T, dP^T, S
-// and dP in one bf16 product per k-step; P^T.dO, dS^T.Q and dS.K with P or
-// dS in three bf16 terms (kBf16, f32-exact) or rounded once (mxu_bf16);
-// tiles staged in the element type (half the shared memory in bf16: 33 KB
-// per block at D = 64); delta from the stored o and dO in f32; dq, dk, dv
-// rounded once at the store. At the canonical shape the bf16 mode takes 11
-// bf16 passes of the 5 products' 0.27 GFLOP each (S, dP once; dV, dK, dQ
-// three times: 0.0015 ms at 989 TFLOP/s), mxu_bf16 5 (0.0007 ms), over
-// 8.4 MB in bf16 (q, k, v, o, dO, dq, dk, dv; 0.0025 ms at 3.35 TB/s):
-// bytes bound both.
+// bf16 refs, or mxu_bf16 on bf16 or f32 refs): P^T.dO, dS^T.Q and dS.K take
+// P or dS in three bf16 terms (kBf16, f32-exact) or rounded once
+// (mxu_bf16); delta from the stored o and dO in f32; dq, dk, dv rounded
+// once at the store. At the canonical shape the bf16 mode takes 11 bf16
+// passes of the 5 products' 0.27 GFLOP each (S, dP once; dV, dK, dQ three
+// times: 0.0030 ms at 989 TFLOP/s, against 0.0025 ms for 8.4 MB of q, k,
+// v, o, dO, dq, dk, dv at 3.35 TB/s: operations bound it), mxu_bf16 5
+// (0.0014 ms: bytes bound it).
+//  * On bf16 refs at D 16, 32 and 64 (the bf16 mode, and mxu_bf16 as the
+//    bench configuration runs it) the grid runs the warpgroup-MMA tiles of
+//    flash_bwd_wg.cuh instead (kernel flash_bwd_wg_kernel, same grid and
+//    contract): wgmma products with no fragment loads by the threads, 64-
+//    query and 64-key steps, a branch-free softmax, 3 blocks per SM so the
+//    canonical grid is one wave. That answers what held the mma.sync tiles
+//    back: a shared-memory load per tensor-core instruction (col_pair's
+//    16-bit loads), 245-247 registers (2 blocks per SM, 1.21 waves),
+//    mma.sync instead of wgmma, and in ble a round trip to global memory for
+//    delta at every 32-query step. Q6 bf16 went from 0.0469 to 0.0213 ms,
+//    Q2 bf16 from 0.0473 to 0.0244 (device time at the canonical shape on
+//    an NVIDIA H100 80GB HBM3 at a 700 W limit; PERF.md). The 11 passes stay: they are the JAX
+//    kernel's f32 products, and at 12-14% of the bound they do not set the
+//    pace.
+//  * mxu_bf16 on f32 refs (whose tiles would have to be rounded while they
+//    are staged, which cp.async cannot do) and D 8 and 128 keep the two
+//    mma.sync tiles of flash_bwd_tc.cuh on m16n8k16 bf16 products
+//    (flash_ops.cuh), tiles staged in the element type.
 
 #pragma once
 
@@ -67,6 +84,7 @@
 #include <stdint.h>
 
 #include "flash_bwd_tc.cuh"
+#include "flash_bwd_wg.cuh"
 
 namespace {
 
@@ -78,7 +96,13 @@ constexpr int kKeys = 32;  // keys per streamed dq tile
 template <int D, bool kBle>
 constexpr int kQueries = !kBle && D <= 64 ? 64 : 32;  // queries per streamed dk/dv tile
 
-template <int D, bool kBle, int kMode>
+// whether an instantiation runs the wgmma tiles of flash_bwd_wg.cuh: the
+// bf16-ref modes (kBf16, kMxuBf16) at the head dims they take
+template <int D, int kMode>
+constexpr bool kWg =
+    (kMode == flash_ops::kBf16 || kMode == flash_ops::kMxuBf16) && flash_bwd_wg::kTakes<D>;
+
+template <int D, bool kBle, int kMode, bool = kWg<D, kMode>>
 struct Cfg {
   using T = Elem<kMode>;
   using Dkv = flash_bwd_tc::DkvCfg<D, kWarps, kQueries<D, kBle>, T>;
@@ -101,9 +125,40 @@ __global__ void __launch_bounds__(Cfg<D, kBle, kMode>::kThreads)
 }
 
 template <int D, bool kBle, int kMode>
+struct Cfg<D, kBle, kMode, true> {
+  static constexpr int kThreads = flash_bwd_wg::kThreads;
+  static constexpr int R = flash_bwd_wg::R;
+  static constexpr int SMEM = flash_bwd_wg::Cfg<D, kBle>::SMEM;
+};
+
+// the same grid on one warpgroup's wgmma tiles (flash_bwd_wg.cuh)
+template <int D, bool kBle, int kMode>
+__global__ void __launch_bounds__(flash_bwd_wg::kThreads, flash_bwd_wg::kMinBlocks)
+    flash_bwd_wg_kernel(const Args<Elem<kMode>> a, int n_dkv) {
+  extern __shared__ __align__(16) float smem[];
+  uint8_t* tiles = flash_bwd_wg::aligned(smem);
+  constexpr int kTerms = flash_ops::Ops<kMode, D>::kTerms;
+  const int h = blockIdx.x % a.heads, b = blockIdx.x / a.heads;
+  if (static_cast<int>(blockIdx.y) < n_dkv) {
+    flash_bwd_wg::dkv_tile<D, kBle, kTerms>(a, blockIdx.y, h, b, tiles);
+  } else {
+    flash_bwd_wg::dq_tile<D, kBle, kTerms>(a, blockIdx.y - n_dkv, h, b, tiles);
+  }
+}
+
+// the kernel an instantiation launches
+template <int D, bool kBle, int kMode>
+constexpr auto kernel() {
+  if constexpr (kWg<D, kMode>) {
+    return flash_bwd_wg_kernel<D, kBle, kMode>;
+  } else {
+    return flash_bwd_fused_kernel<D, kBle, kMode>;
+  }
+}
+
+template <int D, bool kBle, int kMode>
 cudaError_t prepare() {
-  return cudaFuncSetAttribute(flash_bwd_fused_kernel<D, kBle, kMode>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(kernel<D, kBle, kMode>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
                               Cfg<D, kBle, kMode>::SMEM);
 }
 
@@ -115,7 +170,8 @@ int launch(const Args<Elem<kMode>>& a, int batch, cudaStream_t stream) {
   const int n_dkv = (a.lk + C::R - 1) / C::R;
   const int n_dq = (a.lq + C::R - 1) / C::R;
   const dim3 grid(batch * a.heads, n_dkv + n_dq);
-  flash_bwd_fused_kernel<D, kBle, kMode><<<grid, C::kThreads, C::SMEM, stream>>>(a, n_dkv);
+  const auto fn = kernel<D, kBle, kMode>();
+  fn<<<grid, C::kThreads, C::SMEM, stream>>>(a, n_dkv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -135,7 +191,7 @@ int occupancy(int head_dim, int* smem_bytes, int* blocks_per_sm) {
     if (err != cudaSuccess) return static_cast<int>(err);
     *smem_bytes = C::SMEM;
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, flash_bwd_fused_kernel<D, kBle, kMode>, C::kThreads, C::SMEM));
+        blocks_per_sm, kernel<D, kBle, kMode>(), C::kThreads, C::SMEM));
   });
 }
 

@@ -1,7 +1,7 @@
 """Build variants of the port's tensor-core attention kernels, hold each
 against its plain PyTorch version and time it, on the card.
 
-    python3 scripts/torch_kernel_variants.py [--parent CSRC] [variant ...]
+    python3 scripts/torch_kernel_variants.py [--parent CSRC] [--lengths LQ:LK,...] [variant ...]
 
 Needs one CUDA card (an H100: sm_90a) and nvcc. A variant is a copy of one
 source under `gemm_gan_tpu_torch/kernels/csrc/` (with the headers there),
@@ -13,18 +13,26 @@ are applied to the copy, which its own nvcc compiles (all in parallel) into
 a library under `gemm_gan_tpu_torch/kernels/build/variants/` (ignored by
 git), called through ctypes with the entry point's usual arguments.
 
-For each variant it prints ptxas' registers and spills at D = 64, the
-dynamic shared memory and blocks per SM; then, at the entry point's main
-path shape (whole-slide B 8, H 4, L 4,097, D 64 for flash_fwd_bhld,
+For each variant it prints ptxas' registers, spills and warnings at D = 64,
+the dynamic shared memory and blocks per SM; then, at the entry point's
+main path shape (whole-slide B 8, H 4, L 4,097, D 64 for flash_fwd_bhld,
 flash_bwd_dq and flash_bwd_dkv; canonical B 8, H 4, L 257, D 64 for
-flash_fwd_ble, flash_bwd_ble and flash_bwd_bhld_fused), the largest
-|kernel - plain version| of each output on all-valid and ragged masks,
-and on the all-valid one the kernel's time by CUDA events
-(20 launches after 3 warm-up) and its device time by torch.profiler. The
-variants are timed in the order given, and a name may be given more than
-once (parent, change, change, parent). With no name it runs every variant
-in VARIANTS (the `*_parent` ones only with `--parent`). A measuring tool for tuning only: the port
-builds and calls the sources as they are.
+flash_fwd_ble, flash_bwd_ble and flash_bwd_bhld_fused, and for the bf16
+modes of the last two), the largest |kernel - plain version| of each
+output on all-valid and ragged masks, and on the all-valid one the
+kernel's time by CUDA events (20 launches after 3 warm-up) and its device
+time by torch.profiler. The bf16 modes (`*_bf16`, and `*_mxu` on bf16
+refs: their entry points get bf16_refs 1) take bf16 inputs and are held
+to their plain versions under chip_smoke's gate: each output within
+BF16_ULPS bf16 ulp of each row's largest entry ("gate ok" or "GATE
+FAILED"; the timing splits `*_dkv_only` / `*_dq_only` leave one kind of
+output unwritten and are not gated). The variants are timed in the order
+given, and a name may be given more than once (parent, change, change,
+parent). `--lengths` runs the bf16 modes at other lengths instead (each
+Lq:Lk pair in turn), to separate a tile's fixed cost from its per-step one. With no name it runs every variant in VARIANTS (the `*_parent`
+ones only with `--parent`). Exits non-zero if a gated variant misses the
+gate. A measuring tool for tuning only: the port builds and calls the
+sources as they are.
 """
 
 from __future__ import annotations
@@ -65,6 +73,69 @@ FUSED_BQ = "kQueries = !kBle && D <= 64 ? 64 : 32;"  # Q6: 64 at D <= 64; Q2: 32
 FUSED_BQ32 = (FUSED_BQ, "kQueries = 32;")
 DQ_BK32 = ("kKeys = D <= 64 ? 64 : 32;", "kKeys = 32;")  # Q4's keys per streamed tile
 HELD = "kHeld = D <= 64 ? 1 : 0;"  # Q4's operands held split in registers
+
+
+# timing splits of the fused kernel: one kind of tile launched, the other's
+# outputs left unwritten (NaN)
+NO_DQ_TILES = ("const int n_dq = (a.lq", "const int n_dq = 0 * (a.lq")
+NO_DKV_TILES = ("const int n_dkv = (a.lk", "const int n_dkv = 0 * (a.lk")
+# the wgmma tile (flash_bwd_wg.cuh): 32 queries per dk/dv step, or no cap
+# of 168 registers (3 blocks per SM)
+WG_BQ32 = ("constexpr int kQueries = 64;", "constexpr int kQueries = 32;")
+WG_NO_CAP = ("constexpr int kMinBlocks = 3;", "constexpr int kMinBlocks = 1;")
+# the step's products in one sub-step (64 queries of a dk/dv step, 64 keys
+# of a dq step) instead of two of 32
+WG_SUB64 = [("constexpr int kSubQueries = 32;", "constexpr int kSubQueries = 64;"),
+            ("constexpr int kSubKeys = 32;", "constexpr int kSubKeys = 64;")]
+# the dq tile's products in one sub-step of 64 keys
+WG_SUBKEYS64 = ("constexpr int kSubKeys = 32;", "constexpr int kSubKeys = 64;")
+# a sub-step's S^T and dP^T (S and dP) issued while the last sub-step's
+# register-A products still run
+WG_OVERLAP = [("        wgmma::commit();\n        wgmma::wait<0>();\n      }\n"
+               "      wgmma::fence_operand(dv);",
+               "        wgmma::commit();\n      }\n      wgmma::wait<0>();\n"
+               "      wgmma::fence_operand(dv);"),
+              ("      wgmma::commit();\n      wgmma::wait<0>();\n    }\n    wgmma::fence_operand(dq);",
+               "      wgmma::commit();\n    }\n    wgmma::wait<0>();\n    wgmma::fence_operand(dq);")]
+# exp(s - lse) under a select, as the mma.sync tiles take it: one divergent
+# branch per element
+WG_EXP_BRANCH = [("expf(live ? p[nt][e] - lse_t[qi] : kMinusInf)",
+                  "(live ? expf(p[nt][e] - lse_t[qi]) : 0.f)"),
+                 ("expf(ok[ks0 + 8 * nt + 2 * t + (e & 1)] ? s[nt][e] - lse[e >> 1] : kMinusInf)",
+                  "(ok[ks0 + 8 * nt + 2 * t + (e & 1)] ? expf(s[nt][e] - lse[e >> 1]) : 0.f)")]
+# Ablations of the wgmma tile, timing only (their results are wrong, and
+# not gated): each takes one piece of work out of a step, so that its
+# share of the step shows. exp: P = S - lse without the exp; proxy: no
+# fence.proxy.async; rs: no register-A products; prefetch: the next step's
+# tiles not loaded (the stale ones reused); in ble, delta: the dk/dv tile's
+# per-step delta and its barrier left out; o: the step's O rows not staged.
+ABLATIONS = {
+    "exp": [("expf(live ? p[nt][e] - lse_t[qi] : kMinusInf)",
+             "(live ? p[nt][e] - lse_t[qi] : 0.f)"),
+            ("expf(ok[ks0 + 8 * nt + 2 * t + (e & 1)] ? s[nt][e] - lse[e >> 1] : kMinusInf)",
+             "(ok[ks0 + 8 * nt + 2 * t + (e & 1)] ? s[nt][e] - lse[e >> 1] : 0.f)")],
+    "proxy": [('asm volatile("fence.proxy.async.shared::cta;" ::: "memory");', "")],
+    "rs": [("for (int k = kTerms - 1; k >= 0; --k) wgmma::mma_rs<D>(acc, a[j][k], b);",
+            "for (int k = kTerms - 1; k >= 0; --k) acc[0][0] += __uint_as_float(a[j][k][0]);")],
+    "prefetch": [("      if (it + 1 < n_steps) stage_step(it + 1, buf ^ 1);", ""),
+                 ("    if (it + 1 < n_steps) {  // prefetch step it + 1 into the other buffer",
+                  "    if (false) {")],
+}
+BLE_ABLATIONS = {
+    "delta": [("        if (kBle && sub == 0) {  // the step's delta, while S^T and dP^T run",
+               "        if (false) {")],
+    "o": [("      if constexpr (kBle) stage<D, BQ>(os + buf * C::kQTile, a.o + q_base, q0, a.lq, stride);",
+           "")],
+}
+# variant (a): the bf16 modes on the mma.sync tiles of flash_bwd_tc.cuh
+# instead of the wgmma tile, their fragments loaded by ldmatrix
+NO_WG = ("&& flash_bwd_wg::kTakes<D>;", "&& false;")
+LDMATRIX = ("constexpr bool kLdmatrix = false;", "constexpr bool kLdmatrix = true;")
+# (entry point, mode) -> the source of its bf16-mode entry points
+BF16_SOURCES = {("flash_bwd_ble", "bf16"): "flash_bwd_bf16.cu",
+                ("flash_bwd_ble", "mxu"): "flash_bwd_mxu.cu",
+                ("flash_bwd_bhld_fused", "bf16"): "flash_bwd_bhld_bf16.cu",
+                ("flash_bwd_bhld_fused", "mxu"): "flash_bwd_bhld_mxu.cu"}
 
 
 def held(n: int):
@@ -149,15 +220,55 @@ VARIANTS = {
     "fused_lo_raw": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused", {"tf32x3.cuh": LO_RAW}),
     "fused_no_warp_skip": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
                            {"flash_bwd_tc.cuh": NO_WARP_SKIP}),
-    # timing split only: one kind of tile launched, the other's outputs
-    # left unwritten (NaN)
+    # timing splits
     "fused_dkv_only": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
-                       {"flash_bwd_fused.cuh": [("const int n_dq = (a.lq", "const int n_dq = 0 * (a.lq")]}),
+                       {"flash_bwd_fused.cuh": [NO_DQ_TILES]}),
     "fused_dq_only": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
-                      {"flash_bwd_fused.cuh": [("const int n_dkv = (a.lk", "const int n_dkv = 0 * (a.lk")]}),
+                      {"flash_bwd_fused.cuh": [NO_DKV_TILES]}),
     "fused_dq_bk64": ("new", "flash_bwd_fused.cu", "flash_bwd_bhld_fused",
                       {"flash_bwd_fused.cuh": [("constexpr int kKeys = 32;",
                                                "constexpr int kKeys = 64;")]}),
+    # the bf16-ref modes of Q2 and Q6 on bf16 inputs: the wgmma tile of
+    # flash_bwd_wg.cuh, and the parent's
+    **{f"{prefix}_{mode}{suffix}": (tree, source, f"{entry}_{mode}", {})
+       for prefix, entry in (("ble_bwd", "flash_bwd_ble"), ("fused", "flash_bwd_bhld_fused"))
+       for mode in ("bf16", "mxu") for tree, suffix in (("new", ""), ("parent", "_parent"))
+       for source in (BF16_SOURCES[entry, mode],)},
+    # the wgmma tile's design choices, in both layouts and both modes:
+    # 32-query dk/dv steps, no 3-blocks-per-SM register cap, one product
+    # sub-step of 64 (in both tiles, or in the dq tile alone), __expf, exp
+    # under a branch, a sub-step's products overlapping the next; timing
+    # splits
+    **{f"{prefix}_{mode}_{name}": ("new", BF16_SOURCES[entry, mode], f"{entry}_{mode}",
+                                   {file: sub if isinstance(sub, list) else [sub]})
+       for prefix, entry in (("ble_bwd", "flash_bwd_ble"), ("fused", "flash_bwd_bhld_fused"))
+       for mode in ("bf16", "mxu")
+       for name, file, sub in (("bq32", "flash_bwd_wg.cuh", WG_BQ32),
+                               ("no_cap", "flash_bwd_wg.cuh", WG_NO_CAP),
+                               ("sub64", "flash_bwd_wg.cuh", WG_SUB64),
+                               ("subkeys64", "flash_bwd_wg.cuh", WG_SUBKEYS64),
+                               ("fast_exp", "flash_bwd_wg.cuh", FAST_EXP),
+                               ("exp_branch", "flash_bwd_wg.cuh", WG_EXP_BRANCH),
+                               ("overlap", "flash_bwd_wg.cuh", WG_OVERLAP),
+                               ("dkv_only", "flash_bwd_fused.cuh", NO_DQ_TILES),
+                               ("dq_only", "flash_bwd_fused.cuh", NO_DKV_TILES))},
+    # ablations of the wgmma tile's steps (timing only), one kind of tile
+    **{f"fused_{mode}_{kind}_ablate_{name}": (
+        "new", BF16_SOURCES["flash_bwd_bhld_fused", mode], f"flash_bwd_bhld_fused_{mode}",
+        {"flash_bwd_fused.cuh": [NO_DQ_TILES if kind == "dkv" else NO_DKV_TILES],
+         **({"wgmma.cuh": subs} if name == "proxy" else {"flash_bwd_wg.cuh": subs})})
+       for mode in ("bf16", "mxu") for kind in ("dkv", "dq") for name, subs in ABLATIONS.items()},
+    **{f"ble_bwd_{mode}_dkv_ablate_{name}": (
+        "new", BF16_SOURCES["flash_bwd_ble", mode], f"flash_bwd_ble_{mode}",
+        {"flash_bwd_fused.cuh": [NO_DQ_TILES], "flash_bwd_wg.cuh": subs})
+       for mode in ("bf16", "mxu") for name, subs in BLE_ABLATIONS.items()},
+    # (a): the mma.sync tile as the parent has it, and with ldmatrix loads
+    **{f"{prefix}_{mode}_{name}": ("new", BF16_SOURCES[entry, mode], f"{entry}_{mode}", subs)
+       for prefix, entry in (("ble_bwd", "flash_bwd_ble"), ("fused", "flash_bwd_bhld_fused"))
+       for mode in ("bf16", "mxu")
+       for name, subs in (("mma_sync", {"flash_bwd_fused.cuh": [NO_WG]}),
+                          ("ldmatrix", {"flash_bwd_fused.cuh": [NO_WG],
+                                        "bf16mma.cuh": [LDMATRIX]}))},
 }
 _FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -166,6 +277,8 @@ SHAPES = {"flash_fwd_bhld": ("bhld", 8, 4, 4097, 64), "flash_bwd_dq": ("bhld", 8
           "flash_bwd_dkv": ("bhld", 8, 4, 4097, 64),
           "flash_fwd_ble": ("ble", 8, 4, 257, 64), "flash_bwd_ble": ("ble", 8, 4, 257, 64),
           "flash_bwd_bhld_fused": ("bhld", 8, 4, 257, 64)}
+SHAPES.update({f"{entry}_{mode}": SHAPES[entry] for entry in ("flash_bwd_ble", "flash_bwd_bhld_fused")
+               for mode in ("bf16", "mxu")})
 # which of (dq, dk, dv) a backward entry point writes
 BWD_OUTPUTS = {"flash_bwd_dq": (0,), "flash_bwd_dkv": (1, 2)}
 # ptxas' names for the parent's kernel templates that the sources renamed:
@@ -189,10 +302,11 @@ def substitute(text: str, subs) -> str:
     return text
 
 
-def build(names, trees, entry_of):
+def build(names, trees, entry_of, records):
     """Compile the variants in parallel; returns {name: (entry point fn,
     ptxas lines at D = 64, (smem bytes, blocks per SM) at D = 64)}.
-    `entry_of(mangled)` gives ptxas' kernel name's (entry point, D)."""
+    `entry_of(mangled)` gives ptxas' kernel name's (entry point, D),
+    `records(log)` the (kernel, text) lines of ptxas' report."""
     procs = {}
     for name in names:
         tree, source, _, subs = VARIANTS[name]
@@ -218,16 +332,12 @@ def build(names, trees, entry_of):
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         entry = VARIANTS[name][2]
-        ptxas, current = [], False  # current: the instantiation entry launches at D = 64
-        for line in log.splitlines():
-            fn = re.search(r"Compiling entry function '(\w+)'", line)
-            if fn:
-                current = entry_of(fn.group(1)) == (entry, 64)
-            elif current and ("registers" in line or "spill" in line):
-                ptxas.append(line.replace("ptxas info    :", "").strip())
+        # the instantiation that entry launches at D = 64
+        ptxas = [text for kernel, text in records(log) if text and entry_of(kernel) == (entry, 64)]
         lib = ctypes.CDLL(os.path.join(OUT, name, "lib.so"))
         fn = getattr(lib, entry)
-        fn.argtypes = _FWD_ARGS if entry.startswith("flash_fwd") else _BWD_ARGS
+        fn.argtypes = ((_FWD_ARGS if entry.startswith("flash_fwd") else _BWD_ARGS)
+                       + [ctypes.c_int] * entry.endswith("_mxu"))  # bf16_refs
         fn.restype = ctypes.c_int
         occ = getattr(lib, entry + "_occupancy", None)
         smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
@@ -239,11 +349,100 @@ def build(names, trees, entry_of):
     return built
 
 
+def is_bf16(entry: str) -> bool:
+    """Whether `entry` is a bf16 mode (bf16 inputs; mxu with bf16 refs)."""
+    return entry.endswith(("_bf16", "_mxu"))
+
+
+def run_shape(cs, fa, torch, built, names, shape, stream, lengths=None) -> list:
+    """Check and time the variants `names` (entry points of one shape and
+    one input dtype) on all-valid and ragged inputs, at the shape's length
+    or at `lengths` (Lq, Lk; bf16 modes only); returns the gated variants
+    that missed the gate."""
+    layout, B, H, L, D = shape
+    Lq, Lk = lengths or (L, L)
+    failed = []
+    for ragged, seed in ((False, 200), (True, 26)):
+        entry0 = VARIANTS[names[0]][2]
+        if is_bf16(entry0):  # chip_smoke's inputs of the mode, and its plain version
+            args = cs.bf16_args(fa, entry0, B, H, Lq, Lk, D, ragged, seed, torch.bfloat16)
+            if layout == "ble":
+                q, k, v, mask, o_in, plse, do, _ = args
+                delta = None
+            else:
+                q, k, v, mask, do, plse, delta = args
+                o_in = None
+            want_of = {}
+            for name in names:
+                entry = VARIANTS[name][2]
+                if entry not in want_of:
+                    want_of[entry] = getattr(fa, entry + "_plain")(*args)
+            po = None
+        else:
+            q, k, v, mask = cs.attention_inputs(layout, B, H, L, L, D, ragged, seed)
+            g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+            do = torch.randn(q.shape, device="cuda", generator=g)
+            if layout == "ble":  # the backward reads o; delta is computed in the kernel
+                po, plse = fa.flash_fwd_ble_plain(q, k, v, mask, H)
+                o_in, delta = po, None
+                grads = fa.flash_bwd_ble_plain(q, k, v, mask, po, plse, do, H)
+            else:
+                po, plse = fa.flash_fwd_bhld_plain(q, k, v, mask)
+                o_in, delta = None, (do * po).sum(-1)
+                grads = fa.flash_bwd_bhld_fused_plain(q, k, v, mask, do, plse, delta)
+            want_of = {VARIANTS[n][2]: grads for n in names}
+        o, lse = torch.empty_like(q), torch.empty_like(plse)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        bwd_ptrs = [None if x is None else x.data_ptr()
+                    for x in (q, k, v, mask, o_in, do, plse, delta, dq, dk, dv)]
+        for name in names:
+            fn, entry = built[name][0], VARIANTS[name][2]
+            if entry.startswith("flash_fwd"):
+                call = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),  # noqa: E731
+                                  mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                                  B, L, L, H, D, stream)
+                outs, want = (o, lse), (po, plse)
+            else:
+                extra = (1,) if entry.endswith("_mxu") else ()  # bf16 refs
+                call = lambda: fn(*bwd_ptrs, B, Lq, Lk, H, D, stream, *extra)  # noqa: E731
+                which = BWD_OUTPUTS.get(entry, (0, 1, 2))
+                outs = tuple((dq, dk, dv)[i] for i in which)
+                want = tuple(want_of[entry][i] for i in which)
+            for x in outs:  # a variant that writes nothing must not pass
+                x.fill_(float("nan"))
+            if call():
+                raise RuntimeError(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(outs, want)]
+            gate = ""
+            if is_bf16(entry):
+                if name.endswith(("_dkv_only", "_dq_only")) or "_ablate_" in name:
+                    gate = "; timing split, not gated"
+                else:
+                    heads = H if layout == "ble" else 1
+                    excess = max(cs.ulp_excess(a, b, heads) for a, b in zip(outs, want))
+                    ok = excess <= 0
+                    gate = (f"; gate ok (within {cs.BF16_ULPS} bf16 ulp of each row's largest "
+                            f"entry)" if ok else f"; GATE FAILED (excess {excess:.3e})")
+                    if not ok:
+                        failed.append(name)
+            ms = "" if ragged else (f"; {cs.cuda_ms(call):.4f} ms (events), "
+                                    f"{cs.device_ms(call, iters=20):.4f} ms (device)")
+            at = f" Lq {Lq} Lk {Lk}" if lengths else ""
+            print(f"{'ragged' if ragged else 'full  '} {name}{at}: max|err| "
+                  f"{' / '.join(f'{e:.3e}' for e in errs)}{gate}{ms}", flush=True)
+        del q, k, v, mask, do, plse, o_in, delta, want_of, o, lse, dq, dk, dv, outs, want
+        torch.cuda.empty_cache()
+    return failed
+
+
 def main(argv) -> int:
     import torch
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="csrc/ of another commit, for the *_parent variants")
+    ap.add_argument("--lengths", type=lambda x: [tuple(map(int, p.split(":"))) for p in x.split(",")],
+                    help="LQ:LK,... to run the bf16 modes at instead of their main path's L")
     ap.add_argument("variants", nargs="*")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -264,56 +463,24 @@ def main(argv) -> int:
         raise SystemExit("the *_parent variants need --parent")
     print(f"card: {cs.card_line()}", flush=True)
     entries = {**cs.PTXAS_ENTRIES, **PARENT_PTXAS}
-    built = build(list(dict.fromkeys(order)), trees, lambda m: cs.ptxas_entry(m, entries))
+    built = build(list(dict.fromkeys(order)), trees, lambda m: cs.ptxas_entry(m, entries),
+                  cs.ptxas_records)
     for name, (_, ptxas, (smem, blocks)) in built.items():
         print(f"{name}: D=64 {'; '.join(ptxas)}; {smem} bytes of shared memory, "
               f"{blocks} blocks per SM", flush=True)
     stream = torch.cuda.current_stream().cuda_stream
+    failed = []
     for shape in dict.fromkeys(SHAPES.values()):
-        names = [n for n in order if SHAPES[VARIANTS[n][2]] == shape]
-        if not names:
-            continue
-        layout, B, H, L, D = shape
-        for ragged, seed in ((False, 200), (True, 26)):
-            q, k, v, mask = cs.attention_inputs(layout, B, H, L, L, D, ragged, seed)
-            g = torch.Generator(device="cuda").manual_seed(seed + 1000)
-            do = torch.randn(q.shape, device="cuda", generator=g)
-            if layout == "ble":  # the backward reads o; delta is computed in the kernel
-                po, plse = fa.flash_fwd_ble_plain(q, k, v, mask, H)
-                o_in, delta = po, None
-                grads = fa.flash_bwd_ble_plain(q, k, v, mask, po, plse, do, H)
-            else:
-                po, plse = fa.flash_fwd_bhld_plain(q, k, v, mask)
-                o_in, delta = None, (do * po).sum(-1)
-                grads = fa.flash_bwd_bhld_fused_plain(q, k, v, mask, do, plse, delta)
-            o, lse = torch.empty_like(q), torch.empty_like(plse)
-            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-            bwd_ptrs = [None if x is None else x.data_ptr()
-                        for x in (q, k, v, mask, o_in, do, plse, delta, dq, dk, dv)]
-            for name in names:
-                fn, entry = built[name][0], VARIANTS[name][2]
-                if entry.startswith("flash_fwd"):
-                    call = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),  # noqa: E731
-                                      mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                                      B, L, L, H, D, stream)
-                    outs, want = (o, lse), (po, plse)
-                else:
-                    call = lambda: fn(*bwd_ptrs, B, L, L, H, D, stream)  # noqa: E731
-                    which = BWD_OUTPUTS.get(entry, (0, 1, 2))
-                    outs = tuple((dq, dk, dv)[i] for i in which)
-                    want = tuple(grads[i] for i in which)
-                for x in outs:  # a variant that writes nothing must not pass
-                    x.fill_(float("nan"))
-                if call():
-                    raise RuntimeError(f"{name}: launch failed")
-                torch.cuda.synchronize()
-                errs = [float((a - b).abs().max()) for a, b in zip(outs, want)]
-                ms = "" if ragged else (f"; {cs.cuda_ms(call):.4f} ms (events), "
-                                        f"{cs.device_ms(call, iters=20):.4f} ms (device)")
-                print(f"{'ragged' if ragged else 'full  '} {name}: max|err| "
-                      f"{' / '.join(f'{e:.3e}' for e in errs)}{ms}", flush=True)
-            del q, k, v, mask, do, po, plse, o_in, delta, grads, o, lse, dq, dk, dv, outs, want
-            torch.cuda.empty_cache()
+        for bf16 in (False, True):
+            names = [n for n in order if SHAPES[VARIANTS[n][2]] == shape
+                     and is_bf16(VARIANTS[n][2]) == bf16]
+            if not names:
+                continue
+            for lengths in (args.lengths if bf16 and args.lengths else [None]):
+                failed += run_shape(cs, fa, torch, built, names, shape, stream, lengths)
+    if failed:
+        print(f"variants that missed the gate: {failed}", flush=True)
+        return 1
     return 0
 
 

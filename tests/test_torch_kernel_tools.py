@@ -85,6 +85,15 @@ MANGLED = {
         ("flash_bwd_dkv_mxu", 8),
     "_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelILi64ELi3EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EE":
         ("flash_bwd_dkv_mxu", 64),
+    # the bf16-ref modes of the single-block backward on the wgmma tiles
+    "_ZN12_GLOBAL__N_119flash_bwd_wg_kernelILi64ELb1ELi1EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EEi":
+        ("flash_bwd_ble_bf16", 64),
+    "_ZN12_GLOBAL__N_119flash_bwd_wg_kernelILi32ELb1ELi3EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EEi":
+        ("flash_bwd_ble_mxu", 32),
+    "_ZN12_GLOBAL__N_119flash_bwd_wg_kernelILi16ELb0ELi1EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EEi":
+        ("flash_bwd_bhld_fused_bf16", 16),
+    "_ZN12_GLOBAL__N_119flash_bwd_wg_kernelILi64ELb0ELi3EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EEi":
+        ("flash_bwd_bhld_fused_mxu", 64),
 }
 
 
@@ -109,6 +118,31 @@ def test_every_kernel_has_a_ptxas_name():
 def test_unknown_ptxas_names_raise(mangled):
     with pytest.raises(ValueError, match="does not know"):
         chip_smoke.ptxas_entry(mangled)
+
+
+def test_ptxas_report_labels_every_kernel_and_its_advice():
+    """Phase 1's report: a label per instantiation, its registers and
+    spills, and ptxas' advice under the label of the function it names
+    (which ptxas prints before that function's own lines)."""
+    wg = "_ZN12_GLOBAL__N_119flash_bwd_wg_kernelILi64ELb1ELi1EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EEi"
+    fused = "_ZN12_GLOBAL__N_122flash_bwd_fused_kernelILi8ELb1ELi1EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EEi"
+    log = "\n".join([
+        "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are "
+        f"serialized due to insufficient register resources for the function '{wg}'",
+        f"ptxas info    : Compiling entry function '{fused}' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 72 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{wg}' for 'sm_90a'",
+        "ptxas info    : Used 163 registers, used 1 barriers",
+        "ptxas info    : Compile time = 700.0 ms"])
+    assert chip_smoke.ptxas_report(log) == [
+        "    flash_bwd_ble_bf16 D=64: ptxas C7512 Potential Performance Loss: wgmma.mma_async "
+        "instructions are serialized due to insufficient register resources",
+        "    flash_bwd_ble_bf16 D=8:",
+        "      0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "      Used 72 registers, used 1 barriers",
+        "    flash_bwd_ble_bf16 D=64:",
+        "      Used 163 registers, used 1 barriers"]
 
 
 def test_chip_smoke_names_existing_sources():
