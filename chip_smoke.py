@@ -23,9 +23,11 @@ imports nothing of JAX or of the JAX package. Phases:
    The bf16 modes of every kernel (`<kernel>_bf16` and `<kernel>_mxu`;
    mxu_bf16 on bf16 and on f32 inputs; Q3-Q5 at the whole-slide shape, Q1,
    Q2, Q6 at L 257, and ragged, fully-masked, D 8 / 128 and, for the
-   classic forward, Lk 600 cases; Q2 and Q6, whose bf16-ref modes run the
-   wgmma tiles, also at L 512, Lq 300 against Lk 257 and D 16 / 32, their
-   main path shape three times: BF16_SHAPES) are held to their plain
+   classic layout, Lk 600 cases; Q2 and Q6, whose bf16-ref modes run the
+   wgmma tiles, also at L 512, Lq 300 against Lk 257 and D 16 / 32, Q3 and
+   Q5, whose bf16-ref modes run them too, also at Lk 600 with D 16 / 32 and
+   at B 8, L 1,100 (more than one wave), each of these four its main path
+   shape three times: BF16_SHAPES) are held to their plain
    versions within BF16_ULPS bf16 ulp of each row's largest entry (each
    side rounds once from f32), lse within LSE_ATOL, and timed on bf16
    inputs against the library's bf16 SDPA.
@@ -271,7 +273,13 @@ PTXAS_ENTRIES = {("flash_fwd_kernel", (1,)): "flash_fwd_ble",
                  ("flash_bwd_wg_kernel", (1,), 1): "flash_bwd_ble_bf16",
                  ("flash_bwd_wg_kernel", (1,), 3): "flash_bwd_ble_mxu",
                  ("flash_bwd_wg_kernel", (0,), 1): "flash_bwd_bhld_fused_bf16",
-                 ("flash_bwd_wg_kernel", (0,), 3): "flash_bwd_bhld_fused_mxu"}
+                 ("flash_bwd_wg_kernel", (0,), 3): "flash_bwd_bhld_fused_mxu",
+                 # the bf16-ref modes of Q3 and Q5 on the wgmma tiles
+                 # (csrc/flash_fwd_wg.cuh, csrc/flash_bwd_wg.cuh), D 16, 32, 64
+                 ("flash_fwd_wg_kernel", (), 1): "flash_fwd_bhld_bf16",
+                 ("flash_fwd_wg_kernel", (), 3): "flash_fwd_bhld_mxu",
+                 ("flash_bwd_dkv_wg_kernel", (), 1): "flash_bwd_dkv_bf16",
+                 ("flash_bwd_dkv_wg_kernel", (), 3): "flash_bwd_dkv_mxu"}
 MODE_REFS = {2: " (f32 refs)", 3: " (bf16 refs)"}
 
 
@@ -397,39 +405,71 @@ def bound(H, Lq, D, q, k, v, mask) -> dict:
     return bounds(flops, nbytes)
 
 
-def device_ms(fn, iters: int = 10) -> float:
-    """Device time (ms) per call of `fn`: the sum of the device time of the
-    kernels, copies and memsets that `iters` calls ran, by torch.profiler,
-    over `iters` (after one warm-up call). Unlike `cuda_ms` it leaves out
-    the host's time between launches."""
+PROFILER_PAD_S = 0.05  # host time inside each torch.profiler window, before and after the work
+PROFILER_ATTEMPTS = 6  # readings device_ms takes at most before it gives up
+# readings device_ms took, and the device times it returned (two readings
+# each when the profiler misses no record)
+PROFILER_READINGS = {"readings": 0, "times": 0}
+
+
+def profiled(fn):
+    """torch.profiler (CPU and CUDA activities) over `fn()` and a
+    synchronise, with PROFILER_PAD_S of host time at each end of the window.
+    The profiler has been seen to drop whole device records (on an NVIDIA
+    H100 80GB HBM3: 5 of 10 records of a 0.98 ms kernel, and all 10 of a
+    0.017 ms one); it may drop those that it places outside its window,
+    hence the margin. Only `device_ms` checks that a reading is whole."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+        time.sleep(PROFILER_PAD_S)
+        fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)) / 1e3 / iters
+        time.sleep(PROFILER_PAD_S)
+    return prof
+
+
+def device_records(prof) -> list:
+    """The device-side events of a profile (kernels, copies, memsets): a
+    host op's own device time, or a user annotation's span, would count its
+    kernels twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time (ms) per call of `fn`: the device time of the kernels,
+    copies and memsets that `iters` calls ran, by torch.profiler, over
+    `iters` (after one warm-up call). Unlike `cuda_ms` it leaves out the
+    host's time between launches. A reading counts only when it is whole:
+    each kernel, copy and memset has a multiple of `iters` records (every
+    call runs the same work), and the next reading has as many of each.
+    Else it is set aside and another taken; after PROFILER_ATTEMPTS
+    readings with no two whole ones in a row that agree, it raises."""
+    fn()
+    last = None  # the counts of the last whole reading
+    for _ in range(PROFILER_ATTEMPTS):
+        records = device_records(profiled(lambda: [fn() for _ in range(iters)]))
+        counts = {e.key: e.count for e in records}
+        whole = bool(counts) and all(c % iters == 0 for c in counts.values())
+        PROFILER_READINGS["readings"] += 1
+        if whole and counts == last:
+            PROFILER_READINGS["times"] += 1
+            return sum(e.self_device_time_total for e in records) / 1e3 / iters
+        last = counts if whole else None
+    raise RuntimeError(f"torch.profiler missed device records in {PROFILER_ATTEMPTS} readings "
+                       f"of {iters} calls: no two whole readings in a row agree (last {counts})")
 
 
 def device_kernels(fn) -> list:
     """Names of the CUDA kernels one call of `fn` ran, from torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key[:90] for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                   and not getattr(e, "is_user_annotation", False)})
+    return sorted({e.key[:90] for e in device_records(profiled(fn))
+                   if e.self_device_time_total > 0})
 
 
 def check_kernel(fa, layout, B, H, Lq, Lk, D, ragged, seed):
@@ -733,7 +773,11 @@ def time_bf16_kernel(fa, name, args) -> dict:
 # largest single-block length: 8 tiles of each kind, no tail), Lq 300
 # against Lk 257 (CrossAttentionFusion's text queries over the patches)
 # and D 16 / 32; its main path shape is checked MAIN_REPEATS times, so that
-# a missing fence shows as a mismatch.
+# a missing fence shows as a mismatch. So are the classic layout's (Q3-Q5),
+# whose bf16-ref modes of Q3 and Q5 run the wgmma tiles at D 16 / 32 / 64:
+# also at Lk 600 with D 16 / 32, and at L 1,100 with B 8 (a key and a query
+# tail, five key blocks under mxu_bf16, 576 blocks of 64 rows: more than
+# one wave at 3 blocks per SM on 132 SMs).
 SINGLE_BLOCK_SHAPES = ((4, 4, 512, 512, 64), (2, 4, 300, 257, 64), (2, 2, 136, 260, 32),
                        (2, 2, 136, 260, 16))
 MAIN_REPEATS = 3
@@ -743,7 +787,8 @@ BF16_SHAPES = {
     "bhld_fused": ((8, 4, 257, 257, 64), (2, 2, 130, 260, 64), (2, 2, 136, 260, 8),
                    (2, 2, 136, 260, 128), *SINGLE_BLOCK_SHAPES),
     "bhld": ((8, 4, WHOLE_SLIDE_PATCHES + 1, WHOLE_SLIDE_PATCHES + 1, 64),
-             (2, 2, 136, 600, 8), (2, 2, 136, 600, 64), (2, 2, 136, 600, 128)),
+             (2, 2, 136, 600, 8), (2, 2, 136, 600, 16), (2, 2, 136, 600, 32),
+             (2, 2, 136, 600, 64), (2, 2, 136, 600, 128), (8, 4, 1100, 1100, 64)),
 }
 
 
@@ -759,7 +804,8 @@ def check_bf16_modes(fa, errs: dict, timed: dict) -> None:
     for i, name in enumerate(BF16_KERNELS):
         layout = kernel_layout(name)
         shapes = BF16_SHAPES["bhld_fused" if "bhld_fused" in name else layout]
-        repeats = MAIN_REPEATS if name.startswith(("flash_bwd_ble", "flash_bwd_bhld_fused")) else 1
+        repeats = MAIN_REPEATS if name.startswith(
+            ("flash_bwd_ble", "flash_bwd_bhld_fused", "flash_fwd_bhld", "flash_bwd_dkv")) else 1
         for dtype in ((torch.bfloat16, torch.float32) if "mxu" in name else (torch.bfloat16,)):
             for j, shape in enumerate(shapes):
                 for r in range(repeats if j == 0 else 1):
@@ -884,6 +930,12 @@ def bhld_bf16_step(fa, exp16, params, d_params, batch, label) -> dict:
     n_fwd, n_bwd = step_launches(cfg_)
     assert launches == {**dict.fromkeys(KERNELS, 0), f"flash_fwd_bhld_{mode}": n_fwd,
                         f"flash_bwd_bhld_fused_{mode}": n_bwd}, launches
+    busy = device_busy(engine, state, batch)  # a second step, profiled
+    busy_line = ("not measured (the profiler recorded no device time)" if busy is None else
+                 f"{busy['device_ms']:.2f} ms of device time (torch.profiler), attention kernels "
+                 f"(name, calls, ms): {json.dumps(busy['flash'])}")
+    print(f"    ({label}) {mode} flash_layout='bhld' step: {busy_line} on {card_line()}",
+          flush=True)
     del engine, state
     cmp, plain, limits = relative_step_gate(
         fa, lambda **kw: train_cfg(exp16, dropout=0.0, flash_layout="bhld", **kw),
@@ -1223,22 +1275,12 @@ class plain_kernels:
 def device_busy(engine, state, batch) -> dict:
     """Device time of one step from `torch.profiler` (the sum of the device
     time of its kernels, copies and memsets), the number of aten ops the
-    host ran, and the five kernels that took most; None when the profiler
-    records no device time."""
-    import torch
+    host ran, the five kernels that took most and the attention kernels
+    (`flash_*`); None when the profiler records no device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.step(state, batch)
-        torch.cuda.synchronize()
-    # device-side events only (kernels, copies, memsets): a host op's own
-    # device time, or a user annotation's span (the optimizer's step), would
-    # count its kernels twice
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-              and not getattr(e, "is_user_annotation", False)]
+    prof = profiled(lambda: engine.step(state, batch))
+    events = [e for e in device_records(prof) if e.self_device_time_total > 0]
     if not events:
         return None
     events.sort(key=lambda e: -e.self_device_time_total)
@@ -1247,7 +1289,9 @@ def device_busy(engine, state, batch) -> dict:
     return {"device_ms": sum(e.self_device_time_total for e in events) / 1e3,
             "aten_ops": aten_ops,
             "top": [(e.key[:60], e.count, e.self_device_time_total / 1e3)
-                    for e in events[:5]]}
+                    for e in events[:5]],
+            "flash": [(e.key[:60], e.count, e.self_device_time_total / 1e3)
+                      for e in events if "flash_" in e.key]}
 
 
 def bank_data(cfg, n: int, seed: int) -> dict:
@@ -1292,24 +1336,22 @@ def replay_busy(engine, state, cache, epoch) -> dict:
     device events per step and the five kernels that took most; None when
     the profiler records no device time."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     steps = cache.n_full_batches
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    host_s = []
+
+    def run():
         t0 = time.perf_counter()
         engine.step_many_cached(state, cache, epoch)
         torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-              and not getattr(e, "is_user_annotation", False)]
+        host_s.append(time.perf_counter() - t0)
+
+    events = [e for e in device_records(profiled(run)) if e.self_device_time_total > 0]
     if not events:
         return None
     events.sort(key=lambda e: -e.self_device_time_total)
     return {"device_ms": sum(e.self_device_time_total for e in events) / 1e3 / steps,
-            "host_ms": host_s * 1e3 / steps,
+            "host_ms": host_s[0] * 1e3 / steps,
             "device_events": sum(e.count for e in events) / steps,
             "top": [(e.key[:60], e.count / steps, e.self_device_time_total / 1e3 / steps)
                     for e in events[:5]]}
@@ -1434,6 +1476,9 @@ def main(argv=None) -> int:
         del args
     check_bf16_modes(fa, errs, timed)
     torch.cuda.empty_cache()
+    print(f"  torch.profiler: {PROFILER_READINGS['readings']} readings for "
+          f"{PROFILER_READINGS['times']} device times (two each when no record is missed)",
+          flush=True)
     if opts.through == 2:
         print("stopped after phase 2 (--through 2): no result", flush=True)
         return 0

@@ -32,12 +32,24 @@
 // D = 128) of Q, dO, lse and delta stream through a double-buffered
 // cp.async ring (96 KB per block at D = 64 in f32, 49 KB in bf16), dK and
 // dV stay in registers; no atomics.
+//
+// The bf16-ref modes (flash_bwd_dkv_bf16, and flash_bwd_dkv_mxu on bf16
+// refs) at D 16, 32 and 64 run the warpgroup-MMA dk/dv tile of
+// flash_bwd_wg.cuh instead (kernel flash_bwd_dkv_wg_kernel, same grid and
+// contract: kWg below), the one Q2's and Q6's fused grids run with delta
+// given: wgmma products with no fragment loads by the threads, 64-query
+// steps in 32-query product sub-steps, a branch-free exp, 3 blocks per SM.
+// Here it streams ceil(Lq / 64) steps, 65 at the whole-slide shape, where
+// the fused grids stream five. A third ring buffer ran within 1% of two,
+// and a persistent grid 6% slower: its 5.25 work items per resident slot
+// end in the same quarter-full last wave (PERF.md).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_bwd_tc.cuh"
+#include "flash_bwd_wg.cuh"
 
 namespace {
 
@@ -59,18 +71,60 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args<Elem
                                                                blockIdx.z, smem);
 }
 
+// whether an instantiation runs the wgmma dk/dv tile of flash_bwd_wg.cuh:
+// the bf16-ref modes (kBf16, kMxuBf16) at the head dims it takes
+template <int D, int kMode>
+constexpr bool kWg =
+    (kMode == flash_ops::kBf16 || kMode == flash_ops::kMxuBf16) && flash_bwd_wg::kTakes<D>;
+
+// the same grid on one warpgroup's wgmma dk/dv tile (flash_bwd_wg.cuh)
+template <int D, int kMode>
+__global__ void __launch_bounds__(flash_bwd_wg::kThreads, flash_bwd_wg::kMinBlocks)
+    flash_bwd_dkv_wg_kernel(const Args<Elem<kMode>> a) {
+  extern __shared__ __align__(16) float smem[];
+  flash_bwd_wg::dkv_tile<D, false, flash_ops::Ops<kMode, D>::kTerms>(
+      a, blockIdx.x, blockIdx.y, blockIdx.z, flash_bwd_wg::aligned(smem));
+}
+
+// the kernel an instantiation launches, its threads and its dynamic shared
+// memory
+template <int D, int kMode>
+constexpr auto kernel() {
+  if constexpr (kWg<D, kMode>) {
+    return flash_bwd_dkv_wg_kernel<D, kMode>;
+  } else {
+    return flash_bwd_dkv_kernel<D, kMode>;
+  }
+}
+
+template <int D, int kMode>
+constexpr int threads() {
+  return kWg<D, kMode> ? flash_bwd_wg::kThreads : kThreads;
+}
+
+template <int D, int kMode>
+constexpr int smem_size() {
+  if constexpr (kWg<D, kMode>) {
+    return flash_bwd_wg::Cfg<D, false>::kDkv + 1024;  // the dk/dv tile's, from a 1,024-byte boundary
+  } else {
+    return Cfg<D, kMode>::SMEM;
+  }
+}
+
 template <int D, int kMode>
 cudaError_t prepare() {
-  return cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, kMode>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D, kMode>::SMEM);
+  return cudaFuncSetAttribute(kernel<D, kMode>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_size<D, kMode>());
 }
 
 template <int D, int kMode>
 int launch(const Args<Elem<kMode>>& a, int batch, cudaStream_t stream) {
   const cudaError_t err = prepare<D, kMode>();
   if (err != cudaSuccess) return static_cast<int>(err);
+  static_assert(flash_bwd_wg::R == Cfg<D, kMode>::R, "both tiles take 64 key rows");
   const dim3 grid((a.lk + Cfg<D, kMode>::R - 1) / Cfg<D, kMode>::R, a.heads, batch);
-  flash_bwd_dkv_kernel<D, kMode><<<grid, kThreads, Cfg<D, kMode>::SMEM, stream>>>(a);
+  const auto fn = kernel<D, kMode>();
+  fn<<<grid, threads<D, kMode>(), smem_size<D, kMode>(), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -92,9 +146,9 @@ int occupancy(int head_dim, int* smem_bytes, int* blocks_per_sm) {
     constexpr int D = decltype(d)::value;
     const cudaError_t err = prepare<D, kMode>();
     if (err != cudaSuccess) return static_cast<int>(err);
-    *smem_bytes = Cfg<D, kMode>::SMEM;
+    *smem_bytes = smem_size<D, kMode>();
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, flash_bwd_dkv_kernel<D, kMode>, kThreads, Cfg<D, kMode>::SMEM));
+        blocks_per_sm, kernel<D, kMode>(), threads<D, kMode>(), *smem_bytes));
   });
 }
 

@@ -79,65 +79,50 @@
 #include <limits>
 
 #include "flash_bwd_tc.cuh"
+#include "wg_tile.cuh"
 #include "wgmma.cuh"
 
 namespace flash_bwd_wg {
 
 using bf16 = __nv_bfloat16;
 using flash_bwd_tc::Args;
+// the warpgroup tiles' shared pieces (wg_tile.cuh)
+using wg_tile::a_terms;
+using wg_tile::aligned;
+using wg_tile::issue_rs;
+using wg_tile::issue_ss;
+using wg_tile::kTakes;
+using wg_tile::kThreads;
+using wg_tile::R;
+using wg_tile::stage;
 
-constexpr int kThreads = 128;  // one warpgroup
-constexpr int R = 64;          // rows of a tile of either kind: wgmma's M
 constexpr int kQueries = 64;   // queries per streamed step of a dk/dv tile
 constexpr int kSubQueries = 32;  // queries per product sub-step of a dk/dv step
 constexpr int kKeys = 64;      // keys per streamed step of a dq tile
 constexpr int kSubKeys = 32;   // keys per product sub-step of a dq step
 constexpr int kMinBlocks = 3;  // blocks per SM that __launch_bounds__ asks for
+constexpr int kDkvStages = 2;  // buffers of a dk/dv tile's Q, dO, lse, delta ring
 constexpr float kMinusInf = -std::numeric_limits<float>::infinity();  // expf: exactly 0
-
-// the head dims this tile takes: one swizzle atom per 8 rows (wgmma.cuh)
-template <int D>
-constexpr bool kTakes = D == 16 || D == 32 || D == 64;
 
 template <int D, bool kBle>
 struct Cfg {
   static constexpr int kRes = R * D * 2;         // bytes of a resident [64, D] tile
   static constexpr int kQTile = kQueries * D * 2;
   static constexpr int kKTile = kKeys * D * 2;
-  // K, V; Q, dO (and O in ble) x 2 stages; lse, delta x 2 stages (f32)
-  static constexpr int kDkv = 2 * kRes + (kBle ? 6 : 4) * kQTile + 4 * kQueries * 4;
+  // K, V; Q, dO (and O in ble) x kDkvStages; lse, delta x kDkvStages (f32)
+  static constexpr int kDkv =
+      2 * kRes + kDkvStages * ((kBle ? 3 : 2) * kQTile + 2 * kQueries * 4);
   // Q, dO (and O in ble); K, V x 2 stages; valid flags x 2 stages
   static constexpr int kDq = (kBle ? 3 : 2) * kRes + 4 * kKTile + 2 * kKeys;
   // the larger of the two, and room to put the tiles on a 1,024-byte boundary
   static constexpr int SMEM = (kDkv > kDq ? kDkv : kDq) + 1024;
 };
 
-// the block's dynamic shared memory from its first 1,024-byte boundary
-__device__ __forceinline__ uint8_t* aligned(void* smem) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  return static_cast<uint8_t*>(smem) + ((1024 - (a & 1023)) & 1023);
-}
-
-// Stage rows [r0, r0 + ROWS) of an operand whose rows hold D contiguous bf16
-// `stride` elements apart into a swizzled [ROWS, D] tile with 16-byte
-// cp.async copies; rows >= n_rows are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage(uint8_t* tile, const bf16* src, int r0, int n_rows,
-                                      int64_t stride) {
-  constexpr int V = D / 8;  // 16-byte granules per row
-  for (int i = threadIdx.x; i < ROWS * V; i += kThreads) {
-    const int r = i / V;
-    const int c = (i % V) * 8;
-    const bool live = r0 + r < n_rows;
-    tf32x3::cp_async16(tile + wgmma::offset<D>(r, c), src + (live ? r0 + r : 0) * stride + c,
-                       live);
-  }
-}
-
-// Every thread's copies have landed, and are visible to the async proxy
-// (wgmma) of every thread of the block.
+// Every thread's copies but its last N committed groups have landed, and are
+// visible to the async proxy (wgmma) of every thread of the block.
+template <int N>
 __device__ __forceinline__ void landed_for_wgmma() {
-  tf32x3::cp_async_wait<1>();
+  tf32x3::cp_async_wait<N>();
   wgmma::fence_proxy_async();
   __syncthreads();
 }
@@ -165,49 +150,6 @@ __device__ __forceinline__ float tile_row_delta(const uint8_t* o, const uint8_t*
   return d;
 }
 
-// The A registers of k-step j of a product whose left factor is the f32
-// accumulator w (n-tiles 2j, 2j + 1) as kTerms bf16 terms, largest first.
-template <int kTerms, int NT>
-__device__ __forceinline__ void a_terms(uint32_t (&a)[NT / 2][kTerms][4], const float (&w)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT / 2; ++j) {
-    uint32_t p[4][kTerms];
-    bf16mma::split(w[2 * j][0], w[2 * j][1], p[0]);
-    bf16mma::split(w[2 * j][2], w[2 * j][3], p[1]);
-    bf16mma::split(w[2 * j + 1][0], w[2 * j + 1][1], p[2]);
-    bf16mma::split(w[2 * j + 1][2], w[2 * j + 1][3], p[3]);
-#pragma unroll
-    for (int k = 0; k < kTerms; ++k) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[j][k][i] = p[i][k];
-    }
-  }
-}
-
-// acc += W.X over the NT / 2 k-steps: W the terms of a_terms, X a swizzled
-// [8 NT, D] tile read MN-major; the small terms of each k-step first
-template <int D, int kTerms, int KS>
-__device__ __forceinline__ void issue_rs(float (&acc)[D / 8][4], const uint32_t (&a)[KS][kTerms][4],
-                                         const uint8_t* x) {
-#pragma unroll
-  for (int j = 0; j < KS; ++j) {
-    const uint64_t b = wgmma::mn_desc<D>(x, j);
-#pragma unroll
-    for (int k = kTerms - 1; k >= 0; --k) wgmma::mma_rs<D>(acc, a[j][k], b);
-  }
-}
-
-// acc = A.X^T over D: A a resident [64, D] tile, X a [N, D] tile, both
-// read K-major
-template <int D, int N>
-__device__ __forceinline__ void issue_ss(float (&acc)[N / 8][4], const uint8_t* a,
-                                         const uint8_t* x) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wgmma::mma_ss<N>(acc, wgmma::k_desc<D>(a, kk), wgmma::k_desc<D>(x, kk), kk > 0);
-  }
-}
-
 // dk, dv for key rows [tile * 64, tile * 64 + 64) of (batch b, head h)
 template <int D, bool kBle, int kTerms>
 __device__ __forceinline__ void dkv_tile(const Args<bf16>& a, int tile, int h, int b,
@@ -219,11 +161,12 @@ __device__ __forceinline__ void dkv_tile(const Args<bf16>& a, int tile, int h, i
   constexpr int DT = D / 8;   // n8 tiles of dK, dV
   uint8_t* ks = smem;                  // [64, D]
   uint8_t* vs = ks + C::kRes;          // [64, D]
-  uint8_t* qs = vs + C::kRes;          // [2][BQ, D]
-  uint8_t* dos = qs + 2 * C::kQTile;   // [2][BQ, D]
-  uint8_t* os = dos + 2 * C::kQTile;   // [2][BQ, D], ble only
-  float* lse_s = reinterpret_cast<float*>(os + (kBle ? 2 * C::kQTile : 0));  // [2][BQ]
-  float* delta_s = lse_s + 2 * BQ;                                          // [2][BQ]
+  constexpr int NS = kDkvStages;
+  uint8_t* qs = vs + C::kRes;           // [NS][BQ, D]
+  uint8_t* dos = qs + NS * C::kQTile;   // [NS][BQ, D]
+  uint8_t* os = dos + NS * C::kQTile;   // [NS][BQ, D], ble only
+  float* lse_s = reinterpret_cast<float*>(os + (kBle ? NS * C::kQTile : 0));  // [NS][BQ]
+  float* delta_s = lse_s + NS * BQ;                                          // [NS][BQ]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -272,17 +215,20 @@ __device__ __forceinline__ void dkv_tile(const Args<bf16>& a, int tile, int h, i
                                             tid % TL);
       if (tid % TL == 0) delta_s[buf * BQ + tid / TL] = d;
     };
+    const int n_steps = (a.lq + BQ - 1) / BQ;
     stage<D, R>(ks, a.k + k_base, k0, a.lk, stride);
     stage<D, R>(vs, a.v + k_base, k0, a.lk, stride);
-    stage_step(0, 0);
-    tf32x3::cp_async_commit();
-
-    const int n_steps = (a.lq + BQ - 1) / BQ;
-    for (int it = 0; it < n_steps; ++it) {
-      const int buf = it & 1;
-      if (it + 1 < n_steps) stage_step(it + 1, buf ^ 1);
+#pragma unroll
+    for (int it = 0; it < NS - 1; ++it) {
+      if (it < n_steps) stage_step(it, it);
       tf32x3::cp_async_commit();
-      landed_for_wgmma();  // K, V and step it
+    }
+
+    for (int it = 0; it < n_steps; ++it) {
+      const int buf = it % NS;
+      if (it + NS - 1 < n_steps) stage_step(it + NS - 1, (it + NS - 1) % NS);
+      tf32x3::cp_async_commit();
+      landed_for_wgmma<NS - 1>();  // K, V and step it
       const uint8_t* qt = qs + buf * C::kQTile;
       const uint8_t* dot = dos + buf * C::kQTile;
       const float* lse_t = lse_s + buf * BQ;

@@ -82,12 +82,20 @@
 // bf16 passes (S once, P.V three times; 1.08 GFLOP, 0.0011 ms at 989
 // TFLOP/s dense bf16), mxu_bf16 3 (S twice, P.V once; 0.0008 ms), and q, k,
 // v, o in bf16 are 4.2 MB (0.0013 ms at 3.35 TB/s): bytes bound both.
+//
+// The classic layout's bf16-ref modes (flash_fwd_bhld_bf16, and
+// flash_fwd_bhld_mxu on bf16 refs) at D 16, 32 and 64 run the warpgroup-MMA
+// tile of flash_fwd_wg.cuh instead (kernel flash_fwd_wg_kernel, same grid
+// and contract: kWg below): wgmma products with no fragment loads by the
+// threads, 128-key steps (256 keys per first-pass step under mxu_bf16), a
+// branch-free softmax, 3 blocks per SM.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_fwd_wg.cuh"
 #include "flash_ops.cuh"
 
 namespace {
@@ -295,10 +303,49 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args<Elem<kMo
   }
 }
 
+// whether an instantiation runs the wgmma tile of flash_fwd_wg.cuh: the
+// classic layout's bf16-ref modes (kBf16, kMxuBf16) at the head dims it takes
+template <int D, bool kBle, int kMode>
+constexpr bool kWg = !kBle && (kMode == flash_ops::kBf16 || kMode == flash_ops::kMxuBf16) &&
+                     flash_fwd_wg::kTakes<D>;
+
+// the same grid on one warpgroup's wgmma tile (flash_fwd_wg.cuh)
+template <int D, int kMode>
+__global__ void __launch_bounds__(flash_fwd_wg::kThreads, flash_fwd_wg::kMinBlocks)
+    flash_fwd_wg_kernel(const Args<Elem<kMode>> a) {
+  extern __shared__ __align__(16) float smem[];
+  flash_fwd_wg::tile<D, Ops<kMode, D>::kTerms, flash_ops::kRoundsP<kMode>>(
+      a, blockIdx.x, blockIdx.y, blockIdx.z, wg_tile::aligned(smem));
+}
+
+// the kernel an instantiation launches, its threads and its dynamic shared memory
+template <int D, bool kBle, int kMode>
+constexpr auto kernel() {
+  if constexpr (kWg<D, kBle, kMode>) {
+    return flash_fwd_wg_kernel<D, kMode>;
+  } else {
+    return flash_fwd_kernel<D, kBle, kMode>;
+  }
+}
+
+template <int D, bool kBle, int kMode>
+constexpr int threads() {
+  return kWg<D, kBle, kMode> ? flash_fwd_wg::kThreads : kThreads;
+}
+
+template <int D, bool kBle, int kMode>
+constexpr int smem_size() {
+  if constexpr (kWg<D, kBle, kMode>) {
+    return flash_fwd_wg::Cfg<D>::SMEM;
+  } else {
+    return Cfg<D, kMode>::SMEM;
+  }
+}
+
 template <int D, bool kBle, int kMode>
 cudaError_t prepare() {
-  return cudaFuncSetAttribute(flash_fwd_kernel<D, kBle, kMode>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D, kMode>::SMEM);
+  return cudaFuncSetAttribute(kernel<D, kBle, kMode>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_size<D, kBle, kMode>());
 }
 
 // the entry points' arguments: q, k, v [B*H, L, D] or [B, L, H*D] of the
@@ -313,9 +360,11 @@ int dispatch(const void* q, const void* k, const void* v, const uint8_t* mask, v
     constexpr int D = decltype(d)::value;
     const cudaError_t err = prepare<D, kBle, kMode>();
     if (err != cudaSuccess) return static_cast<int>(err);
+    static_assert(flash_fwd_wg::R == kRowsQ, "both tiles take 64 query rows");
     const dim3 grid((a.lq + kRowsQ - 1) / kRowsQ, a.heads, batch);
-    flash_fwd_kernel<D, kBle, kMode><<<grid, kThreads, Cfg<D, kMode>::SMEM,
-                                       static_cast<cudaStream_t>(stream)>>>(a);
+    const auto fn = kernel<D, kBle, kMode>();
+    fn<<<grid, threads<D, kBle, kMode>(), smem_size<D, kBle, kMode>(),
+         static_cast<cudaStream_t>(stream)>>>(a);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -327,9 +376,9 @@ int occupancy(int head_dim, int* smem_bytes, int* blocks_per_sm) {
     constexpr int D = decltype(d)::value;
     const cudaError_t err = prepare<D, kBle, kMode>();
     if (err != cudaSuccess) return static_cast<int>(err);
-    *smem_bytes = Cfg<D, kMode>::SMEM;
+    *smem_bytes = smem_size<D, kBle, kMode>();
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, flash_fwd_kernel<D, kBle, kMode>, kThreads, Cfg<D, kMode>::SMEM));
+        blocks_per_sm, kernel<D, kBle, kMode>(), threads<D, kBle, kMode>(), *smem_bytes));
   });
 }
 

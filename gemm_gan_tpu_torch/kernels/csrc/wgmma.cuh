@@ -1,7 +1,8 @@
 // Hopper's warpgroup matrix multiply (wgmma.mma_async, sm_90a only) for bf16
 // operands with f32 accumulation: the shared-memory layout it reads, its
 // matrix descriptors, the instructions at the widths the attention tiles
-// take (m64nNk16, N 16, 32 or 64), and the fences around them.
+// take (m64nNk16, N 16, 32 or 64; N 128 with A and B from shared memory),
+// and the fences around them.
 //
 // One instruction is issued by the four warps of a warpgroup together and
 // computes a 64 x N x 16 product. Warp w holds rows [16 w, 16 w + 16) of A
@@ -110,7 +111,7 @@ __device__ __forceinline__ void fence_operand(float (&d)[NT][4]) {
 template <int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b,
                                        bool accumulate) {
-  static_assert(N == 16 || N == 32 || N == 64, "N 16, 32 or 64");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "N 16, 32, 64 or 128");
   const int scale = accumulate ? 1 : 0;
   if constexpr (N == 16) {
     asm volatile(
@@ -127,7 +128,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 8][4], uint64_t a, uint64_
         "%16, %17, p, 1, 1, 0, 0;\n}\n"
         : WGMMA_D2(0), WGMMA_D2(1), WGMMA_D2(2), WGMMA_D2(3)
         : "l"(a), "l"(b), "r"(scale));
-  } else {
+  } else if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -136,6 +137,19 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 8][4], uint64_t a, uint64_
         "%32, %33, p, 1, 1, 0, 0;\n}\n"
         : WGMMA_D2(0), WGMMA_D2(1), WGMMA_D2(2), WGMMA_D2(3), WGMMA_D2(4), WGMMA_D2(5),
           WGMMA_D2(6), WGMMA_D2(7)
+        : "l"(a), "l"(b), "r"(scale));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WGMMA_D2(0), WGMMA_D2(1), WGMMA_D2(2), WGMMA_D2(3), WGMMA_D2(4), WGMMA_D2(5),
+          WGMMA_D2(6), WGMMA_D2(7), WGMMA_D2(8), WGMMA_D2(9), WGMMA_D2(10), WGMMA_D2(11),
+          WGMMA_D2(12), WGMMA_D2(13), WGMMA_D2(14), WGMMA_D2(15)
         : "l"(a), "l"(b), "r"(scale));
   }
 }

@@ -16,9 +16,10 @@ git), called through ctypes with the entry point's usual arguments.
 For each variant it prints ptxas' registers, spills and warnings at D = 64,
 the dynamic shared memory and blocks per SM; then, at the entry point's
 main path shape (whole-slide B 8, H 4, L 4,097, D 64 for flash_fwd_bhld,
-flash_bwd_dq and flash_bwd_dkv; canonical B 8, H 4, L 257, D 64 for
-flash_fwd_ble, flash_bwd_ble and flash_bwd_bhld_fused, and for the bf16
-modes of the last two), the largest |kernel - plain version| of each
+flash_bwd_dq and flash_bwd_dkv, and for the bf16 modes of the first and
+the last; canonical B 8, H 4, L 257, D 64 for flash_fwd_ble,
+flash_bwd_ble and flash_bwd_bhld_fused, and for the bf16 modes of the last
+two), the largest |kernel - plain version| of each
 output on all-valid and ragged masks, and on the all-valid one the
 kernel's time by CUDA events (20 launches after 3 warm-up) and its device
 time by torch.profiler. The bf16 modes (`*_bf16`, and `*_mxu` on bf16
@@ -117,10 +118,12 @@ ABLATIONS = {
     "proxy": [('asm volatile("fence.proxy.async.shared::cta;" ::: "memory");', "")],
     "rs": [("for (int k = kTerms - 1; k >= 0; --k) wgmma::mma_rs<D>(acc, a[j][k], b);",
             "for (int k = kTerms - 1; k >= 0; --k) acc[0][0] += __uint_as_float(a[j][k][0]);")],
-    "prefetch": [("      if (it + 1 < n_steps) stage_step(it + 1, buf ^ 1);", ""),
+    "prefetch": [("      if (it + NS - 1 < n_steps) stage_step(it + NS - 1, (it + NS - 1) % NS);", ""),
                  ("    if (it + 1 < n_steps) {  // prefetch step it + 1 into the other buffer",
                   "    if (false) {")],
 }
+# the header an ablation edits, where it is not flash_bwd_wg.cuh
+ABLATION_FILES = {"proxy": "wgmma.cuh", "rs": "wg_tile.cuh"}
 BLE_ABLATIONS = {
     "delta": [("        if (kBle && sub == 0) {  // the step's delta, while S^T and dP^T run",
                "        if (false) {")],
@@ -135,7 +138,81 @@ LDMATRIX = ("constexpr bool kLdmatrix = false;", "constexpr bool kLdmatrix = tru
 BF16_SOURCES = {("flash_bwd_ble", "bf16"): "flash_bwd_bf16.cu",
                 ("flash_bwd_ble", "mxu"): "flash_bwd_mxu.cu",
                 ("flash_bwd_bhld_fused", "bf16"): "flash_bwd_bhld_bf16.cu",
-                ("flash_bwd_bhld_fused", "mxu"): "flash_bwd_bhld_mxu.cu"}
+                ("flash_bwd_bhld_fused", "mxu"): "flash_bwd_bhld_mxu.cu",
+                ("flash_fwd_bhld", "bf16"): "flash_fwd_bhld_bf16.cu",
+                ("flash_fwd_bhld", "mxu"): "flash_fwd_bhld_bf16.cu",
+                ("flash_bwd_dkv", "bf16"): "flash_bwd_dkv_bf16.cu",
+                ("flash_bwd_dkv", "mxu"): "flash_bwd_dkv_bf16.cu"}
+# The classic layout's wgmma tiles of Q3 (flash_fwd_wg.cuh) and Q5 (the
+# dk/dv tile of flash_bwd_wg.cuh), whole-slide: routed off (the mma.sync
+# tiles, as the parent has them); a ring of 3 buffers; 64 keys per forward
+# step (128 shipped); S in wgmmas of 64 keys (one of 128 shipped); under
+# mxu_bf16 one pass per 256-key block (a step of 256 keys, its S in
+# registers: 1 block per SM, as its 137 KB of shared memory allow); a
+# persistent dk/dv grid (one block per resident slot walks the plain
+# grid's (key tile, head, batch) items in order)
+FWD_NO_WG = ("flash_fwd_wg::kTakes<D>;", "false;")
+FWD_STAGES3 = ("constexpr int kStages = 2;", "constexpr int kStages = 3;")
+FWD_KEYS = "constexpr int kKeys = 128;"
+FWD_KEYS64 = (FWD_KEYS, "constexpr int kKeys = 64;")
+
+
+def fwd_split_scores(keys: int) -> tuple:
+    """S of a forward step in wgmmas of `keys` keys each."""
+    return ("  wg_tile::issue_ss<D, 8 * NT>(s, q, k);  // one m64nNk16 per k16 step, N = the step's keys",
+            f"#pragma unroll\n  for (int c = 0; c < NT / {keys // 8}; ++c) {{\n"
+            f"    wg_tile::issue_ss<D, {keys}>(*reinterpret_cast<float(*)[{keys // 8}][4]>("
+            f"s[{keys // 8} * c]), q, k + c * {keys} * 2 * D);\n  }}")
+
+
+FWD_S64 = fwd_split_scores(64)
+FWD_ONE_PASS = [(FWD_KEYS, "constexpr int kKeys = 256;"), fwd_split_scores(128), WG_NO_CAP]
+DKV_STAGES3 = ("constexpr int kDkvStages = 2;", "constexpr int kDkvStages = 3;")
+DKV_PERSISTENT = [
+    ("""    flash_bwd_dkv_wg_kernel(const Args<Elem<kMode>> a) {
+  extern __shared__ __align__(16) float smem[];
+  flash_bwd_wg::dkv_tile<D, false, flash_ops::Ops<kMode, D>::kTerms>(
+      a, blockIdx.x, blockIdx.y, blockIdx.z, flash_bwd_wg::aligned(smem));
+}""", """    flash_bwd_dkv_wg_kernel(const Args<Elem<kMode>> a, int n_work) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_tiles = (a.lk + flash_bwd_wg::R - 1) / flash_bwd_wg::R;
+  for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+    const int bh = w / n_tiles;
+    flash_bwd_wg::dkv_tile<D, false, flash_ops::Ops<kMode, D>::kTerms>(
+        a, w % n_tiles, bh % a.heads, bh / a.heads, flash_bwd_wg::aligned(smem));
+    __syncthreads();  // every warp is done with the tiles before the next item stages them
+  }
+}"""),
+    ("""  const auto fn = kernel<D, kMode>();
+  fn<<<grid, threads<D, kMode>(), smem_size<D, kMode>(), stream>>>(a);""",
+     """  if constexpr (kWg<D, kMode>) {  // as many blocks as fit at once, at most one per item
+    const int n_work = grid.x * grid.y * grid.z;
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel<D, kMode>(),
+                                                        threads<D, kMode>(), smem_size<D, kMode>());
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const auto fn = kernel<D, kMode>();
+    fn<<<n_work < sms * per_sm ? n_work : sms * per_sm, threads<D, kMode>(), smem_size<D, kMode>(),
+         stream>>>(a, n_work);
+  } else {
+    const auto fn = kernel<D, kMode>();
+    fn<<<grid, threads<D, kMode>(), smem_size<D, kMode>(), stream>>>(a);
+  }"""),
+]
+# Ablations of the forward tile, timing only (as ABLATIONS): exp: P = S - m
+# without the exp; rs: no P.V products; prefetch: no step staged ahead;
+# pass1 (mxu_bf16): no first pass over a key block (P rounded per step)
+FWD_ABLATIONS = {
+    "exp": [("sc[nt][e] = expf(sc[nt][e] - m[e >> 1]);", "sc[nt][e] = sc[nt][e] - m[e >> 1];")],
+    "rs": [("wg_tile::issue_rs<D, kTerms>(o, pa, v + c * 8 * NC * 2 * D);",
+            "o[0][0] += __uint_as_float(pa[0][0][0]);")],
+    "prefetch": [("    if (s + kStages - 1 < n_steps) stage_step(s + kStages - 1);\n", "")],
+    "pass1": [("const bool two_pass = kRoundsP && bt > 1;", "const bool two_pass = false;")],
+}
 
 
 def held(n: int):
@@ -256,12 +333,43 @@ VARIANTS = {
     **{f"fused_{mode}_{kind}_ablate_{name}": (
         "new", BF16_SOURCES["flash_bwd_bhld_fused", mode], f"flash_bwd_bhld_fused_{mode}",
         {"flash_bwd_fused.cuh": [NO_DQ_TILES if kind == "dkv" else NO_DKV_TILES],
-         **({"wgmma.cuh": subs} if name == "proxy" else {"flash_bwd_wg.cuh": subs})})
+         ABLATION_FILES.get(name, "flash_bwd_wg.cuh"): subs})
        for mode in ("bf16", "mxu") for kind in ("dkv", "dq") for name, subs in ABLATIONS.items()},
     **{f"ble_bwd_{mode}_dkv_ablate_{name}": (
         "new", BF16_SOURCES["flash_bwd_ble", mode], f"flash_bwd_ble_{mode}",
         {"flash_bwd_fused.cuh": [NO_DQ_TILES], "flash_bwd_wg.cuh": subs})
        for mode in ("bf16", "mxu") for name, subs in BLE_ABLATIONS.items()},
+    # the classic layout's bf16-ref modes of Q3 and Q5 (bf16 inputs; mxu
+    # with bf16 refs), whole-slide: the wgmma tiles, the parent's, the
+    # mma.sync tiles of this tree, and the tiles' options
+    **{f"{prefix}_{mode}{suffix}": (tree, BF16_SOURCES[entry, mode], f"{entry}_{mode}", subs)
+       for prefix, entry, no_wg in (("fwd_bhld", "flash_fwd_bhld", {"flash_fwd.cuh": [FWD_NO_WG]}),
+                                    ("dkv", "flash_bwd_dkv", {"flash_bwd_dkv.cuh": [NO_WG]}))
+       for mode in ("bf16", "mxu")
+       for tree, suffix, subs in (("new", "", {}), ("parent", "_parent", {}),
+                                  ("new", "_mma_sync", no_wg))},
+    **{f"fwd_bhld_{mode}_{name}": ("new", "flash_fwd_bhld_bf16.cu", f"flash_fwd_bhld_{mode}",
+                                   {"flash_fwd_wg.cuh": sub if isinstance(sub, list) else [sub]})
+       for mode in ("bf16", "mxu")
+       for name, sub in (("stages3", FWD_STAGES3), ("keys64", FWD_KEYS64),
+                         ("no_cap", WG_NO_CAP), ("fast_exp", FAST_EXP), ("s64", FWD_S64))},
+    "fwd_bhld_mxu_one_pass": ("new", "flash_fwd_bhld_bf16.cu", "flash_fwd_bhld_mxu",
+                              {"flash_fwd_wg.cuh": FWD_ONE_PASS}),
+    **{f"fwd_bhld_{mode}_ablate_{name}": ("new", "flash_fwd_bhld_bf16.cu", f"flash_fwd_bhld_{mode}",
+                                          {"flash_fwd_wg.cuh": subs})
+       for mode in ("bf16", "mxu") for name, subs in FWD_ABLATIONS.items()
+       if name != "pass1" or mode == "mxu"},
+    **{f"dkv_{mode}_{name}": ("new", "flash_bwd_dkv_bf16.cu", f"flash_bwd_dkv_{mode}", subs)
+       for mode in ("bf16", "mxu")
+       for name, subs in (("stages3", {"flash_bwd_wg.cuh": [DKV_STAGES3]}),
+                          ("persistent", {"flash_bwd_dkv.cuh": DKV_PERSISTENT}),
+                          ("bq32", {"flash_bwd_wg.cuh": [WG_BQ32]}),
+                          ("sub64", {"flash_bwd_wg.cuh": WG_SUB64}),
+                          ("no_cap", {"flash_bwd_wg.cuh": [WG_NO_CAP]}),
+                          ("fast_exp", {"flash_bwd_wg.cuh": FAST_EXP}))},
+    **{f"dkv_{mode}_ablate_{name}": ("new", "flash_bwd_dkv_bf16.cu", f"flash_bwd_dkv_{mode}",
+                                     {ABLATION_FILES.get(name, "flash_bwd_wg.cuh"): subs})
+       for mode in ("bf16", "mxu") for name, subs in ABLATIONS.items()},
     # (a): the mma.sync tile as the parent has it, and with ldmatrix loads
     **{f"{prefix}_{mode}_{name}": ("new", BF16_SOURCES[entry, mode], f"{entry}_{mode}", subs)
        for prefix, entry in (("ble_bwd", "flash_bwd_ble"), ("fused", "flash_bwd_bhld_fused"))
@@ -277,7 +385,8 @@ SHAPES = {"flash_fwd_bhld": ("bhld", 8, 4, 4097, 64), "flash_bwd_dq": ("bhld", 8
           "flash_bwd_dkv": ("bhld", 8, 4, 4097, 64),
           "flash_fwd_ble": ("ble", 8, 4, 257, 64), "flash_bwd_ble": ("ble", 8, 4, 257, 64),
           "flash_bwd_bhld_fused": ("bhld", 8, 4, 257, 64)}
-SHAPES.update({f"{entry}_{mode}": SHAPES[entry] for entry in ("flash_bwd_ble", "flash_bwd_bhld_fused")
+SHAPES.update({f"{entry}_{mode}": SHAPES[entry]
+               for entry in ("flash_bwd_ble", "flash_bwd_bhld_fused", "flash_fwd_bhld", "flash_bwd_dkv")
                for mode in ("bf16", "mxu")})
 # which of (dq, dk, dv) a backward entry point writes
 BWD_OUTPUTS = {"flash_bwd_dq": (0,), "flash_bwd_dkv": (1, 2)}
@@ -366,7 +475,10 @@ def run_shape(cs, fa, torch, built, names, shape, stream, lengths=None) -> list:
         entry0 = VARIANTS[names[0]][2]
         if is_bf16(entry0):  # chip_smoke's inputs of the mode, and its plain version
             args = cs.bf16_args(fa, entry0, B, H, Lq, Lk, D, ragged, seed, torch.bfloat16)
-            if layout == "ble":
+            if entry0.startswith("flash_fwd"):
+                q, k, v, mask = args
+                o_in = do = delta = None
+            elif layout == "ble":
                 q, k, v, mask, o_in, plse, do, _ = args
                 delta = None
             else:
@@ -378,6 +490,8 @@ def run_shape(cs, fa, torch, built, names, shape, stream, lengths=None) -> list:
                 if entry not in want_of:
                     want_of[entry] = getattr(fa, entry + "_plain")(*args)
             po = None
+            if entry0.startswith("flash_fwd"):
+                plse = want_of[entry0][1]
         else:
             q, k, v, mask = cs.attention_inputs(layout, B, H, L, L, D, ragged, seed)
             g = torch.Generator(device="cuda").manual_seed(seed + 1000)
@@ -397,17 +511,19 @@ def run_shape(cs, fa, torch, built, names, shape, stream, lengths=None) -> list:
                     for x in (q, k, v, mask, o_in, do, plse, delta, dq, dk, dv)]
         for name in names:
             fn, entry = built[name][0], VARIANTS[name][2]
+            extra = (1,) if entry.endswith("_mxu") else ()  # bf16 refs
             if entry.startswith("flash_fwd"):
                 call = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),  # noqa: E731
                                   mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                                  B, L, L, H, D, stream)
-                outs, want = (o, lse), (po, plse)
+                                  B, Lq, Lk, H, D, stream, *extra)
+                outs, want = (o, lse), want_of[entry] if is_bf16(entry) else (po, plse)
             else:
-                extra = (1,) if entry.endswith("_mxu") else ()  # bf16 refs
                 call = lambda: fn(*bwd_ptrs, B, Lq, Lk, H, D, stream, *extra)  # noqa: E731
-                which = BWD_OUTPUTS.get(entry, (0, 1, 2))
+                which = BWD_OUTPUTS.get(entry.removesuffix("_bf16").removesuffix("_mxu"), (0, 1, 2))
                 outs = tuple((dq, dk, dv)[i] for i in which)
-                want = tuple(want_of[entry][i] for i in which)
+                # a bf16 mode's plain version returns what its kernel writes
+                want = (tuple(want_of[entry]) if is_bf16(entry)
+                        else tuple(want_of[entry][i] for i in which))
             for x in outs:  # a variant that writes nothing must not pass
                 x.fill_(float("nan"))
             if call():
@@ -420,7 +536,11 @@ def run_shape(cs, fa, torch, built, names, shape, stream, lengths=None) -> list:
                     gate = "; timing split, not gated"
                 else:
                     heads = H if layout == "ble" else 1
-                    excess = max(cs.ulp_excess(a, b, heads) for a, b in zip(outs, want))
+                    fwd = entry.startswith("flash_fwd")  # outs (o, lse): lse within LSE_ATOL
+                    excess = max(cs.ulp_excess(a, b, heads) for a, b in zip(outs[:1] if fwd else outs,
+                                                                           want))
+                    if fwd:
+                        excess = max(excess, errs[1] - cs.LSE_ATOL)
                     ok = excess <= 0
                     gate = (f"; gate ok (within {cs.BF16_ULPS} bf16 ulp of each row's largest "
                             f"entry)" if ok else f"; GATE FAILED (excess {excess:.3e})")
@@ -472,12 +592,14 @@ def main(argv) -> int:
     failed = []
     for shape in dict.fromkeys(SHAPES.values()):
         for bf16 in (False, True):
-            names = [n for n in order if SHAPES[VARIANTS[n][2]] == shape
-                     and is_bf16(VARIANTS[n][2]) == bf16]
-            if not names:
-                continue
-            for lengths in (args.lengths if bf16 and args.lengths else [None]):
-                failed += run_shape(cs, fa, torch, built, names, shape, stream, lengths)
+            for fwd in (True, False):  # the bf16 modes' inputs differ between the two
+                names = [n for n in order if SHAPES[VARIANTS[n][2]] == shape
+                         and is_bf16(VARIANTS[n][2]) == bf16
+                         and VARIANTS[n][2].startswith("flash_fwd") == fwd]
+                if not names:
+                    continue
+                for lengths in (args.lengths if bf16 and args.lengths else [None]):
+                    failed += run_shape(cs, fa, torch, built, names, shape, stream, lengths)
     if failed:
         print(f"variants that missed the gate: {failed}", flush=True)
         return 1

@@ -2,9 +2,10 @@
 
 `chip_smoke.py` names every kernel template instantiation in nvcc's ptxas
 report by its entry point (both layouts of the forward template and of the
-fused backward template, the dq (Q4) and dk/dv (Q5) kernels, and the bf16
-product modes of every kernel), and must fail on one it does not know
-rather than leave it out; `scripts/torch_kernel_variants.py` builds its variants by text
+fused backward template, the dq (Q4) and dk/dv (Q5) kernels, the bf16
+product modes of every kernel, and the wgmma kernels of Q2, Q3, Q5 and
+Q6), and must fail on one it does not know rather than leave it out;
+`scripts/torch_kernel_variants.py` builds its variants by text
 substitution of the sources under `csrc/`, so every substitution must
 still find its target there (Q2's and Q4's variants included).
 """
@@ -94,6 +95,15 @@ MANGLED = {
         ("flash_bwd_bhld_fused_bf16", 16),
     "_ZN12_GLOBAL__N_119flash_bwd_wg_kernelILi64ELb0ELi3EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EEi":
         ("flash_bwd_bhld_fused_mxu", 64),
+    # the classic layout's bf16-ref modes of Q3 and Q5 on the wgmma tiles
+    "_ZN12_GLOBAL__N_119flash_fwd_wg_kernelILi64ELi1EEEvNS_4ArgsI13__nv_bfloat16EE":
+        ("flash_fwd_bhld_bf16", 64),
+    "_ZN12_GLOBAL__N_119flash_fwd_wg_kernelILi16ELi3EEEvNS_4ArgsI13__nv_bfloat16EE":
+        ("flash_fwd_bhld_mxu", 16),
+    "_ZN12_GLOBAL__N_123flash_bwd_dkv_wg_kernelILi32ELi1EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EE":
+        ("flash_bwd_dkv_bf16", 32),
+    "_ZN12_GLOBAL__N_123flash_bwd_dkv_wg_kernelILi64ELi3EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EE":
+        ("flash_bwd_dkv_mxu", 64),
 }
 
 
