@@ -11,8 +11,9 @@ imports nothing of JAX or of the JAX package. Phases:
    (such as wgmma serialized) for every kernel and head dim and product
    mode (a kernel template it cannot name raises),
    every kernel's dynamic shared memory and blocks per SM (all eighteen
-   (kernel, mode) entry points run on the tensor cores), and the card's
-   name and power limit.
+   (kernel, mode) entry points run on the tensor cores), the tile each
+   kernel's main path runs (TILES, held to the report), and the card's name
+   and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it plus ragged and
    fully-masked cases and D 8 / 128, and time kernel, plain version and the
@@ -23,11 +24,11 @@ imports nothing of JAX or of the JAX package. Phases:
    The bf16 modes of every kernel (`<kernel>_bf16` and `<kernel>_mxu`;
    mxu_bf16 on bf16 and on f32 inputs; Q3-Q5 at the whole-slide shape, Q1,
    Q2, Q6 at L 257, and ragged, fully-masked, D 8 / 128 and, for the
-   classic layout, Lk 600 cases; Q2 and Q6, whose bf16-ref modes run the
-   wgmma tiles, also at L 512, Lq 300 against Lk 257 and D 16 / 32, Q3 and
-   Q5, whose bf16-ref modes run them too, also at Lk 600 with D 16 / 32 and
-   at B 8, L 1,100 (more than one wave), each of these four its main path
-   shape three times: BF16_SHAPES) are held to their plain
+   classic layout, Lk 600 cases; their bf16-ref modes all run wgmma tiles:
+   Q1, Q2 and Q6 also at L 512, Lq 300 against Lk 257 and D 16 / 32, Q3-Q5
+   also at Lk 600 with D 16 / 32 and at B 8, L 1,100 (more than one wave),
+   each of the six its main path shape three times: BF16_SHAPES) are held
+   to their plain
    versions within BF16_ULPS bf16 ulp of each row's largest entry (each
    side rounds once from f32), lse within LSE_ATOL, and timed on bf16
    inputs against the library's bf16 SDPA.
@@ -107,9 +108,21 @@ imports nothing of JAX or of the JAX package. Phases:
    params moved, launches by `step_launches`, peak memory beside (g)'s
    batch of 8); one dropout-free canonical f32 step against
    `grad_accum=1` under phase 5's gate; a 4-step epoch of phase 8's small
-   cache graphed against eager steps under `step_diff`.
-10. Prints one `{"kernels": [...]}` JSON line, the card's line, then the
-   contract line `{"ok": true, "device": {...}}` last.
+   cache graphed against eager steps under `step_diff`. (j) The graphed
+   whole-slide epoch: a `DeviceCache` bank of WS_BANK_CASES whole slides
+   (WS_BANK_SLOTS ragged patch slots, bf16 store, 2.5 GB) subsampled to
+   WHOLE_SLIDE_PATCHES a step, through `step_many_cached` in bf16 and
+   under mxu_bf16: a 4-step epoch against eager steps (bitwise equality
+   printed, `step_diff` gated) and its replays' device time, then two
+   32-step epochs, graphed steps/s beside (g)'s / (h)'s eager steps/s and
+   device time, Q3 / Q4 / Q5 launches per replay (16 / 12 / 12) and no
+   other kernel.
+   Every step-level device time (`device_busy`, `replay_busy`) is read
+   until two profiles in a row record the same work (`agreed_profile`),
+   and prints how many readings it took.
+10. Prints one `{"kernels": [...]}` JSON line (each kernel with its tile),
+   the card's line, then the contract line `{"ok": true, "device": {...}}`
+   last.
 
 Any failed check raises, so the exit code is non-zero and the last line is
 not printed. TF32 is switched off for matmuls and cuDNN, so every f32
@@ -153,6 +166,29 @@ KERNELS = {
     "flash_bwd_dkv_bf16": (CSRC + "flash_bwd_dkv_bf16.cu", f"{TPU_KERNELS}:220"),
     "flash_bwd_dkv_mxu": (CSRC + "flash_bwd_dkv_bf16.cu", f"{TPU_KERNELS}:220"),
 }
+# the tile each kernel's main path runs (the bf16 modes: bf16 refs, the bench
+# configuration's); phase 1 holds it to ptxas' report, where a wgmma tile
+# has its `*_wg_kernel` instantiation for the entry point at D 64 and an
+# mma.sync one none
+_MMA_F32 = "mma.sync m16n8k8 3xTF32"
+_MMA_BF16 = "mma.sync m16n8k16"
+_WG_FWD = "wgmma m64nNk16, flash_fwd_wg.cuh"
+_WG_FUSED = "wgmma m64nNk16, flash_bwd_wg.cuh dk/dv and dq tiles"
+TILES = {"flash_fwd_ble": f"{_MMA_F32}, flash_fwd.cuh",
+         "flash_fwd_bhld": f"{_MMA_F32}, flash_fwd.cuh",
+         "flash_bwd_ble": f"{_MMA_F32}, flash_bwd_tc.cuh",
+         "flash_bwd_dq": f"{_MMA_F32}, flash_bwd_tc.cuh dq tile",
+         "flash_bwd_dkv": f"{_MMA_F32}, flash_bwd_tc.cuh dk/dv tile",
+         "flash_bwd_bhld_fused": f"{_MMA_F32}, flash_bwd_tc.cuh",
+         "flash_fwd_ble_bf16": f"{_MMA_BF16}, P in 3 terms, flash_fwd.cuh",
+         **{f"flash_fwd_{layout}_{mode}": _WG_FWD for layout, mode in
+            (("ble", "mxu"), ("bhld", "bf16"), ("bhld", "mxu"))},
+         **{f"flash_bwd_{kind}_{mode}": _WG_FUSED for kind in ("ble", "bhld_fused")
+            for mode in ("bf16", "mxu")},
+         **{f"flash_bwd_dq_{mode}": "wgmma m64nNk16, flash_bwd_wg.cuh dq tile"
+            for mode in ("bf16", "mxu")},
+         **{f"flash_bwd_dkv_{mode}": "wgmma m64nNk16, flash_bwd_wg.cuh dk/dv tile"
+            for mode in ("bf16", "mxu")}}
 # the bf16 modes: Q1, Q2 (ble) and Q3, Q6, Q4, Q5 (the classic layout)
 BF16_KERNELS = ("flash_fwd_ble_bf16", "flash_fwd_ble_mxu", "flash_bwd_ble_bf16",
                 "flash_bwd_ble_mxu", "flash_fwd_bhld_bf16", "flash_fwd_bhld_mxu",
@@ -213,6 +249,11 @@ TRAIN_STEPS, WS_TRAIN_STEPS = 4, 2
 # each step subsamples, the tokens per case, the cases of the small epoch
 BANK_CASES, BANK_SLOTS, NUM_PATCHES, NUM_TOKENS = 1024, 512, 256, 300
 SMALL_CASES = 32
+# phase 9 (j): the whole-slide bank (cases, patch slots per case, the
+# fewest valid slots of a case), subsampled to WHOLE_SLIDE_PATCHES a step:
+# every case holds more patches than a step takes, as most TCGA slides do,
+# so that each step's patches are all valid, as in 9 (g)'s batch
+WS_BANK_CASES, WS_BANK_SLOTS, WS_MIN_VALID = 256, 4608, 4096
 # one dropout-free training step, card (kernels, cuBLAS) vs CPU (plain
 # versions): metrics within STEP_RTOL / STEP_ATOL, and the params.
 # RMSprop's first update is +-10 lr sign(g), so an entry whose gradient is
@@ -274,10 +315,15 @@ PTXAS_ENTRIES = {("flash_fwd_kernel", (1,)): "flash_fwd_ble",
                  ("flash_bwd_wg_kernel", (1,), 3): "flash_bwd_ble_mxu",
                  ("flash_bwd_wg_kernel", (0,), 1): "flash_bwd_bhld_fused_bf16",
                  ("flash_bwd_wg_kernel", (0,), 3): "flash_bwd_bhld_fused_mxu",
-                 # the bf16-ref modes of Q3 and Q5 on the wgmma tiles
-                 # (csrc/flash_fwd_wg.cuh, csrc/flash_bwd_wg.cuh), D 16, 32, 64
-                 ("flash_fwd_wg_kernel", (), 1): "flash_fwd_bhld_bf16",
-                 ("flash_fwd_wg_kernel", (), 3): "flash_fwd_bhld_mxu",
+                 # the bf16-ref modes of Q1, Q3, Q4 and Q5 on the wgmma tiles
+                 # (csrc/flash_fwd_wg.cuh in either layout, csrc/flash_bwd_wg.cuh's
+                 # dq and dk/dv tiles), D 16, 32, 64
+                 ("flash_fwd_wg_kernel", (1,), 1): "flash_fwd_ble_bf16",
+                 ("flash_fwd_wg_kernel", (1,), 3): "flash_fwd_ble_mxu",
+                 ("flash_fwd_wg_kernel", (0,), 1): "flash_fwd_bhld_bf16",
+                 ("flash_fwd_wg_kernel", (0,), 3): "flash_fwd_bhld_mxu",
+                 ("flash_bwd_dq_wg_kernel", (), 1): "flash_bwd_dq_bf16",
+                 ("flash_bwd_dq_wg_kernel", (), 3): "flash_bwd_dq_mxu",
                  ("flash_bwd_dkv_wg_kernel", (), 1): "flash_bwd_dkv_bf16",
                  ("flash_bwd_dkv_wg_kernel", (), 3): "flash_bwd_dkv_mxu"}
 MODE_REFS = {2: " (f32 refs)", 3: " (bf16 refs)"}
@@ -336,6 +382,17 @@ def ptxas_report(log: str) -> list:
     return [f"    {ptxas_label(name)}:" if not text else
             f"    {ptxas_label(name)}: {text}" if text.startswith("ptxas ") else f"      {text}"
             for name, text in ptxas_records(log)]
+
+
+def check_tiles(log: str) -> None:
+    """Hold TILES to nvcc's ptxas report `log`: each entry point whose tile
+    is a wgmma one has a `*_wg_kernel` instantiation at D 64, each other
+    entry point none; raises on a mismatch."""
+    wg = {ptxas_entry(name) for name, _ in ptxas_records(log) if "_wg_kernel" in name}
+    for name, tile in TILES.items():
+        has = (name, 64) in wg
+        assert has == tile.startswith("wgmma"), (name, tile, "wgmma kernel built" if has else
+                                                  "no wgmma kernel built")
 
 
 def card_line() -> str:
@@ -768,16 +825,16 @@ def time_bf16_kernel(fa, name, args) -> dict:
 # phase 2's shapes of the bf16 modes (B, H, Lq, Lk, D): each kernel's main
 # path shape first (checked ragged, then timed all-valid), then ragged ones
 # at D 8 / 64 / 128; the classic forward's Lk 600 is three key blocks of
-# 256, the last one short. The single-block backward (Q2, Q6), whose
-# bf16-ref modes run the wgmma tiles at D 16 / 32 / 64, also at L 512 (the
-# largest single-block length: 8 tiles of each kind, no tail), Lq 300
-# against Lk 257 (CrossAttentionFusion's text queries over the patches)
-# and D 16 / 32; its main path shape is checked MAIN_REPEATS times, so that
-# a missing fence shows as a mismatch. So are the classic layout's (Q3-Q5),
-# whose bf16-ref modes of Q3 and Q5 run the wgmma tiles at D 16 / 32 / 64:
-# also at Lk 600 with D 16 / 32, and at L 1,100 with B 8 (a key and a query
-# tail, five key blocks under mxu_bf16, 576 blocks of 64 rows: more than
-# one wave at 3 blocks per SM on 132 SMs).
+# 256, the last one short. The ble layout's kernels (Q1, Q2) and the
+# single-block backward (Q6), whose bf16-ref modes run the wgmma tiles at
+# D 16 / 32 / 64, also at L 512 (the largest single-block length: 8 tiles
+# of each kind, no tail), Lq 300 against Lk 257 (CrossAttentionFusion's
+# text queries over the patches) and D 16 / 32; their main path shape is
+# checked MAIN_REPEATS times, so that a missing fence shows as a mismatch.
+# So are the classic layout's (Q3-Q5), whose bf16-ref modes run the wgmma
+# tiles at D 16 / 32 / 64: also at Lk 600 with D 16 / 32, and at L 1,100
+# with B 8 (a key and a query tail, five key blocks under mxu_bf16, 576
+# blocks of 64 rows: more than one wave at 3 blocks per SM on 132 SMs).
 SINGLE_BLOCK_SHAPES = ((4, 4, 512, 512, 64), (2, 4, 300, 257, 64), (2, 2, 136, 260, 32),
                        (2, 2, 136, 260, 16))
 MAIN_REPEATS = 3
@@ -805,7 +862,8 @@ def check_bf16_modes(fa, errs: dict, timed: dict) -> None:
         layout = kernel_layout(name)
         shapes = BF16_SHAPES["bhld_fused" if "bhld_fused" in name else layout]
         repeats = MAIN_REPEATS if name.startswith(
-            ("flash_bwd_ble", "flash_bwd_bhld_fused", "flash_fwd_bhld", "flash_bwd_dkv")) else 1
+            ("flash_fwd_ble", "flash_bwd_ble", "flash_bwd_bhld_fused", "flash_fwd_bhld",
+             "flash_bwd_dq", "flash_bwd_dkv")) else 1
         for dtype in ((torch.bfloat16, torch.float32) if "mxu" in name else (torch.bfloat16,)):
             for j, shape in enumerate(shapes):
                 for r in range(repeats if j == 0 else 1):
@@ -932,8 +990,8 @@ def bhld_bf16_step(fa, exp16, params, d_params, batch, label) -> dict:
                         f"flash_bwd_bhld_fused_{mode}": n_bwd}, launches
     busy = device_busy(engine, state, batch)  # a second step, profiled
     busy_line = ("not measured (the profiler recorded no device time)" if busy is None else
-                 f"{busy['device_ms']:.2f} ms of device time (torch.profiler), attention kernels "
-                 f"(name, calls, ms): {json.dumps(busy['flash'])}")
+                 f"{busy['device_ms']:.2f} ms of device time (torch.profiler, {busy['readings']} "
+                 f"readings), attention kernels (name, calls, ms): {json.dumps(busy['flash'])}")
     print(f"    ({label}) {mode} flash_layout='bhld' step: {busy_line} on {card_line()}",
           flush=True)
     del engine, state
@@ -992,7 +1050,8 @@ def whole_slide_bf16_training(fa, exp16, params, d_params, ws_batch, label, f32_
     16 / 12 / 12 per step, no other kernel), steps/s beside phase 6's f32
     `f32_sps`; then one dropout-free step against `use_pallas=False`, both
     on the card (`relative_step_gate`, as phase 6, in bf16). Returns (the
-    launches, the peak memory of the timed steps in bytes)."""
+    launches, the peak memory of the timed steps in bytes, steps/s, a
+    step's device ms or None)."""
     import torch
 
     from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
@@ -1015,8 +1074,8 @@ def whole_slide_bf16_training(fa, exp16, params, d_params, ws_batch, label, f32_
           f"ms per step) against phase 6's f32 {f32_sps:.3f} steps/s ({sps / f32_sps:.3f}x) on "
           f"{card_line()}; peak memory {peak / 1e9:.3f} GB; launches {launches}; last metrics "
           f"{json.dumps(metrics)}", flush=True)
-    print_device_busy(f"({label}) whole-slide {mode} step", engine, state, ws_batch, seconds
-                      / WS_TRAIN_STEPS)
+    device_ms = print_device_busy(f"({label}) whole-slide {mode} step", engine, state, ws_batch,
+                                  seconds / WS_TRAIN_STEPS)
     del engine, state
     cmp, plain, limits = relative_step_gate(
         fa, lambda **kw: train_cfg(exp16, dropout=0.0, **kw),
@@ -1025,21 +1084,23 @@ def whole_slide_bf16_training(fa, exp16, params, d_params, ws_batch, label, f32_
           f"whole-slide {mode} step at dropout 0: {json.dumps(cmp)}; the plain versions on the "
           f"card vs the same: {json.dumps(plain)} (limits {json.dumps(limits)}: metrics by "
           f"bf16_metric_tol, params beyond atol {PARAM_ATOL} per net)", flush=True)
-    return launches, peak
+    return launches, peak, sps, device_ms
 
 
-def print_device_busy(label, engine, state, batch, step_s) -> None:
-    """One more step under torch.profiler (`device_busy`): its device time
-    against `step_s` seconds per step by the host clock, and its top
-    kernels."""
+def print_device_busy(label, engine, state, batch, step_s):
+    """More steps under torch.profiler (`device_busy`): a step's device
+    time against `step_s` seconds per step by the host clock, and its top
+    kernels. Returns the device ms (None when not measured)."""
     busy = device_busy(engine, state, batch)
     if busy is None:
         print(f"    {label}: device time not measured (the profiler saw no device time)",
               flush=True)
-        return
-    print(f"    {label}: {busy['device_ms']:.1f} ms of device time (torch.profiler) against "
-          f"{step_s * 1e3:.1f} ms per step by the host clock; {busy['aten_ops']} aten ops on "
-          f"the host; top kernels (name, calls, ms): {json.dumps(busy['top'])}", flush=True)
+        return None
+    print(f"    {label}: {busy['device_ms']:.1f} ms of device time (torch.profiler, "
+          f"{busy['readings']} readings) against {step_s * 1e3:.1f} ms per step by the host "
+          f"clock; {busy['aten_ops']} aten ops on the host; top kernels (name, calls, ms): "
+          f"{json.dumps(busy['top'])}", flush=True)
+    return busy["device_ms"]
 
 
 def device_breakdown(server, batch) -> dict:
@@ -1272,33 +1333,54 @@ class plain_kernels:
             setattr(self.fa, name, kernel)
 
 
+def agreed_profile(run, what: str):
+    """torch.profiler over `run()` (`profiled`) until two readings in a row
+    record the same device work, key for key (each kernel, copy and memset
+    as many times): as `device_ms`, a reading that lost records is not
+    taken. Returns (the last profile, its device records, the readings
+    taken); raises after PROFILER_ATTEMPTS readings with no two in a row
+    that agree. Each reading runs `run` once more."""
+    last = None
+    for n in range(1, PROFILER_ATTEMPTS + 1):
+        prof = profiled(run)
+        records = device_records(prof)
+        counts = {e.key: e.count for e in records}
+        if counts and counts == last:
+            return prof, records, n
+        last = counts or None
+    raise RuntimeError(f"torch.profiler: no two readings in a row of {what} agree in "
+                       f"{PROFILER_ATTEMPTS} readings (last {len(counts)} kinds of record)")
+
+
 def device_busy(engine, state, batch) -> dict:
     """Device time of one step from `torch.profiler` (the sum of the device
-    time of its kernels, copies and memsets), the number of aten ops the
-    host ran, the five kernels that took most and the attention kernels
-    (`flash_*`); None when the profiler records no device time."""
+    time of its kernels, copies and memsets; `agreed_profile`: steps are
+    profiled until two in a row record the same work), the number of aten
+    ops the host ran, the five kernels that took most, the attention kernels
+    (`flash_*`) and the readings taken; None when the profiler records no
+    device time."""
     from torch.autograd import DeviceType
 
-    prof = profiled(lambda: engine.step(state, batch))
-    events = [e for e in device_records(prof) if e.self_device_time_total > 0]
+    prof, records, readings = agreed_profile(lambda: engine.step(state, batch), "a step")
+    events = [e for e in records if e.self_device_time_total > 0]
     if not events:
         return None
     events.sort(key=lambda e: -e.self_device_time_total)
     aten_ops = sum(e.count for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU and e.key.startswith("aten::"))
     return {"device_ms": sum(e.self_device_time_total for e in events) / 1e3,
-            "aten_ops": aten_ops,
+            "aten_ops": aten_ops, "readings": readings,
             "top": [(e.key[:60], e.count, e.self_device_time_total / 1e3)
                     for e in events[:5]],
             "flash": [(e.key[:60], e.count, e.self_device_time_total / 1e3)
                       for e in events if "flash_" in e.key]}
 
 
-def bank_data(cfg, n: int, seed: int) -> dict:
+def bank_data(cfg, n: int, seed: int, slots: int = BANK_SLOTS, min_valid: int = 64) -> dict:
     """A `DeviceCache` bank made on the card from `seed`: N(0, 1) genes
-    [n, n_genes], patches [n, BANK_SLOTS, patch_dim] with 64..BANK_SLOTS
-    valid slots per case, tokens [n, NUM_TOKENS, text_dim] with
-    16..NUM_TOKENS valid (the CLS token always), invalid entries zero."""
+    [n, n_genes], patches [n, slots, patch_dim] with min_valid..slots valid
+    slots per case, tokens [n, NUM_TOKENS, text_dim] with 16..NUM_TOKENS
+    valid (the CLS token always), invalid entries zero."""
     import torch
 
     f = cfg.fusion
@@ -1308,8 +1390,8 @@ def bank_data(cfg, n: int, seed: int) -> dict:
         lens = torch.randint(lo, L + 1, (n,), generator=g, device="cuda")
         return torch.arange(L, device="cuda")[None, :] < lens[:, None]
 
-    patch_mask, token_mask = ragged(BANK_SLOTS, 64), ragged(NUM_TOKENS, 16)
-    patches = torch.randn(n, BANK_SLOTS, f.patch_dim, generator=g, device="cuda")
+    patch_mask, token_mask = ragged(slots, min_valid), ragged(NUM_TOKENS, 16)
+    patches = torch.randn(n, slots, f.patch_dim, generator=g, device="cuda")
     tokens = torch.randn(n, NUM_TOKENS, f.text_dim, generator=g, device="cuda")
     return {"genes": torch.randn(n, cfg.n_genes, generator=g, device="cuda"),
             "patches": patches.mul_(patch_mask[..., None]), "patch_mask": patch_mask,
@@ -1331,10 +1413,11 @@ def identical(a, b) -> bool:
 
 def replay_busy(engine, state, cache, epoch) -> dict:
     """torch.profiler over one `step_many_cached` epoch whose graph exists
-    (replays only): device time of the kernels, copies and memsets per
-    step, the host clock per step (ending in a synchronise), the count of
-    device events per step and the five kernels that took most; None when
-    the profiler records no device time."""
+    (replays only; `agreed_profile`: epochs are profiled until two in a row
+    record the same work): device time of the kernels, copies and memsets
+    per step, the host clock per step (ending in a synchronise), the count
+    of device events per step, the five kernels that took most and the
+    readings taken; None when the profiler records no device time."""
     import torch
 
     steps = cache.n_full_batches
@@ -1346,12 +1429,13 @@ def replay_busy(engine, state, cache, epoch) -> dict:
         torch.cuda.synchronize()
         host_s.append(time.perf_counter() - t0)
 
-    events = [e for e in device_records(profiled(run)) if e.self_device_time_total > 0]
+    _, records, readings = agreed_profile(run, "an epoch of replays")
+    events = [e for e in records if e.self_device_time_total > 0]
     if not events:
         return None
     events.sort(key=lambda e: -e.self_device_time_total)
     return {"device_ms": sum(e.self_device_time_total for e in events) / 1e3 / steps,
-            "host_ms": host_s[0] * 1e3 / steps,
+            "host_ms": host_s[-1] * 1e3 / steps, "readings": readings,
             "device_events": sum(e.count for e in events) / steps,
             "top": [(e.key[:60], e.count / steps, e.self_device_time_total / 1e3 / steps)
                     for e in events[:5]]}
@@ -1366,6 +1450,67 @@ def graph_pool_bytes():
     if not segments or "segment_pool_id" not in segments[0]:
         return None
     return sum(s["total_size"] for s in segments if tuple(s["segment_pool_id"]) != (0, 0))
+
+
+def graphed_whole_slide_epochs(fa, cfg_, mode, bank, small, epoch_runs, fresh, eager) -> dict:
+    """Phase 9 (j) in one bf16 mode (`mode`: "bf16" or "mxu"): a small
+    whole-slide epoch through `step_many_cached` against the same steps run
+    eagerly (`epoch_runs`: bitwise equality printed, `step_diff` gated),
+    the replays' device time (`replay_busy`); then two epochs of the bank,
+    the second of replays only, timed by the host clock: launches of Q3, Q4
+    and Q5 in the mode equal to the replays (and the eager warm-up step)
+    times `step_launches`, one replay records exactly `step_launches`, and
+    no other kernel. Graphed steps/s printed beside 9 (g)'s / (h)'s eager
+    ones (`eager`: steps/s, device ms). Returns the second epoch's launches."""
+    import torch
+
+    card = card_line()
+    label = f"j, {mode}"
+    runs = epoch_runs(cfg_, label, cache=small, paths=("step_many_cached",))
+    g_engine, g_state, _ = runs["step_many_cached"]
+    del runs
+    busy = replay_busy(g_engine, g_state, small, 1)
+    del g_engine, g_state
+    n_fwd, n_bwd = step_launches(cfg_)
+    names = (f"flash_fwd_bhld_{mode}", f"flash_bwd_dq_{mode}", f"flash_bwd_dkv_{mode}")
+    per_step = dict(zip(names, (n_fwd, n_bwd, n_bwd)))
+    engine, state = fresh(cfg_, bank)
+    K = bank.n_full_batches
+    epoch_s = []
+    for e in (0, 1):
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = engine.step_many_cached(state, bank, e)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        launches = fa.launch_counts()
+        want = {**dict.fromkeys(KERNELS, 0), **{k: n * K for k, n in per_step.items()}}
+        assert launches == want, (launches, want)
+        metrics = floats(metrics)
+        assert all(np.isfinite(v) for v in metrics.values()), metrics
+    recorded = engine._cached_graphs[bank].recorded
+    assert recorded == per_step, recorded
+    pool = graph_pool_bytes()
+    sps = K / epoch_s[1]
+    eager_sps, eager_ms = eager
+    eager_line = f"{eager_sps:.3f} steps/s" + ("" if eager_ms is None else
+                                               f", {eager_ms:.1f} ms of device time a step")
+    busy_line = ("not measured (the profiler saw no device time)" if busy is None else
+                 f"{busy['device_ms']:.2f} ms of device time per step (torch.profiler, "
+                 f"{busy['readings']} readings, {busy['device_events']:.0f} device events) / "
+                 f"{busy['host_ms']:.2f} ms = busy {busy['device_ms'] / busy['host_ms']:.3f}; top "
+                 f"kernels per step (name, calls, ms): {json.dumps(busy['top'])}")
+    print(f"    ({label}) {K}-step whole-slide epochs through step_many_cached: epoch 0 (eager "
+          f"warm-up step, capture, {K - 1} replays) {epoch_s[0]:.3f} s; epoch 1 ({K} replays) "
+          f"{epoch_s[1]:.3f} s = {sps:.3f} steps/s ({epoch_s[1] * 1e3 / K:.1f} ms per step, host "
+          f"clock) against 9 (g)/(h)'s eager {eager_line} ({sps / eager_sps:.2f}x) on {card}; "
+          f"one replay launches {recorded}; launches per epoch {launches}; replayed steps of "
+          f"the small epoch: {busy_line}; CUDA graph pools "
+          f"{'not measured' if pool is None else f'{pool / 1e9:.3f} GB'}; last metrics "
+          f"{json.dumps(metrics)}", flush=True)
+    del engine, state
+    return launches
 
 
 def step_breakdown(engine, state, batch) -> dict:
@@ -1426,6 +1571,8 @@ def main(argv=None) -> int:
     print(f"[1] built kernels in {build_s:.1f} s", flush=True)
     for line in ptxas_report(log):  # ptxas -v, one entry per template instantiation
         print(line)
+    check_tiles(log)
+    print(f"    tiles (bf16 modes on bf16 refs): {json.dumps(TILES)}", flush=True)
     for name in build.TENSOR_CORE_KERNELS:  # dynamic shared memory
         for D in fa.HEAD_DIMS:
             smem, blocks = build.occupancy(name, D)
@@ -1581,7 +1728,7 @@ def main(argv=None) -> int:
     else:
         step_ms = train_s * 1e3 / TRAIN_STEPS
         print(f"    device busy share: {busy['device_ms']:.2f} ms of device time per step "
-              f"(torch.profiler) / {step_ms:.1f} ms per step = "
+              f"(torch.profiler, {busy['readings']} readings) / {step_ms:.1f} ms per step = "
               f"{busy['device_ms'] / step_ms:.3f}; {busy['aten_ops']} aten ops on the "
               f"host (nested ones included); top kernels (name, calls, ms): "
               f"{json.dumps(busy['top'])}", flush=True)
@@ -1670,27 +1817,29 @@ def main(argv=None) -> int:
         engine_ = WGANGPEngine(cfg_, steps_per_epoch=cache.n_full_batches)
         return engine_, engine_.state_from_flax(params, d_params, seed=0)
 
-    def epoch_runs(cfg_, label):
-        """(a) and (d): one small epoch through step_many_cached, step_many
-        (stacked) and eager steps, each from the same state and seeds."""
+    def epoch_runs(cfg_, label, cache=small, paths=("step_many_cached", "step_many")):
+        """(a) and (d): one epoch of the small cache through each of `paths`
+        (step_many_cached, step_many on the stacked epoch) and eager steps,
+        each from the same state and seeds. Returns {path: (engine, state,
+        metrics)}."""
         runs = {}
-        for path in ("step_many_cached", "step_many", "eager"):
-            engine_, state_ = fresh(cfg_, small)
+        for path in (*paths, "eager"):
+            engine_, state_ = fresh(cfg_, cache)
             torch.manual_seed(0)  # dropout
             if path == "step_many_cached":
-                state_, m = engine_.step_many_cached(state_, small, 0)
+                state_, m = engine_.step_many_cached(state_, cache, 0)
             elif path == "step_many":
-                state_, m = engine_.step_many(state_, small.stacked_epoch(0))
+                state_, m = engine_.step_many(state_, cache.stacked_epoch(0))
             else:
-                for b in small.epoch(0):
+                for b in cache.epoch(0):
                     state_, m = engine_.step(state_, b)
             torch.cuda.synchronize()
             runs[path] = (engine_, state_, floats(m))
         eager = runs["eager"][1:]
-        for path in ("step_many_cached", "step_many"):
+        for path in paths:
             got = runs[path][1:]
             cmp = step_diff(got, eager)
-            print(f"    ({label}) {path} vs eager steps, {small.n_full_batches}-step epoch "
+            print(f"    ({label}) {path} vs eager steps, {cache.n_full_batches}-step epoch "
                   f"of {SMALL_CASES} cases: bitwise equal {identical(got, eager)}; "
                   f"{json.dumps(cmp)} (metrics rtol {STEP_RTOL}, atol {STEP_ATOL}; at most "
                   f"{MAX_LOOSE} params beyond atol {PARAM_ATOL})", flush=True)
@@ -1739,7 +1888,8 @@ def main(argv=None) -> int:
               f"{epoch_s[1] * 1e3 / K:.2f} ms per replayed step on {card}", flush=True)
     else:
         print(f"    device busy share of replayed steps: {busy['device_ms']:.2f} ms of device "
-              f"time per step (torch.profiler, {busy['device_events']:.0f} device events) / "
+              f"time per step (torch.profiler, {busy['readings']} readings, "
+              f"{busy['device_events']:.0f} device events) / "
               f"{busy['host_ms']:.2f} ms per step = {busy['device_ms'] / busy['host_ms']:.3f} "
               f"(eager, phase 5: {eager_busy_ms} ms of device time per step) on {card}; "
               f"top kernels per step (name, calls, ms): {json.dumps(busy['top'])}",
@@ -1798,7 +1948,8 @@ def main(argv=None) -> int:
               flush=True)
     else:
         print(f"    bf16 replayed steps: {busy16['device_ms']:.2f} ms of device time per step "
-              f"({busy16['device_events']:.0f} device events) / {busy16['host_ms']:.2f} ms = busy "
+              f"({busy16['readings']} readings, {busy16['device_events']:.0f} device events) / "
+              f"{busy16['host_ms']:.2f} ms = busy "
               f"{busy16['device_ms'] / busy16['host_ms']:.3f}, against f32 (phase 8) "
               f"{busy['device_ms']:.2f} ms, {busy['device_events']:.0f} events, busy "
               f"{busy['device_ms'] / busy['host_ms']:.3f} on {card}; bf16 top kernels per step "
@@ -1820,15 +1971,16 @@ def main(argv=None) -> int:
     ws_sps = WS_TRAIN_STEPS / ws_train_s
     launches["bf16_whole_slide_serving"] = whole_slide_bf16_serving(fa, cfg16, params, ws_batch,
                                                                     "f")
-    launches["bf16_whole_slide_training"], ws_peak = whole_slide_bf16_training(
+    launches["bf16_whole_slide_training"], ws_peak, sps16, ms16 = whole_slide_bf16_training(
         fa, exp16, params, d_params, ws_batch, "g", ws_sps)
     torch.cuda.empty_cache()
 
     # (h) the same with mxu_bf16, and a bhld mxu step (Q6's mxu mode)
     launches["mxu_whole_slide_serving"] = whole_slide_bf16_serving(fa, exp16m.model, params,
                                                                    ws_batch, "h")
-    launches["mxu_whole_slide_training"], _ = whole_slide_bf16_training(
+    launches["mxu_whole_slide_training"], _, sps_m, ms_m = whole_slide_bf16_training(
         fa, exp16m, params, d_params, ws_batch, "h", ws_sps)
+    eager_ws = {"bf16": (sps16, ms16), "mxu": (sps_m, ms_m)}
     launches["mxu_bhld_training"] = bhld_bf16_step(fa, exp16m, params, d_params, batches[0], "h")
     torch.cuda.empty_cache()
 
@@ -1876,6 +2028,31 @@ def main(argv=None) -> int:
     del small
     torch.cuda.empty_cache()
 
+    # (j) the graphed whole-slide epoch: a bank of whole slides on the card
+    # through step_many_cached in bf16 and under mxu_bf16
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data = bank_data(cfg, WS_BANK_CASES, seed=14, slots=WS_BANK_SLOTS, min_valid=WS_MIN_VALID)
+    ws_kw = dict(cache_kw, num_patches=WHOLE_SLIDE_PATCHES)
+    ws_bank = DeviceCache(data, **ws_kw)
+    ws_small = DeviceCache({k: v[:SMALL_CASES] for k, v in data.items()}, **ws_kw)
+    del data
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ws_bank_gb = sum(t.numel() * t.element_size() for t in ws_bank.arrays.values()) / 1e9
+    print(f"    (j) whole-slide bank of {WS_BANK_CASES} cases ({WS_BANK_SLOTS} patch slots, "
+          f"{WS_MIN_VALID}..{WS_BANK_SLOTS} valid; {NUM_TOKENS} tokens; bf16 store) = "
+          f"{ws_bank_gb:.3f} GB on the card, made in {time.perf_counter() - t0:.1f} s; "
+          f"{WHOLE_SLIDE_PATCHES} patches subsampled per step", flush=True)
+    for exp_, mode in ((exp16, "bf16"), (exp16m, "mxu")):
+        launches[f"{mode}_whole_slide_epoch_loop"] = graphed_whole_slide_epochs(
+            fa, train_cfg(exp_), mode, ws_bank, ws_small, epoch_runs, fresh, eager_ws[mode])
+        torch.cuda.empty_cache()
+    print(f"    (j) memory: whole-slide bank {ws_bank_gb:.3f} GB; peak allocated over (j) "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {card}", flush=True)
+    del ws_bank, ws_small
+    torch.cuda.empty_cache()
+
     # ---- 10. report
     paths = {"flash_fwd_ble": "serving", "flash_fwd_bhld": "whole_slide_serving",
              "flash_bwd_ble": "training", "flash_bwd_dq": "whole_slide_training",
@@ -1883,18 +2060,18 @@ def main(argv=None) -> int:
              "flash_bwd_bhld_fused": "bhld_training",
              "flash_fwd_ble_bf16": "bf16_epoch_loop_1", "flash_bwd_ble_bf16": "bf16_epoch_loop_1",
              "flash_fwd_ble_mxu": "mxu_training_step", "flash_bwd_ble_mxu": "mxu_training_step",
-             "flash_fwd_bhld_bf16": "bf16_whole_slide_training",
-             "flash_bwd_dq_bf16": "bf16_whole_slide_training",
-             "flash_bwd_dkv_bf16": "bf16_whole_slide_training",
+             "flash_fwd_bhld_bf16": "bf16_whole_slide_epoch_loop",
+             "flash_bwd_dq_bf16": "bf16_whole_slide_epoch_loop",
+             "flash_bwd_dkv_bf16": "bf16_whole_slide_epoch_loop",
              "flash_bwd_bhld_fused_bf16": "bf16_bhld_training",
-             "flash_fwd_bhld_mxu": "mxu_whole_slide_training",
-             "flash_bwd_dq_mxu": "mxu_whole_slide_training",
-             "flash_bwd_dkv_mxu": "mxu_whole_slide_training",
+             "flash_fwd_bhld_mxu": "mxu_whole_slide_epoch_loop",
+             "flash_bwd_dq_mxu": "mxu_whole_slide_epoch_loop",
+             "flash_bwd_dkv_mxu": "mxu_whole_slide_epoch_loop",
              "flash_bwd_bhld_fused_mxu": "mxu_bhld_training"}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "path": paths[name],
+                        "replaces": replaces, "tile": TILES[name], "path": paths[name],
                         "launches": launches[paths[name]][name],
                         "launches_by_path": {p: c[name] for p, c in launches.items()},
                         "max_abs_err": errs[name], **timed[name]})

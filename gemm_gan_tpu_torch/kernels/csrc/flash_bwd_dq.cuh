@@ -39,12 +39,26 @@
 // scripts/torch_kernel_variants.py, PERF.md). The bf16 modes hold nothing
 // split (kHeld 0: a bf16 A fragment is read from the staged tile with no
 // split to save).
+//
+// The bf16-ref modes (flash_bwd_dq_bf16, and flash_bwd_dq_mxu on bf16 refs)
+// at D 16, 32 and 64 run the warpgroup-MMA dq tile of flash_bwd_wg.cuh
+// instead (kernel flash_bwd_dq_wg_kernel, same grid and contract: kWg
+// below), the one Q2's and Q6's fused grids run: wgmma products with no
+// fragment loads by the threads (the mma.sync tile issued about one
+// shared-memory load per tensor-core instruction), a branch-free exp, Q and
+// dO resident, 65 key steps at the whole-slide shape. Here the tile holds
+// only dQ, so a step of 64 keys takes its products in one sub-step and K,
+// V stream through a ring of 3 buffers (66.8 KB, 144 registers, 3 blocks
+// per SM at D 64): 5% (bf16) and 7% (mxu_bf16) faster at the whole-slide
+// shape than 32-key sub-steps and a ring of 2 (112 registers, 4 blocks per
+// SM); 128-key steps (83 KB, 2 blocks per SM) ran no faster (PERF.md).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_bwd_tc.cuh"
+#include "flash_bwd_wg.cuh"
 
 namespace {
 
@@ -71,18 +85,64 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args<Elem<
                                                                   blockIdx.z, smem);
 }
 
+// whether an instantiation runs the wgmma dq tile of flash_bwd_wg.cuh: the
+// bf16-ref modes (kBf16, kMxuBf16) at the head dims it takes
+template <int D, int kMode>
+constexpr bool kWg =
+    (kMode == flash_ops::kBf16 || kMode == flash_ops::kMxuBf16) && flash_bwd_wg::kTakes<D>;
+// the wgmma dq tile's buffers of its K, V ring and keys per product
+// sub-step here (the fused grids keep flash_bwd_wg's 2 and 32)
+constexpr int kWgStages = 3;
+constexpr int kWgSubKeys = 64;
+
+// the same grid on one warpgroup's wgmma dq tile (flash_bwd_wg.cuh)
+template <int D, int kMode>
+__global__ void __launch_bounds__(flash_bwd_wg::kThreads, flash_bwd_wg::kMinBlocks)
+    flash_bwd_dq_wg_kernel(const Args<Elem<kMode>> a) {
+  extern __shared__ __align__(16) float smem[];
+  flash_bwd_wg::dq_tile<D, false, flash_ops::Ops<kMode, D>::kTerms, kWgStages, kWgSubKeys>(
+      a, blockIdx.x, blockIdx.y, blockIdx.z, flash_bwd_wg::aligned(smem));
+}
+
+// the kernel an instantiation launches, its threads and its dynamic shared
+// memory
+template <int D, int kMode>
+constexpr auto kernel() {
+  if constexpr (kWg<D, kMode>) {
+    return flash_bwd_dq_wg_kernel<D, kMode>;
+  } else {
+    return flash_bwd_dq_kernel<D, kMode>;
+  }
+}
+
+template <int D, int kMode>
+constexpr int threads() {
+  return kWg<D, kMode> ? flash_bwd_wg::kThreads : kThreads;
+}
+
+template <int D, int kMode>
+constexpr int smem_size() {
+  if constexpr (kWg<D, kMode>) {  // the dq tile's own, from a 1,024-byte boundary
+    return flash_bwd_wg::dq_bytes<D, false, kWgStages>() + 1024;
+  } else {
+    return Cfg<D, kMode>::SMEM;
+  }
+}
+
 template <int D, int kMode>
 cudaError_t prepare() {
-  return cudaFuncSetAttribute(flash_bwd_dq_kernel<D, kMode>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D, kMode>::SMEM);
+  return cudaFuncSetAttribute(kernel<D, kMode>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_size<D, kMode>());
 }
 
 template <int D, int kMode>
 int launch(const Args<Elem<kMode>>& a, int batch, cudaStream_t stream) {
   const cudaError_t err = prepare<D, kMode>();
   if (err != cudaSuccess) return static_cast<int>(err);
+  static_assert(flash_bwd_wg::R == Cfg<D, kMode>::R, "both tiles take 64 query rows");
   const dim3 grid((a.lq + Cfg<D, kMode>::R - 1) / Cfg<D, kMode>::R, a.heads, batch);
-  flash_bwd_dq_kernel<D, kMode><<<grid, kThreads, Cfg<D, kMode>::SMEM, stream>>>(a);
+  const auto fn = kernel<D, kMode>();
+  fn<<<grid, threads<D, kMode>(), smem_size<D, kMode>(), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -104,9 +164,9 @@ int occupancy(int head_dim, int* smem_bytes, int* blocks_per_sm) {
     constexpr int D = decltype(d)::value;
     const cudaError_t err = prepare<D, kMode>();
     if (err != cudaSuccess) return static_cast<int>(err);
-    *smem_bytes = Cfg<D, kMode>::SMEM;
+    *smem_bytes = smem_size<D, kMode>();
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, flash_bwd_dq_kernel<D, kMode>, kThreads, Cfg<D, kMode>::SMEM));
+        blocks_per_sm, kernel<D, kMode>(), threads<D, kMode>(), *smem_bytes));
   });
 }
 

@@ -3,7 +3,8 @@
 // gemm_gan_tpu/kernels/flash_attention.py:142): the kernel template of
 // flash_bwd_dq.cuh in the modes of flash_ops.cuh. Arguments as
 // flash_bwd_dq's (flash_bwd_dq.cu), lse and delta f32; flash_bwd_dq_mxu
-// also takes the element type (bf16_refs).
+// also takes the element type (bf16_refs). On bf16 refs at D 16, 32 and 64
+// both run the wgmma dq tile of flash_bwd_wg.cuh.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

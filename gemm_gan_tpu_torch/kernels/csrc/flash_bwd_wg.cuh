@@ -1,11 +1,13 @@
-// The single-block attention backward's two kinds of tile on Hopper's
-// warpgroup MMA (wgmma.mma_async, wgmma.cuh), for the bf16-ref modes of
-// flash_bwd_fused.cuh: flash_bwd_ble_bf16 and flash_bwd_bhld_fused_bf16
-// (kBf16: P and dS in three bf16 terms, f32-exact), flash_bwd_ble_mxu and
-// flash_bwd_bhld_fused_mxu on bf16 refs (kMxuBf16: P and dS rounded once),
-// at head dims 16, 32 and 64. They replace the Pallas TPU kernels
-// `_bwd_kernel_ble` (gemm_gan_tpu/kernels/flash_attention.py:317) and
-// `_bwd_fused_kernel` (:179) in those modes; what they compute, the layouts
+// The attention backward's two kinds of tile on Hopper's warpgroup MMA
+// (wgmma.mma_async, wgmma.cuh), for the bf16-ref modes (kBf16: P and dS in
+// three bf16 terms, f32-exact; kMxuBf16, mxu_bf16 on bf16 refs: P and dS
+// rounded once) at head dims 16, 32 and 64: both in the single-block grids
+// of flash_bwd_fused.cuh (flash_bwd_ble_*, flash_bwd_bhld_fused_*), the dk/dv
+// tile alone in flash_bwd_dkv.cuh's grid and the dq tile alone in
+// flash_bwd_dq.cuh's. They replace the Pallas TPU kernels `_bwd_kernel_ble`
+// (gemm_gan_tpu/kernels/flash_attention.py:317), `_bwd_fused_kernel`
+// (:179), `_bwd_dq_kernel` (:142) and `_bwd_dkv_kernel` (:220) in those
+// modes; what they compute, the layouts
 // and the masking rules are flash_bwd_tc.cuh's, whose mma.sync tiles still
 // serve the f32 modes, mxu_bf16 on f32 refs (cp.async cannot round f32 to
 // bf16 as it stages) and head dims 8 (no k16 step) and 128 (a 256-byte row
@@ -38,12 +40,16 @@
 //    each on a 1,024-byte boundary; after a tile lands each thread fences
 //    the async proxy, then the block's barrier, then the wgmmas.
 //  * dk/dv tiles stream 64 queries per step (five steps at L 257), with K
-//    and V resident; dq tiles stream 64 keys. 32-query steps cost Q6 bf16
-//    5% in barriers. Each step's products run in sub-steps of 32 queries
-//    (keys), so that a sub-step's P^T and dS^T and their three bf16 terms
-//    fit in registers beside dK and dV (64 f32 registers per thread at
-//    D 64); a sub-step past the length is skipped (the tail of L 257 costs
-//    one sub-step, not two).
+//    and V resident; dq tiles stream 64 keys (the ring's depth and the
+//    sub-step are template arguments). 32-query steps cost Q6 bf16 5% in
+//    barriers. Each step's products run in sub-steps of 32 queries (keys),
+//    so that a sub-step's P^T and dS^T and their three bf16 terms fit in
+//    registers beside dK and dV (64 f32 registers per thread at D 64); a
+//    sub-step past the length is skipped (the tail of L 257 costs one
+//    sub-step, not two). The dq tile alone (Q4, 65 steps at L 4,097) holds
+//    only dQ (32 registers) and takes one 64-key sub-step a step through a
+//    ring of 3 (flash_bwd_dq.cuh): 5-7% faster there; the 64-key sub-step
+//    ran 7-10% slower in the fused grids, which keep 32 and a ring of 2.
 //    dK, dV and dQ accumulate in the wgmma accumulators across the steps.
 //  * A sub-step's products are waited for as soon as they are issued. Left
 //    in flight past the next sub-step's score products, the three-term A
@@ -99,21 +105,28 @@ using wg_tile::stage;
 constexpr int kQueries = 64;   // queries per streamed step of a dk/dv tile
 constexpr int kSubQueries = 32;  // queries per product sub-step of a dk/dv step
 constexpr int kKeys = 64;      // keys per streamed step of a dq tile
-constexpr int kSubKeys = 32;   // keys per product sub-step of a dq step
+constexpr int kSubKeys = 32;   // keys per product sub-step of a dq step (the fused grids')
+constexpr int kDqStages = 2;   // buffers of a dq tile's K, V ring (the fused grids')
 constexpr int kMinBlocks = 3;  // blocks per SM that __launch_bounds__ asks for
 constexpr int kDkvStages = 2;  // buffers of a dk/dv tile's Q, dO, lse, delta ring
 constexpr float kMinusInf = -std::numeric_limits<float>::infinity();  // expf: exactly 0
+
+// bytes of a dq tile's tiles: Q, dO (and O in ble) resident; a step's K, V
+// and their valid flags x NS buffers
+template <int D, bool kBle, int NS = kDqStages>
+constexpr int dq_bytes() {
+  return (kBle ? 3 : 2) * R * D * 2 + NS * (2 * kKeys * D * 2 + kKeys);
+}
 
 template <int D, bool kBle>
 struct Cfg {
   static constexpr int kRes = R * D * 2;         // bytes of a resident [64, D] tile
   static constexpr int kQTile = kQueries * D * 2;
-  static constexpr int kKTile = kKeys * D * 2;
   // K, V; Q, dO (and O in ble) x kDkvStages; lse, delta x kDkvStages (f32)
   static constexpr int kDkv =
       2 * kRes + kDkvStages * ((kBle ? 3 : 2) * kQTile + 2 * kQueries * 4);
-  // Q, dO (and O in ble); K, V x 2 stages; valid flags x 2 stages
-  static constexpr int kDq = (kBle ? 3 : 2) * kRes + 4 * kKTile + 2 * kKeys;
+  // the fused grids' dq tile
+  static constexpr int kDq = dq_bytes<D, kBle>();
   // the larger of the two, and room to put the tiles on a 1,024-byte boundary
   static constexpr int SMEM = (kDkv > kDq ? kDkv : kDq) + 1024;
 };
@@ -316,21 +329,25 @@ __device__ __forceinline__ void dkv_tile(const Args<bf16>& a, int tile, int h, i
   }
 }
 
-// dq for query rows [tile * 64, tile * 64 + 64) of (batch b, head h)
-template <int D, bool kBle, int kTerms>
+// dq for query rows [tile * 64, tile * 64 + 64) of (batch b, head h): K and
+// V stream in steps of kKeys keys through a ring of NS buffers, each step's
+// products in sub-steps of kSub keys
+template <int D, bool kBle, int kTerms, int NS = kDqStages, int kSub = kSubKeys>
 __device__ __forceinline__ void dq_tile(const Args<bf16>& a, int tile, int h, int b,
                                         uint8_t* smem) {
-  using C = Cfg<D, kBle>;
   constexpr int BK = kKeys;
-  constexpr int kSub = BK < kSubKeys ? BK : kSubKeys;
+  static_assert(BK % kSub == 0 && kSub % 16 == 0, "a step is whole sub-steps of k16 steps");
+  static_assert(BK <= kThreads && NS >= 2, "one key's flag per thread; a ring of 2 or more");
   constexpr int NT = kSub / 8;  // n8 tiles of a sub-step's S
   constexpr int DT = D / 8;   // n8 tiles of dQ
+  constexpr int kRes = R * D * 2;     // bytes of a resident [64, D] tile
+  constexpr int kKTile = BK * D * 2;  // bytes of a step's K or V tile
   uint8_t* qs = smem;                  // [64, D]
-  uint8_t* dos = qs + C::kRes;         // [64, D]
-  uint8_t* os = dos + C::kRes;         // [64, D], ble only
-  uint8_t* ks = os + (kBle ? C::kRes : 0);  // [2][BK, D]
-  uint8_t* vs = ks + 2 * C::kKTile;    // [2][BK, D]
-  uint8_t* valid = vs + 2 * C::kKTile; // [2][BK]
+  uint8_t* dos = qs + kRes;            // [64, D]
+  uint8_t* os = dos + kRes;            // [64, D], ble only
+  uint8_t* ks = os + (kBle ? kRes : 0);  // [NS][BK, D]
+  uint8_t* vs = ks + NS * kKTile;      // [NS][BK, D]
+  uint8_t* valid = vs + NS * kKTile;   // [NS][BK]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -345,13 +362,26 @@ __device__ __forceinline__ void dq_tile(const Args<bf16>& a, int tile, int h, in
   const uint8_t* mb = a.mask + static_cast<int64_t>(b) * a.lk;
 
   const int n_steps = (a.lk + BK - 1) / BK;
+  // this thread's key's valid flag in step s (0 past Lk and past the steps)
+  auto flag = [&](int s) -> uint8_t {
+    const int k = s * BK + tid;
+    return tid < BK && s < n_steps && k < a.lk ? mb[k] : 0;
+  };
+  auto stage_step = [&](int s, int buf) {
+    stage<D, BK>(ks + buf * kKTile, kb, s * BK, a.lk, stride);
+    stage<D, BK>(vs + buf * kKTile, vb, s * BK, a.lk, stride);
+  };
   stage<D, R>(qs, a.q + q_base, q0, a.lq, stride);
   stage<D, R>(dos, a.dout + q_base, q0, a.lq, stride);
   if constexpr (kBle) stage<D, R>(os, a.o + q_base, q0, a.lq, stride);
-  stage<D, BK>(ks, kb, 0, a.lk, stride);
-  stage<D, BK>(vs, vb, 0, a.lk, stride);
-  tf32x3::cp_async_commit();
-  uint8_t mv = tid < BK && tid < a.lk ? mb[tid] : 0;  // next step's flag
+  // steps 0 .. NS - 2 in flight (Q, dO and step 0 in the first group), their flags stored
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < n_steps) stage_step(s, s);
+    tf32x3::cp_async_commit();
+    if (tid < BK) valid[s * BK + tid] = flag(s);
+  }
+  uint8_t next = flag(NS - 1);  // the flag of the step staged next, stored one step later
 
   // rows past Lq: 0, so that p (dp - delta) stays finite; in ble, delta
   // comes from the staged tiles once they have landed (the first step)
@@ -366,17 +396,15 @@ __device__ __forceinline__ void dq_tile(const Args<bf16>& a, int tile, int h, in
   float dq[DT][4];
   tf32x3::zero(dq);
   for (int it = 0; it < n_steps; ++it) {
-    const int buf = it & 1;
-    const uint8_t mine = mv;
-    if (tid < BK) valid[buf * BK + tid] = mine;
-    if (it + 1 < n_steps) {  // prefetch step it + 1 into the other buffer
-      const int k1 = (it + 1) * BK;
-      stage<D, BK>(ks + (buf ^ 1) * C::kKTile, kb, k1, a.lk, stride);
-      stage<D, BK>(vs + (buf ^ 1) * C::kKTile, vb, k1, a.lk, stride);
-      mv = tid < BK && k1 + tid < a.lk ? mb[k1 + tid] : 0;
-    }
+    const int buf = it % NS;
+    // step it + NS - 1 into the buffer of step it - 1, which every warp is done with
+    const int nbuf = (it + NS - 1) % NS;
+    if (it + NS - 1 < n_steps) stage_step(it + NS - 1, nbuf);
     tf32x3::cp_async_commit();
-    tf32x3::cp_async_wait<1>();  // Q, dO and step it have landed (this thread's copies)
+    if (tid < BK) valid[nbuf * BK + tid] = next;
+    next = flag(it + NS);
+    const uint8_t mine = tid < BK ? valid[buf * BK + tid] : 0;
+    tf32x3::cp_async_wait<NS - 1>();  // Q, dO and step it have landed (this thread's copies)
     wgmma::fence_proxy_async();
     const bool step_live = __syncthreads_or(mine);  // ... and everyone's
     if (kBle && it == 0) {  // the rows' delta, summed over the quad that shares each row
@@ -385,8 +413,8 @@ __device__ __forceinline__ void dq_tile(const Args<bf16>& a, int tile, int h, in
     }
     if (!step_live) continue;  // every key of the step is masked
 
-    const uint8_t* kt = ks + buf * C::kKTile;
-    const uint8_t* vt = vs + buf * C::kKTile;
+    const uint8_t* kt = ks + buf * kKTile;
+    const uint8_t* vt = vs + buf * kKTile;
     const uint8_t* ok = valid + buf * BK;
 
     // The step's products in sub-steps of kSub keys, each done before the

@@ -83,12 +83,13 @@
 // TFLOP/s dense bf16), mxu_bf16 3 (S twice, P.V once; 0.0008 ms), and q, k,
 // v, o in bf16 are 4.2 MB (0.0013 ms at 3.35 TB/s): bytes bound both.
 //
-// The classic layout's bf16-ref modes (flash_fwd_bhld_bf16, and
-// flash_fwd_bhld_mxu on bf16 refs) at D 16, 32 and 64 run the warpgroup-MMA
+// The bf16-ref modes (flash_fwd_bhld_bf16, flash_fwd_bhld_mxu and
+// flash_fwd_ble_mxu on bf16 refs) at D 16, 32 and 64 run the warpgroup-MMA
 // tile of flash_fwd_wg.cuh instead (kernel flash_fwd_wg_kernel, same grid
-// and contract: kWg below): wgmma products with no fragment loads by the
-// threads, 128-key steps (256 keys per first-pass step under mxu_bf16), a
-// branch-free softmax, 3 blocks per SM.
+// and contract: kWg below), in the layout's strides: wgmma products with no
+// fragment loads by the threads, 128-key steps (256 keys per first-pass
+// step under mxu_bf16), a branch-free softmax; the ring's depth per layout
+// is kWgStages below.
 
 #pragma once
 
@@ -304,17 +305,28 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args<Elem<kMo
 }
 
 // whether an instantiation runs the wgmma tile of flash_fwd_wg.cuh: the
-// classic layout's bf16-ref modes (kBf16, kMxuBf16) at the head dims it takes
+// bf16-ref modes (kBf16, kMxuBf16) of either layout at the head dims it
+// takes, but the ble layout's bf16 mode (flash_fwd_ble_bf16). On the wgmma
+// tile that mode ran 1.46x faster and within one bf16 ulp of its plain
+// version, but the bf16 training step it feeds landed outside chip_smoke's
+// phase 9 (b) metric gate, which the kernels' own plain versions miss too
+// (PERF.md): it stays on the mma.sync tile until that gate is redesigned.
 template <int D, bool kBle, int kMode>
-constexpr bool kWg = !kBle && (kMode == flash_ops::kBf16 || kMode == flash_ops::kMxuBf16) &&
-                     flash_fwd_wg::kTakes<D>;
+constexpr bool kWg = (kMode == flash_ops::kBf16 || kMode == flash_ops::kMxuBf16) &&
+                     !(kBle && kMode == flash_ops::kBf16) && flash_fwd_wg::kTakes<D>;
+
+// the wgmma tile's buffers: the classic layout's (whole-slide) 2, the ble
+// layout's (L 257, mxu_bf16) 3, as measured (PERF.md)
+template <bool kBle>
+constexpr int kWgStages = kBle ? 3 : flash_fwd_wg::kStages;
 
 // the same grid on one warpgroup's wgmma tile (flash_fwd_wg.cuh)
-template <int D, int kMode>
+template <int D, bool kBle, int kMode>
 __global__ void __launch_bounds__(flash_fwd_wg::kThreads, flash_fwd_wg::kMinBlocks)
     flash_fwd_wg_kernel(const Args<Elem<kMode>> a) {
   extern __shared__ __align__(16) float smem[];
-  flash_fwd_wg::tile<D, Ops<kMode, D>::kTerms, flash_ops::kRoundsP<kMode>>(
+  flash_fwd_wg::tile<D, Ops<kMode, D>::kTerms, flash_ops::kRoundsP<kMode>, kBle,
+                     kWgStages<kBle>>(
       a, blockIdx.x, blockIdx.y, blockIdx.z, wg_tile::aligned(smem));
 }
 
@@ -322,7 +334,7 @@ __global__ void __launch_bounds__(flash_fwd_wg::kThreads, flash_fwd_wg::kMinBloc
 template <int D, bool kBle, int kMode>
 constexpr auto kernel() {
   if constexpr (kWg<D, kBle, kMode>) {
-    return flash_fwd_wg_kernel<D, kMode>;
+    return flash_fwd_wg_kernel<D, kBle, kMode>;
   } else {
     return flash_fwd_kernel<D, kBle, kMode>;
   }
@@ -336,7 +348,7 @@ constexpr int threads() {
 template <int D, bool kBle, int kMode>
 constexpr int smem_size() {
   if constexpr (kWg<D, kBle, kMode>) {
-    return flash_fwd_wg::Cfg<D>::SMEM;
+    return flash_fwd_wg::Cfg<D, kWgStages<kBle>>::SMEM;
   } else {
     return Cfg<D, kMode>::SMEM;
   }

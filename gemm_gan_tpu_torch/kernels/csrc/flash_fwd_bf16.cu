@@ -5,6 +5,9 @@
 // (flash_fwd.cu): q, k, v, o [B, L, H*D] of the mode's element type, mask
 // [B, Lk], lse [B, H, Lq] f32; flash_fwd_ble_mxu also takes the element
 // type (bf16_refs), so that each (kernel, mode) has one entry point.
+// flash_fwd_ble_mxu on bf16 refs runs the wgmma tile of flash_fwd_wg.cuh
+// (at D 16, 32, 64), flash_fwd_ble_bf16 the mma.sync one (flash_fwd.cuh's
+// kWg says why).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

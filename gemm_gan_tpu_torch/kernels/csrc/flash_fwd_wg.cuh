@@ -1,13 +1,14 @@
-// The classic-layout attention forward's bf16-ref modes on Hopper's warpgroup
-// MMA (wgmma.mma_async, wgmma.cuh): flash_fwd_bhld_bf16 (kBf16: P in three
-// bf16 terms, f32-exact) and flash_fwd_bhld_mxu on bf16 refs (kMxuBf16: P
-// rounded once, per key block as F4 requires) at head dims 16, 32 and 64.
-// They replace the Pallas TPU kernel `_fwd_kernel`
-// (gemm_gan_tpu/kernels/flash_attention.py:84) in those modes; what they
-// compute, the masking rules and the key blocks of mxu_bf16 are
-// flash_fwd.cuh's, whose mma.sync tile still serves the f32 modes,
-// mxu_bf16 on f32 refs (cp.async cannot round f32 to bf16 as it stages),
-// head dims 8 and 128, and the ble layout (Q1).
+// The attention forward's bf16-ref modes on Hopper's warpgroup MMA
+// (wgmma.mma_async, wgmma.cuh), in either layout: flash_fwd_bhld_bf16
+// (kBf16: P in three bf16 terms, f32-exact), flash_fwd_bhld_mxu and
+// flash_fwd_ble_mxu on bf16 refs (kMxuBf16: P rounded once, per key block
+// as F4 requires) at head dims 16, 32 and 64. They replace the Pallas TPU
+// kernels `_fwd_kernel` (gemm_gan_tpu/kernels/flash_attention.py:84) and
+// `_fwd_kernel_ble` (:290) in those modes; what they compute, the layouts,
+// the masking rules and the key blocks of mxu_bf16 are flash_fwd.cuh's,
+// whose mma.sync tile still serves the f32 modes, mxu_bf16 on f32 refs
+// (cp.async cannot round f32 to bf16 as it stages), head dims 8 and 128,
+// and flash_fwd_ble_bf16 (flash_fwd.cuh's kWg says why).
 //
 // What bounds it on an H100: at the whole-slide shape (B 8, H 4, L 4,097,
 // D 64) a product (S or P.V) is 68.8 GFLOP; the bf16 mode takes 4 bf16
@@ -15,19 +16,25 @@
 // (S twice, P.V once: 0.209 ms), against 17 MB of q, k, v, o (0.005 ms at
 // 3.35 TB/s): operations. The mma.sync tile ran 5.6x (bf16) and 8.0x (mxu)
 // that bound: a shared-memory load per tensor-core instruction, and under
-// mxu_bf16 both passes over a key block on mma.sync.
+// mxu_bf16 both passes over a key block on mma.sync. At the ble layout's
+// canonical L 257 the bound is the bytes (0.0013 ms), far below one tile's
+// chain of dependent steps.
 //
 // Design (one warpgroup of 4 warps per block, 64 query rows of one (batch,
-// head); grid (ceil(Lq / 64), H, B), 2,080 blocks at the whole-slide shape):
+// head); grid (ceil(Lq / 64), H, B), 2,080 blocks at the whole-slide shape,
+// 160 at the canonical ble one):
+//  * The layouts differ only in where a head's rows start and how far apart
+//    they are (flash_bwd_tc::head_base, row_stride: the ble layout's rows
+//    are H*D apart); lse is [B, H, Lq] in both.
 //  * Q stays resident in shared memory; K and V tiles of kKeys = 128 keys
-//    stream through a ring of kStages buffers (one K and one V tile each)
-//    staged by cp.async in wgmma's swizzled layout (wg_tile::stage),
-//    each thread fencing the async proxy before the barrier that precedes
-//    the products.
+//    stream through a ring of kStages buffers (one K and one V tile each; a
+//    template argument, flash_fwd.cuh's kWgStages), staged by cp.async in
+//    wgmma's swizzled layout (wg_tile::stage), each thread fencing the
+//    async proxy before the barrier that precedes the products.
 //  * S = Q.K^T on wgmma with both operands in shared memory (K-major), one
-//    m64n128k16 per k16 step; masked keys and keys >= Lk become -1e30 by select,
-//    so exp(s - m) is 0 for them without a branch; a row's max is reduced
-//    over its quad.
+//    m64n128k16 per k16 step; masked keys and keys >= Lk
+//    become -1e30 by select, so exp(s - m) is 0 for them without a branch;
+//    a row's max is reduced over its quad.
 //  * O += P.V takes P from S's accumulators packed to bf16 (A from
 //    registers: the accumulator layout is the A layout, wgmma.cuh) and V
 //    from shared memory read MN-major, in sub-steps of 64 keys; in kBf16 P
@@ -38,15 +45,16 @@
 //    and lse = -1e30; a step whose keys are all masked is skipped (the mask
 //    is per batch, so the branch is uniform).
 //  * mxu_bf16 (F4): a classic shape whose 128-padded Lk exceeds 512 rounds
-//    P per block of kBlockK = 256 keys from key 0, else in one block of all
-//    the keys. P = exp(s - the running max at the block's end) is rounded
-//    once and l sums the unrounded p. A block of more than one tile is
-//    taken twice: first its K alone, kPass1Tiles = 2 tiles a step (a
-//    buffer's K and V rows hold 256 keys of K), for each row's max over the
-//    block, then o and l rescaled to the new running max; then its tiles'
-//    K and V, P with no rescale. A block of one tile is the online
-//    softmax's step. Every step, of either pass, goes through the same
-//    ring, so the next one is in flight across block and pass boundaries.
+//    P per block of kBlockK = 256 keys from key 0, else (and always in the
+//    ble layout) in one block of all the keys. P = exp(s - the running max
+//    at the block's end) is rounded once and l sums the unrounded p. A
+//    block of more than one tile is taken twice: first its K alone,
+//    kPass1Tiles = 2 tiles a step (a buffer's K and V rows hold 256 keys
+//    of K), for each row's max over the block, then o and l rescaled
+//    to the new running max; then its tiles' K and V, P with no rescale. A
+//    block of one tile is the online softmax's step. Every step, of either
+//    pass, goes through the same ring, so the next one is in flight across
+//    block and pass boundaries.
 //  * Each step's products are waited for at once (no A registers in flight
 //    past other products: ptxas serialized every wgmma of the backward
 //    tile when they were, C7512). __launch_bounds__ asks for kMinBlocks
@@ -54,15 +62,19 @@
 // The step sizes were measured (scripts/torch_kernel_variants.py, PERF.md):
 // the step's fixed cost (barrier, waits, the dependent product chain)
 // weighs more than its products, so 128-key steps beat 64-key ones at
-// L 4,097 (and under mxu_bf16 at L 257, where 64-key steps saved the bf16
-// mode 0.0008 ms a launch), a first pass of 256 keys a step beat one of a
-// tile a step, and S in one m64n128k16 per k16 step beat two m64n64k16.
+// L 4,097 (both modes) and under mxu_bf16 at L 257 (in the bf16 mode 64-key
+// steps won there); a ring of 3 buffers helps the ble mxu_bf16 mode at
+// L 257 (its 108 KB leave 2 blocks per SM, which the 160-block grid fills)
+// and slows the classic one at L 4,097; a first pass of 256 keys a step
+// beat one of a tile a step, and S in one m64n128k16 per k16 step beat two
+// m64n64k16.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_bwd_tc.cuh"
 #include "wg_tile.cuh"
 #include "wgmma.cuh"
 
@@ -73,22 +85,24 @@ using wg_tile::kTakes;    // the head dims the tile takes
 using wg_tile::kThreads;  // one warpgroup
 using wg_tile::R;         // query rows per block: wgmma's M
 constexpr int kKeys = 128;     // keys per streamed step
-constexpr int kStages = 2;     // buffers of the ring, each a K and a V tile
+constexpr int kStages = 2;     // buffers of the ring, each a K and a V tile (unless a kernel asks)
 constexpr int kMinBlocks = 3;  // blocks per SM that __launch_bounds__ asks for
 constexpr int kBlockK = 256;   // keys per block of JAX's classic forward under mxu_bf16 (long Lk)
 constexpr int kSubKeys = 64;   // keys per P.V sub-step
 constexpr int kPass1Tiles = 2;  // key tiles per first-pass step: K in a buffer's K and V rows
+
 static_assert(kBlockK % kKeys == 0 && kKeys % kSubKeys == 0,
               "a key block is whole steps, a step whole sub-steps");
 constexpr int kStageKeys = kPass1Tiles * kKeys;  // keys a buffer's flags cover
 constexpr int kFlags = (kStageKeys + kThreads - 1) / kThreads;  // keys' valid flags per thread
 
-template <int D>
+// the tile's shared memory with a ring of NS buffers
+template <int D, int NS = kStages>
 struct Cfg {
   static constexpr int kQ = R * D * 2;       // bytes of the resident Q tile
   static constexpr int kKV = kKeys * D * 2;  // bytes of a K or V tile
-  // Q; (K, V) x kStages; valid flags x kStages; room for the 1,024-byte boundary
-  static constexpr int SMEM = kQ + kStages * (2 * kKV + kStageKeys) + 1024;
+  // Q; (K, V) x NS; valid flags x NS; room for the 1,024-byte boundary
+  static constexpr int SMEM = kQ + NS * (2 * kKV + kStageKeys) + 1024;
 };
 
 // o += P.V over a [8 NT, D] V tile, P the f32 accumulator p taken as kTerms
@@ -129,11 +143,12 @@ __device__ __forceinline__ void masked_scores(float (&s)[NT][4], const uint8_t* 
   }
 }
 
-// o, lse for query rows [qt * 64, qt * 64 + 64) of (batch b, head h); A is
-// flash_fwd.cuh's Args<bf16>
-template <int D, int kTerms, bool kRoundsP, class A>
+// o, lse for query rows [qt * 64, qt * 64 + 64) of (batch b, head h) in the
+// classic layout or (kBle) the [B, L, H*D] one, through a ring of kStages
+// buffers; A is flash_fwd.cuh's Args<bf16>
+template <int D, int kTerms, bool kRoundsP, bool kBle, int kStages, class A>
 __device__ __forceinline__ void tile(const A& a, int qt, int h, int b, uint8_t* smem) {
-  using C = Cfg<D>;
+  using C = Cfg<D, kStages>;
   using tf32x3::kNegInf;
   constexpr int NT = kKeys / 8;  // n8 tiles of a step's S
   constexpr int DT = D / 8;      // n8 tiles of O
@@ -144,16 +159,22 @@ __device__ __forceinline__ void tile(const A& a, int qt, int h, int b, uint8_t* 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int64_t bh = static_cast<int64_t>(b) * a.heads + h;
-  const bf16* kb = a.k + bh * a.lk * D;
-  const bf16* vb = a.v + bh * a.lk * D;
+  // where (b, h)'s rows start and how far apart they are, in elements
+  const int64_t stride = flash_bwd_tc::row_stride<D, kBle>(a.heads);
+  const int64_t q_base = flash_bwd_tc::head_base<D, kBle>(b, h, a.heads, a.lq);
+  const int64_t k_base = flash_bwd_tc::head_base<D, kBle>(b, h, a.heads, a.lk);
+  const bf16* kb = a.k + k_base;
+  const bf16* vb = a.v + k_base;
   const uint8_t* mb = a.mask + static_cast<int64_t>(b) * a.lk;
   const int q0 = qt * R;
 
   // The steps: every key tile once (the online softmax), or under mxu_bf16
   // with key blocks of more than one tile, each block twice: first its K
-  // alone, kPass1Tiles tiles a step, then its tiles' K and V.
+  // alone, kPass1Tiles tiles a step, then its tiles' K and V. The ble
+  // kernel rounds P in one block of every key.
   const int n_tiles = (a.lk + kKeys - 1) / kKeys;
-  const int bt = kRoundsP && (a.lk + 127) / 128 * 128 > 512 ? kBlockK / kKeys : n_tiles;
+  const int bt =
+      kRoundsP && !kBle && (a.lk + 127) / 128 * 128 > 512 ? kBlockK / kKeys : n_tiles;
   const bool two_pass = kRoundsP && bt > 1;
   auto first_steps = [](int len) { return (len + kPass1Tiles - 1) / kPass1Tiles; };
   const int n_blocks = (n_tiles + bt - 1) / bt;
@@ -181,10 +202,10 @@ __device__ __forceinline__ void tile(const A& a, int qt, int h, int b, uint8_t* 
     uint8_t* st = ring + (s % kStages) * 2 * C::kKV;
     int tile, n;
     if (step_of(s, tile, n)) {
-      wg_tile::stage<D, kKeys>(st, kb, tile * kKeys, a.lk, D);
-      wg_tile::stage<D, kKeys>(st + C::kKV, vb, tile * kKeys, a.lk, D);
+      wg_tile::stage<D, kKeys>(st, kb, tile * kKeys, a.lk, stride);
+      wg_tile::stage<D, kKeys>(st + C::kKV, vb, tile * kKeys, a.lk, stride);
     } else {  // K of n tiles, in the buffer's K and V rows; rows past them zero-filled
-      wg_tile::stage<D, kStageKeys>(st, kb, tile * kKeys, min(a.lk, (tile + n) * kKeys), D);
+      wg_tile::stage<D, kStageKeys>(st, kb, tile * kKeys, min(a.lk, (tile + n) * kKeys), stride);
     }
   };
   // the valid flags of step s's keys tid + kThreads j (0 past its tiles)
@@ -198,7 +219,7 @@ __device__ __forceinline__ void tile(const A& a, int qt, int h, int b, uint8_t* 
     }
   };
 
-  wg_tile::stage<D, R>(qs, a.q + bh * a.lq * D, q0, a.lq, D);
+  wg_tile::stage<D, R>(qs, a.q + q_base, q0, a.lq, stride);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_steps) stage_step(s);
@@ -307,7 +328,7 @@ __device__ __forceinline__ void tile(const A& a, int qt, int h, int b, uint8_t* 
     const bool empty = m[i] <= 0.5f * kNegInf;  // no valid key in this row
     const int r = q0 + 16 * warp + g + 8 * i;
     if (r >= a.lq) continue;
-    bf16* orow = a.o + (bh * a.lq + r) * D + 2 * t;
+    bf16* orow = a.o + q_base + r * stride + 2 * t;
 #pragma unroll
     for (int n8 = 0; n8 < DT; ++n8) {
       bf16mma::store_pair(orow + 8 * n8, empty ? 0.f : o[n8][2 * i] / lc,

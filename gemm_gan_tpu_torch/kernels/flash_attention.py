@@ -24,7 +24,8 @@ run can show that its path went through the kernels.
 
 Four backward kernels on the tensor cores in 3xTF32, each with a plain
 version and a launch counter of its own; all four run the dq and dk/dv
-tiles of `csrc/flash_bwd_tc.cuh`:
+tiles of `csrc/flash_bwd_tc.cuh` (their bf16-ref modes, below, the
+warpgroup-MMA tiles of `csrc/flash_bwd_wg.cuh`):
 
 * `flash_bwd_ble` (replaces `_bwd_kernel_ble`) and `flash_bwd_bhld_fused`
   (replaces `_bwd_fused_kernel`): dq, dk, dv in one launch, the two layouts
@@ -52,7 +53,10 @@ and launch counter (the JAX package's bf16 configuration,
 
 Their plain versions are the f32 ones with bf16 operands or
 `mxu_bf16=True`; `FlashAttentionBLE` and `FlashAttentionBHLD` pick the
-wrappers by the operands' dtype and the mode.
+wrappers by the operands' dtype and the mode. On bf16 operands (bf16 refs)
+every kernel runs a warpgroup-MMA (`wgmma`) tile at head dims 16, 32 and
+64: the forward's `csrc/flash_fwd_wg.cuh` in either layout, the backward's
+`csrc/flash_bwd_wg.cuh`.
 
 `flash_mha_ble` and `flash_mha` run through a `torch.autograd.Function`
 per layout (`FlashAttentionBLE`, `FlashAttentionBHLD`) whose backward is

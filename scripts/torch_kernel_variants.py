@@ -16,10 +16,9 @@ git), called through ctypes with the entry point's usual arguments.
 For each variant it prints ptxas' registers, spills and warnings at D = 64,
 the dynamic shared memory and blocks per SM; then, at the entry point's
 main path shape (whole-slide B 8, H 4, L 4,097, D 64 for flash_fwd_bhld,
-flash_bwd_dq and flash_bwd_dkv, and for the bf16 modes of the first and
-the last; canonical B 8, H 4, L 257, D 64 for flash_fwd_ble,
-flash_bwd_ble and flash_bwd_bhld_fused, and for the bf16 modes of the last
-two), the largest |kernel - plain version| of each
+flash_bwd_dq and flash_bwd_dkv; canonical B 8, H 4, L 257, D 64 for
+flash_fwd_ble, flash_bwd_ble and flash_bwd_bhld_fused; each also in its
+bf16 modes), the largest |kernel - plain version| of each
 output on all-valid and ragged masks, and on the all-valid one the
 kernel's time by CUDA events (20 launches after 3 warm-up) and its device
 time by torch.profiler. The bf16 modes (`*_bf16`, and `*_mxu` on bf16
@@ -119,8 +118,7 @@ ABLATIONS = {
     "rs": [("for (int k = kTerms - 1; k >= 0; --k) wgmma::mma_rs<D>(acc, a[j][k], b);",
             "for (int k = kTerms - 1; k >= 0; --k) acc[0][0] += __uint_as_float(a[j][k][0]);")],
     "prefetch": [("      if (it + NS - 1 < n_steps) stage_step(it + NS - 1, (it + NS - 1) % NS);", ""),
-                 ("    if (it + 1 < n_steps) {  // prefetch step it + 1 into the other buffer",
-                  "    if (false) {")],
+                 ("    if (it + NS - 1 < n_steps) stage_step(it + NS - 1, nbuf);", "")],
 }
 # the header an ablation edits, where it is not flash_bwd_wg.cuh
 ABLATION_FILES = {"proxy": "wgmma.cuh", "rs": "wg_tile.cuh"}
@@ -142,7 +140,11 @@ BF16_SOURCES = {("flash_bwd_ble", "bf16"): "flash_bwd_bf16.cu",
                 ("flash_fwd_bhld", "bf16"): "flash_fwd_bhld_bf16.cu",
                 ("flash_fwd_bhld", "mxu"): "flash_fwd_bhld_bf16.cu",
                 ("flash_bwd_dkv", "bf16"): "flash_bwd_dkv_bf16.cu",
-                ("flash_bwd_dkv", "mxu"): "flash_bwd_dkv_bf16.cu"}
+                ("flash_bwd_dkv", "mxu"): "flash_bwd_dkv_bf16.cu",
+                ("flash_bwd_dq", "bf16"): "flash_bwd_dq_bf16.cu",
+                ("flash_bwd_dq", "mxu"): "flash_bwd_dq_bf16.cu",
+                ("flash_fwd_ble", "bf16"): "flash_fwd_bf16.cu",
+                ("flash_fwd_ble", "mxu"): "flash_fwd_bf16.cu"}
 # The classic layout's wgmma tiles of Q3 (flash_fwd_wg.cuh) and Q5 (the
 # dk/dv tile of flash_bwd_wg.cuh), whole-slide: routed off (the mma.sync
 # tiles, as the parent has them); a ring of 3 buffers; 64 keys per forward
@@ -203,6 +205,35 @@ DKV_PERSISTENT = [
     fn<<<grid, threads<D, kMode>(), smem_size<D, kMode>(), stream>>>(a);
   }"""),
 ]
+# Q4's wgmma dq tile (flash_bwd_dq.cuh's kWgStages, kWgSubKeys; shipped:
+# 64-key steps, one 64-key sub-step, a ring of 3), {file: substitutions}:
+# 128-key steps (a ring of 2: 83 KB, 2 blocks per SM), in 64- or 32-key
+# sub-steps; a ring of 2; 32-key sub-steps (the fused grids'); a ring of 2
+# and 4 blocks per SM asked of __launch_bounds__ (at most 128 registers)
+DQ_KEYS128 = ("constexpr int kKeys = 64;      // keys per streamed step of a dq tile",
+              "constexpr int kKeys = 128;      // keys per streamed step of a dq tile")
+DQ_SUB32 = ("constexpr int kWgSubKeys = 64;", "constexpr int kWgSubKeys = 32;")
+DQ_STAGES2 = ("constexpr int kWgStages = 3;", "constexpr int kWgStages = 2;")
+DQ_BLOCKS4 = ("__launch_bounds__(flash_bwd_wg::kThreads, flash_bwd_wg::kMinBlocks)\n"
+              "    flash_bwd_dq_wg_kernel",
+              "__launch_bounds__(flash_bwd_wg::kThreads, 4)\n    flash_bwd_dq_wg_kernel")
+DQ_OPTIONS = {"keys128": {"flash_bwd_wg.cuh": [DQ_KEYS128], "flash_bwd_dq.cuh": [DQ_STAGES2]},
+              "keys128_sub32": {"flash_bwd_wg.cuh": [DQ_KEYS128],
+                                "flash_bwd_dq.cuh": [DQ_STAGES2, DQ_SUB32]},
+              "stages2": {"flash_bwd_dq.cuh": [DQ_STAGES2]},
+              "sub32": {"flash_bwd_dq.cuh": [DQ_SUB32]},
+              "stages2_blocks4": {"flash_bwd_dq.cuh": [DQ_STAGES2, DQ_BLOCKS4]}}
+# Q1 on the forward wgmma tile (shipped: mxu_bf16 with 128-key steps and a
+# ring of 3, flash_fwd.cuh's kWgStages; bf16 on the mma.sync tile),
+# {file: substitutions}: the bf16 mode routed onto the wgmma tile, with
+# 128- or 64-key steps; mxu_bf16 with 64-key steps or a ring of 2
+BLE_BF16_WG = ("!(kBle && kMode == flash_ops::kBf16) && ", "")
+FWD_KEYS64_FILE = {"flash_fwd_wg.cuh": [FWD_KEYS64]}
+BLE_OPTIONS = {"bf16": {"wgmma": {"flash_fwd.cuh": [BLE_BF16_WG]},
+                        "wgmma_keys64": {"flash_fwd.cuh": [BLE_BF16_WG], **FWD_KEYS64_FILE}},
+               "mxu": {"keys64": FWD_KEYS64_FILE,
+                       "stages2": {"flash_fwd.cuh": [("constexpr int kWgStages = kBle ? 3 :",
+                                                      "constexpr int kWgStages = kBle ? 2 :")]}}}
 # Ablations of the forward tile, timing only (as ABLATIONS): exp: P = S - m
 # without the exp; rs: no P.V products; prefetch: no step staged ahead;
 # pass1 (mxu_bf16): no first pass over a key block (P rounded per step)
@@ -370,6 +401,25 @@ VARIANTS = {
     **{f"dkv_{mode}_ablate_{name}": ("new", "flash_bwd_dkv_bf16.cu", f"flash_bwd_dkv_{mode}",
                                      {ABLATION_FILES.get(name, "flash_bwd_wg.cuh"): subs})
        for mode in ("bf16", "mxu") for name, subs in ABLATIONS.items()},
+    # the bf16-ref modes of Q4 (whole-slide, the wgmma dq tile) and Q1
+    # (canonical, the forward wgmma tile in the ble layout): the tiles, the
+    # parent's, the mma.sync tiles of this tree, the tiles' options and
+    # Q4's ablations (timing only)
+    **{f"{prefix}_{mode}{suffix}": (tree, BF16_SOURCES[entry, mode], f"{entry}_{mode}", subs)
+       for prefix, entry, no_wg in (("dq", "flash_bwd_dq", {"flash_bwd_dq.cuh": [NO_WG]}),
+                                    ("fwd_ble", "flash_fwd_ble", {"flash_fwd.cuh": [FWD_NO_WG]}))
+       for mode in ("bf16", "mxu")
+       for tree, suffix, subs in (("new", "", {}), ("parent", "_parent", {}),
+                                  ("new", "_mma_sync", no_wg))},
+    **{f"dq_{mode}_{name}": ("new", "flash_bwd_dq_bf16.cu", f"flash_bwd_dq_{mode}", subs)
+       for mode in ("bf16", "mxu") for name, subs in DQ_OPTIONS.items()},
+    **{f"dq_{mode}_fast_exp": ("new", "flash_bwd_dq_bf16.cu", f"flash_bwd_dq_{mode}",
+                               {"flash_bwd_wg.cuh": FAST_EXP}) for mode in ("bf16", "mxu")},
+    **{f"dq_{mode}_ablate_{name}": ("new", "flash_bwd_dq_bf16.cu", f"flash_bwd_dq_{mode}",
+                                    {ABLATION_FILES.get(name, "flash_bwd_wg.cuh"): subs})
+       for mode in ("bf16", "mxu") for name, subs in ABLATIONS.items()},
+    **{f"fwd_ble_{mode}_{name}": ("new", "flash_fwd_bf16.cu", f"flash_fwd_ble_{mode}", subs)
+       for mode, options in BLE_OPTIONS.items() for name, subs in options.items()},
     # (a): the mma.sync tile as the parent has it, and with ldmatrix loads
     **{f"{prefix}_{mode}_{name}": ("new", BF16_SOURCES[entry, mode], f"{entry}_{mode}", subs)
        for prefix, entry in (("ble_bwd", "flash_bwd_ble"), ("fused", "flash_bwd_bhld_fused"))
@@ -386,16 +436,19 @@ SHAPES = {"flash_fwd_bhld": ("bhld", 8, 4, 4097, 64), "flash_bwd_dq": ("bhld", 8
           "flash_fwd_ble": ("ble", 8, 4, 257, 64), "flash_bwd_ble": ("ble", 8, 4, 257, 64),
           "flash_bwd_bhld_fused": ("bhld", 8, 4, 257, 64)}
 SHAPES.update({f"{entry}_{mode}": SHAPES[entry]
-               for entry in ("flash_bwd_ble", "flash_bwd_bhld_fused", "flash_fwd_bhld", "flash_bwd_dkv")
+               for entry in ("flash_bwd_ble", "flash_bwd_bhld_fused", "flash_fwd_bhld", "flash_bwd_dkv",
+                             "flash_bwd_dq", "flash_fwd_ble")
                for mode in ("bf16", "mxu")})
 # which of (dq, dk, dv) a backward entry point writes
 BWD_OUTPUTS = {"flash_bwd_dq": (0,), "flash_bwd_dkv": (1, 2)}
 # ptxas' names for the parent's kernel templates that the sources renamed:
-# flash_bwd.cu's <kDq, kDkv, kDeltaHere>, and the fused kernel before it
-# took a layout flag
+# flash_bwd.cu's <kDq, kDkv, kDeltaHere>, the fused kernel before it took a
+# layout flag, and the classic forward's wgmma kernel before it took one
 PARENT_PTXAS = {("flash_bwd_kernel", (1, 1, 1)): "flash_bwd_ble",
                 ("flash_bwd_kernel", (1, 0, 0)): "flash_bwd_dq",
-                ("flash_bwd_fused_kernel", ()): "flash_bwd_bhld_fused"}
+                ("flash_bwd_fused_kernel", ()): "flash_bwd_bhld_fused",
+                ("flash_fwd_wg_kernel", (), 1): "flash_fwd_bhld_bf16",
+                ("flash_fwd_wg_kernel", (), 3): "flash_fwd_bhld_mxu"}
 
 
 def substitute(text: str, subs) -> str:
@@ -476,7 +529,7 @@ def run_shape(cs, fa, torch, built, names, shape, stream, lengths=None) -> list:
         if is_bf16(entry0):  # chip_smoke's inputs of the mode, and its plain version
             args = cs.bf16_args(fa, entry0, B, H, Lq, Lk, D, ragged, seed, torch.bfloat16)
             if entry0.startswith("flash_fwd"):
-                q, k, v, mask = args
+                q, k, v, mask = args[:4]  # (and H in the ble layout)
                 o_in = do = delta = None
             elif layout == "ble":
                 q, k, v, mask, o_in, plse, do, _ = args
@@ -522,8 +575,10 @@ def run_shape(cs, fa, torch, built, names, shape, stream, lengths=None) -> list:
                 which = BWD_OUTPUTS.get(entry.removesuffix("_bf16").removesuffix("_mxu"), (0, 1, 2))
                 outs = tuple((dq, dk, dv)[i] for i in which)
                 # a bf16 mode's plain version returns what its kernel writes
-                want = (tuple(want_of[entry]) if is_bf16(entry)
-                        else tuple(want_of[entry][i] for i in which))
+                # (dq alone as a tensor)
+                want = want_of[entry]
+                want = ((want,) if isinstance(want, torch.Tensor) else tuple(want)) if is_bf16(entry) \
+                    else tuple(want[i] for i in which)
             for x in outs:  # a variant that writes nothing must not pass
                 x.fill_(float("nan"))
             if call():

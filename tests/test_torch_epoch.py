@@ -10,6 +10,7 @@ index), in a loop. Held to sequential `step`s of the port, bit for bit
 0, with tests/test_torch_train.py's step tolerances.
 """
 
+import collections
 import gc
 
 import jax
@@ -202,3 +203,45 @@ def test_grad_accum_graphed_epoch_body_matches_eager_steps_bit_for_bit():
         runs.append((state, m))
     _assert_same(*runs)
     assert all(np.isfinite(float(v)) for v in runs[0][1].values())
+
+
+def test_whole_slide_graphed_epoch_body_matches_eager_steps_bit_for_bit(monkeypatch):
+    """A bank subsampled to more patches than `BLE_MAX_L` (520 of 600 slots):
+    the patch self-attention (521 queries) takes the classic layout's
+    forward and blocked backward, Q3, Q4 and Q5 (their plain versions on the
+    CPU, counted here), never the ble pair; an epoch of `step_many_cached`'s
+    graphed body (dropout 0.1) equals the eager steps over `cache.epoch(0)`
+    bit for bit."""
+    names = ("flash_fwd_ble", "flash_bwd_ble", "flash_fwd_bhld", "flash_bwd_bhld_fused",
+             "flash_bwd_dq", "flash_bwd_dkv")
+    calls = collections.Counter()
+    for name in names:
+        def counted(*args, _kernel=getattr(tfa, name), _name=name):
+            calls[_name] += 1
+            return _kernel(*args)
+        monkeypatch.setattr(tfa, name, counted)
+    cfg = _port_cfg(_jax_cfg(dropout=0.1))
+    cache = _cache(n=8, bank_patches=600, num_patches=520)
+    assert cache.num_patches + 1 > tfa.BLE_MAX_L
+    batch = next(iter(cache.epoch(0)))
+    runs, counts = [], []
+    for cached in (True, False):
+        calls.clear()
+        eng = WGANGPEngine(cfg, steps_per_epoch=cache.n_full_batches, device="cpu")
+        torch.manual_seed(0)
+        state = eng.init_state(0, batch)
+        calls.clear()
+        if cached:
+            state, m = eng.step_many_cached(state, cache, 0)
+        else:
+            for b in cache.epoch(0):
+                state, m = eng.step(state, b)
+        runs.append((state, m))
+        counts.append(dict(calls))
+    _assert_same(*runs)
+    assert all(np.isfinite(float(v)) for v in runs[0][1].values())
+    assert counts[0] == counts[1]
+    assert counts[0]["flash_fwd_bhld"] > 0
+    assert counts[0]["flash_bwd_dq"] == counts[0]["flash_bwd_dkv"] > 0
+    assert not any(counts[0].get(n) for n in ("flash_fwd_ble", "flash_bwd_ble",
+                                               "flash_bwd_bhld_fused"))

@@ -3,8 +3,9 @@
 `chip_smoke.py` names every kernel template instantiation in nvcc's ptxas
 report by its entry point (both layouts of the forward template and of the
 fused backward template, the dq (Q4) and dk/dv (Q5) kernels, the bf16
-product modes of every kernel, and the wgmma kernels of Q2, Q3, Q5 and
-Q6), and must fail on one it does not know rather than leave it out;
+product modes of every kernel, and the wgmma kernels of every kernel's
+bf16-ref modes), and must fail on one it does not know rather than leave
+it out;
 `scripts/torch_kernel_variants.py` builds its variants by text
 substitution of the sources under `csrc/`, so every substitution must
 still find its target there (Q2's and Q4's variants included).
@@ -95,11 +96,20 @@ MANGLED = {
         ("flash_bwd_bhld_fused_bf16", 16),
     "_ZN12_GLOBAL__N_119flash_bwd_wg_kernelILi64ELb0ELi3EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EEi":
         ("flash_bwd_bhld_fused_mxu", 64),
-    # the classic layout's bf16-ref modes of Q3 and Q5 on the wgmma tiles
-    "_ZN12_GLOBAL__N_119flash_fwd_wg_kernelILi64ELi1EEEvNS_4ArgsI13__nv_bfloat16EE":
+    # the bf16-ref modes of Q1, Q3, Q4 and Q5 on the wgmma tiles (the
+    # forward's in either layout)
+    "_ZN12_GLOBAL__N_119flash_fwd_wg_kernelILi64ELb0ELi1EEEvNS_4ArgsI13__nv_bfloat16EE":
         ("flash_fwd_bhld_bf16", 64),
-    "_ZN12_GLOBAL__N_119flash_fwd_wg_kernelILi16ELi3EEEvNS_4ArgsI13__nv_bfloat16EE":
+    "_ZN12_GLOBAL__N_119flash_fwd_wg_kernelILi16ELb0ELi3EEEvNS_4ArgsI13__nv_bfloat16EE":
         ("flash_fwd_bhld_mxu", 16),
+    "_ZN12_GLOBAL__N_119flash_fwd_wg_kernelILi64ELb1ELi1EEEvNS_4ArgsI13__nv_bfloat16EE":
+        ("flash_fwd_ble_bf16", 64),
+    "_ZN12_GLOBAL__N_119flash_fwd_wg_kernelILi32ELb1ELi3EEEvNS_4ArgsI13__nv_bfloat16EE":
+        ("flash_fwd_ble_mxu", 32),
+    "_ZN12_GLOBAL__N_122flash_bwd_dq_wg_kernelILi64ELi1EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EE":
+        ("flash_bwd_dq_bf16", 64),
+    "_ZN12_GLOBAL__N_122flash_bwd_dq_wg_kernelILi16ELi3EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EE":
+        ("flash_bwd_dq_mxu", 16),
     "_ZN12_GLOBAL__N_123flash_bwd_dkv_wg_kernelILi32ELi1EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EE":
         ("flash_bwd_dkv_bf16", 32),
     "_ZN12_GLOBAL__N_123flash_bwd_dkv_wg_kernelILi64ELi3EEEvN12flash_bwd_tc4ArgsI13__nv_bfloat16EE":
@@ -123,6 +133,8 @@ def test_every_kernel_has_a_ptxas_name():
     "_ZN12_GLOBAL__N_121flash_fwd_bhld_kernelILi64EEEvNS_4ArgsE",
     # a product mode that flash_ops.cuh does not define
     "_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELb0ELi4EEEvNS_4ArgsI13__nv_bfloat16EE",
+    # the classic forward's wgmma kernel before it took a layout flag
+    "_ZN12_GLOBAL__N_119flash_fwd_wg_kernelILi64ELi1EEEvNS_4ArgsI13__nv_bfloat16EE",
     "_Z6helperv",
 ])
 def test_unknown_ptxas_names_raise(mangled):
