@@ -120,7 +120,28 @@ imports nothing of JAX or of the JAX package. Phases:
    Every step-level device time (`device_busy`, `replay_busy`) is read
    until two profiles in a row record the same work (`agreed_profile`),
    and prints how many readings it took.
-10. Prints one `{"kernels": [...]}` JSON line (each kernel with its tile),
+10. The product path, `python -m gemm_gan_tpu_torch.cli.train` (`main`)
+   with the product run's settings (`scripts/quality_experiment.py`:
+   `film_cross_attention` f32, per_update, drift 1e-3, EMA 0.999, on-device
+   validation every epoch capped at 1,024 cases, a checkpoint at each, bf16
+   bank store), 4 epochs and one test run, on a TCGA layout it writes to a
+   temporary directory: 768 cases of `structured_dataset` at the published
+   widths (18,868 genes, 256 x 1024 patches, 300 x 768 tokens; only the case
+   count is cut), split 491 / 122 / 155 by `load_tcga`. Gates: Q1 / Q2
+   launches over `fit` equal `step_launches` per graphed step plus
+   `num_layers` Q1 per generation batch, no other kernel; every logged,
+   validation and test metric and the final state finite; `best.json`'s
+   checkpoint exists and `--evaluate_only --evaluate_which best` restores
+   exactly its step; `--evaluate_only` (last) regenerates the test block's
+   dumps bitwise equal to fit's; and on 128 of the cases, 2 epochs then
+   `--resume` to 4 end in a checkpoint bitwise equal to 4 straight epochs
+   (a new graph captured after the restore; the runs validate at different
+   epochs). Prints the seconds of each part (load, fit, graphed epochs,
+   validations, checkpoint saves with their bytes and restores, the test
+   block's LR / MLP / RF / two-sample logistic regression / PCA / PRDC / Γ,
+   evaluate, the post-hoc suites), graphed steps/s inside `fit`, and
+   whether scikit-learn and matplotlib are importable.
+11. Prints one `{"kernels": [...]}` JSON line (each kernel with its tile),
    the card's line, then the contract line `{"ok": true, "device": {...}}`
    last.
 
@@ -1531,6 +1552,291 @@ def step_breakdown(engine, state, batch) -> dict:
                                         iters=5)}
 
 
+# phase 10, the product path: the cases of the TCGA layout it writes (split
+# 64/16/20 by load_tcga), the product run's epochs and its flags
+# (scripts/quality_experiment.py's settings through cli.train), and the
+# cases of the resume check. Widths are the published ones:
+# structured_dataset's 256 x 1024 patches and 300 x 768 tokens at 18,868
+# genes; only the case count is cut.
+PRODUCT_CASES, PRODUCT_EPOCHS, RESUME_CASES, PRODUCT_GENES = 768, 4, 128, 18868
+PRODUCT_FLAGS = ("--variant", "film_cross_attention", "--freq_compute_test", "1",
+                 "--checkpoint_every_eval", "--cond_embed_reuse", "per_update",
+                 "--drift_epsilon", "1e-3", "--critic_scan", "--ema_decay", "0.999",
+                 "--on_device_validation", "--validation_max_cases", "1024",
+                 "--bank_dtype", "bfloat16", "--n_runs", "1")
+
+
+def write_tcga_layout(root: str, data: dict, n: int, files_of: str = None) -> str:
+    """The on-disk layout `load_tcga` reads (rna_seq.parquet, per-case patch
+    and token npys, metainfos.pkl) for the first `n` cases of `data`; with
+    `files_of` the per-case files are that layout's (linked, not copied)."""
+    import pickle
+
+    import pandas as pd
+
+    d = os.path.join(root, f"tcga_{n}")
+    os.makedirs(d)
+    cases = [f"case-{i:04d}" for i in range(n)]
+    pd.DataFrame(data["genes"][:n], index=pd.Index(cases, name="case_id"),
+                 columns=[f"ENSG{i:05d}" for i in range(data["genes"].shape[1])]
+                 ).to_parquet(os.path.join(d, "rna_seq.parquet"))
+    pdir = os.path.join(d, "patch_embeddings_uni")
+    tdir = os.path.join(d, "clinical_modernbert_embeddings")
+    if files_of is not None:
+        os.symlink(os.path.join(files_of, "patch_embeddings_uni"), pdir)
+        os.symlink(os.path.join(files_of, "clinical_modernbert_embeddings"), tdir)
+    else:
+        os.makedirs(pdir)
+        os.makedirs(tdir)
+        for i, c in enumerate(cases):
+            np.save(os.path.join(pdir, f"{c}.npy"), data["patches"][i])
+            np.save(os.path.join(tdir, f"{c}.npy"), data["tokens"][i])
+            np.save(os.path.join(tdir, f"{c}_attention_mask.npy"), data["token_mask"][i])
+    metainfos = {c: {"disease_type": f"disease-{data['disease'][i]}",
+                     "primary_site": f"site-{data['site'][i]}"} for i, c in enumerate(cases)}
+    with open(os.path.join(d, "metainfos.pkl"), "wb") as f:
+        pickle.dump(metainfos, f)
+    return d
+
+
+class PartTimer:
+    """Seconds per part of the product path, by wrapping the functions that
+    do each part (every timed call ends in a synchronise); `restore` puts
+    the originals back."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._undo = []
+
+    def wrap(self, owner, name, label, after=None):
+        import torch
+
+        orig = getattr(owner, name)
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            torch.cuda.synchronize()
+            part = label(args) if callable(label) else label
+            self.seconds.setdefault(part, []).append(round(time.perf_counter() - t0, 3))
+            if after is not None:
+                after(args, out)
+            return out
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, orig))
+
+    def restore(self):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+        self._undo = []
+
+
+def all_finite(tree) -> bool:
+    """Every number in a JSON-like tree is finite."""
+    if isinstance(tree, dict):
+        return all(all_finite(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(all_finite(v) for v in tree)
+    return not isinstance(tree, float) or bool(np.isfinite(tree))
+
+
+def checkpoint_tensors(payload, prefix=""):
+    """(name, tensor) of every tensor in a checkpoint payload."""
+    import torch
+
+    if isinstance(payload, torch.Tensor):
+        yield prefix, payload
+    elif isinstance(payload, dict):
+        for k, v in payload.items():
+            yield from checkpoint_tensors(v, f"{prefix}/{k}")
+    elif isinstance(payload, (list, tuple)):
+        for i, v in enumerate(payload):
+            yield from checkpoint_tensors(v, f"{prefix}/{i}")
+
+
+def load_checkpoint(run_dir: str, which: str = "ckpt", step: int = None) -> dict:
+    import torch
+
+    from gemm_gan_tpu_torch.train.checkpoint import STATE_FILE, latest_step
+
+    path = os.path.join(run_dir, which)
+    step = latest_step(path) if step is None else step
+    return torch.load(os.path.join(path, str(step), STATE_FILE), weights_only=True)
+
+
+def product_launches(cfg, n_cases: int) -> dict:
+    """Q1 / Q2 launches one product-run fit makes: `step_launches` per
+    graphed step (every epoch's full batches) and `num_layers` Q1 per
+    generation batch (the generator embeds each batch once): each
+    validation regenerates train and val, the test block train and test."""
+    from gemm_gan_tpu_torch.data.splits import split_indices
+
+    tr, va, te = (len(i) for i in split_indices(n_cases, seed=cfg.train.seed))
+    B, ev, t = cfg.train.batch_size, cfg.eval, cfg.train
+    batches = lambda n: -(-n // B)  # noqa: E731
+    n_train_regen = min(batches(tr), max(1, (ev.validation_max_cases or tr) // B))
+    validations = len([e for e in range(t.epochs - 1) if (e + 1) % t.freq_compute_test == 0])
+    gen_batches = (validations * (n_train_regen + batches(va))
+                   + ev.n_runs * (batches(tr) + batches(te)))
+    steps = t.epochs * (tr // B)
+    fwd, bwd = step_launches(cfg)
+    return {"flash_fwd_ble": steps * fwd + gen_batches * cfg.model.fusion.num_layers,
+            "flash_bwd_ble": steps * bwd, "steps": steps, "gen_batches": gen_batches}
+
+
+def product_path(fa, card) -> dict:
+    """Phase 10: the product path through `cli.train.main` at the published
+    widths (see the module docstring). Returns the launch counts of the
+    product run's fit."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    from gemm_gan_tpu_torch.cli import experiment as expmod
+    from gemm_gan_tpu_torch.cli import train as cli_train
+    from gemm_gan_tpu_torch.config import load_config
+    from gemm_gan_tpu_torch.data import tcga
+    from gemm_gan_tpu_torch.data.synthetic import structured_dataset
+    from gemm_gan_tpu_torch.eval import _sklearn_free as skf
+    from gemm_gan_tpu_torch.eval import classifiers, detection
+    from gemm_gan_tpu_torch.native import forest
+    from gemm_gan_tpu_torch.train import checkpoint
+    from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("sklearn", "matplotlib")}
+    print(f"[10] the product path (cli.train): importable on this machine: {json.dumps(have)}",
+          flush=True)
+    t0 = time.perf_counter()
+    data = structured_dataset(PRODUCT_CASES, n_genes=PRODUCT_GENES, seed=21)
+    with tempfile.TemporaryDirectory() as root:
+        full = write_tcga_layout(root, data, PRODUCT_CASES)
+        small = write_tcga_layout(root, data, RESUME_CASES, files_of=full)
+        shapes = {k: data[k].shape[1:] for k in ("genes", "patches", "tokens")}
+        del data
+        print(f"    TCGA layout of {PRODUCT_CASES} cases written in "
+              f"{time.perf_counter() - t0:.1f} s: {shapes} per case", flush=True)
+        timer = PartTimer()
+        saved, restored, epochs = [], [], []
+        for owner, name, label in (
+                (tcga, "load_tcga", "load"), (expmod.Experiment, "fit", "fit"),
+                (expmod.Experiment, "_validation_eval", "validation"),
+                (expmod.Experiment, "_test_block", "test block"),
+                (expmod.Experiment, "evaluate", "evaluate"),
+                (expmod.Experiment, "posthoc_utility", "posthoc utility"),
+                (expmod.Experiment, "posthoc_privacy", "posthoc privacy"),
+                (expmod, "gamma_coef", "gamma"), (expmod, "knn_detection", "kNN detection"),
+                (expmod, "compute_prdc", "PRDC"), (detection, "compute_prdc", "PRDC"),
+                (classifiers.MLPClassifier, "fit", lambda a: "MLP" if a[0].hidden else "LR"),
+                (forest.HistForestClassifier, "fit", "RF"),
+                (skf.LogisticRegression, "fit", "logistic regression (two-sample)"),
+                (skf.PCA, "fit_transform", "PCA")):
+            timer.wrap(owner, name, label)
+        timer.wrap(expmod, "save_state", "checkpoint save", after=lambda a, step: saved.append(
+            os.path.getsize(os.path.join(a[0], str(step), checkpoint.STATE_FILE))))
+        for owner in (expmod, checkpoint):
+            timer.wrap(owner, "restore_state", "checkpoint restore",
+                       after=lambda a, state: restored.append((a[0], state.step)))
+        timer.wrap(WGANGPEngine, "step_many_cached", "graphed epoch",
+                   after=lambda a, out: epochs.append(a[2].n_full_batches))
+        try:
+            out = os.path.join(root, "runs")
+            run = os.path.join(out, "product")
+            args = [*PRODUCT_FLAGS, "--data_dir", full, "--output_path", out,
+                    "--epochs", str(PRODUCT_EPOCHS)]
+            fa.reset_launch_counts()
+            results = cli_train.main([*args, "--run_name", "product"])
+            counts = fa.launch_counts()
+            fit_epochs = list(zip(epochs, timer.seconds["graphed epoch"]))
+            cfg = load_config(os.path.join(run, "config.json"))
+            want = product_launches(cfg, PRODUCT_CASES)
+            print(f"    fit: launches {counts}; expected {json.dumps(want)} "
+                  f"({want['steps']} graphed steps x step_launches {step_launches(cfg)}, "
+                  f"{want['gen_batches']} generation batches x {cfg.model.fusion.num_layers} "
+                  f"layers)", flush=True)
+            assert counts == {**dict.fromkeys(KERNELS, 0), "flash_fwd_ble": want["flash_fwd_ble"],
+                              "flash_bwd_ble": want["flash_bwd_ble"]}, (counts, want)
+            with open(os.path.join(run, "product_metrics.jsonl")) as f:
+                logged = [json.loads(r) for r in f]
+            with open(os.path.join(run, "val_metrics.json")) as f:
+                val = json.load(f)
+            last = load_checkpoint(run)
+            assert all_finite(logged) and all_finite(val) and all_finite(results), "non-finite"
+            assert all(bool(torch.isfinite(t).all()) for _, t in checkpoint_tensors(last)
+                       if t.is_floating_point()), "non-finite state"
+            assert [r["epoch"] for r in val] == list(range(PRODUCT_EPOCHS - 1)), val
+            steady = fit_epochs[1:]
+            sps = sum(k for k, _ in steady) / sum(s for _, s in steady)
+            print(f"    fit: {want['steps']} steps in {PRODUCT_EPOCHS} graphed epochs of "
+                  f"{fit_epochs[0][0]} (epoch seconds {[s for _, s in fit_epochs]}, the first "
+                  f"with the capture); graphed {sps:.2f} steps/s over epochs 1.. inside fit on "
+                  f"{card}; gamma {results['gamma_mean']:.4f}; validation (KNN accuracy, "
+                  f"precision, recall, coverage): "
+                  f"{[(r['detection']['KNN']['accuracy'], round(r['metrics']['precision'], 4), round(r['metrics']['recall'], 4), round(r['metrics']['coverage'], 4)) for r in val]}",
+                  flush=True)
+            print(f"    test block (run 0): {json.dumps(results['runs'][0]['detection'])}; "
+                  f"checkpoint bytes {saved}", flush=True)
+            print(f"    seconds per part of the product run (cli.train: load, fit, post-hoc "
+                  f"suites) on {card}: {json.dumps(timer.seconds)}", flush=True)
+            timer.seconds.clear()
+
+            with open(os.path.join(run, "best.json")) as f:
+                best = json.load(f)
+            assert os.path.exists(os.path.join(run, "ckpt_best", str(best["step"]),
+                                               checkpoint.STATE_FILE)), best
+            restored.clear()
+            res_best = cli_train.main([*args, "--run_name", "product", "--evaluate_only",
+                                       "--evaluate_which", "best"])
+            assert [(os.path.basename(p), s) for p, s in restored] == [
+                ("ckpt_best", best["step"])], (restored, best)
+            assert all_finite(res_best)
+            dumps = os.path.join(run, f"test_0_epoch_{PRODUCT_EPOCHS}")
+            before = {f: np.load(os.path.join(dumps, f)) for f in sorted(os.listdir(dumps))}
+            restored.clear()
+            cli_train.main([*args, "--run_name", "product", "--evaluate_only"])
+            assert [s for _, s in restored] == [want["steps"]], restored
+            same = {f: bool(np.array_equal(a, np.load(os.path.join(dumps, f))))
+                    for f, a in before.items()}
+            print(f"    best.json {json.dumps(best)}: evaluate('best') restored step "
+                  f"{best['step']} (gamma {res_best['gamma_mean']:.4f}); evaluate('last') "
+                  f"regenerated the test block's {len(same)} arrays bitwise equal: "
+                  f"{all(same.values())}", flush=True)
+            assert all(same.values()), same
+            print(f"    seconds per part of evaluate best, then last (cli.train "
+                  f"--evaluate_only) on {card}: {json.dumps(timer.seconds)}", flush=True)
+
+            # resume: B stops after epoch 2 and resumes to PRODUCT_EPOCHS with
+            # --resume; A runs straight through. Both validate every epoch, so
+            # they validate at different epochs (A after 0, 1, 2; B after 0,
+            # then 2)
+            timer.seconds.clear()
+            small_args = [*PRODUCT_FLAGS, "--data_dir", small, "--output_path", out]
+            cli_train.main([*small_args, "--run_name", "straight", "--epochs",
+                            str(PRODUCT_EPOCHS)])
+            cli_train.main([*small_args, "--run_name", "resumed", "--epochs", "2"])
+            cli_train.main([*small_args, "--run_name", "resumed", "--epochs",
+                            str(PRODUCT_EPOCHS), "--resume"])
+            with open(os.path.join(out, "resumed", "val_metrics.json")) as f:
+                assert [r["epoch"] for r in json.load(f)] == [0, 2]
+            pa, pb = (load_checkpoint(os.path.join(out, r)) for r in ("straight", "resumed"))
+            a, b = dict(checkpoint_tensors(pa)), dict(checkpoint_tensors(pb))
+            differ = [k for k in a if not torch.equal(a[k], b[k])]
+            counts_of = lambda p: (p["step"], p["g_opt"]["count"], p["d_opt"]["count"])  # noqa: E731
+            if counts_of(pa) != counts_of(pb):
+                differ.append(f"step and counts {counts_of(pa)} vs {counts_of(pb)}")
+            print(f"    resume ({RESUME_CASES} cases): 2 epochs, then --resume to "
+                  f"{PRODUCT_EPOCHS}, against {PRODUCT_EPOCHS} straight: {len(a)} tensors of "
+                  f"the final checkpoints (params, optimizer moments and counts, EMA, step, "
+                  f"generators), {len(differ)} differ {differ[:4]}; seconds per part "
+                  f"{json.dumps(timer.seconds)}", flush=True)
+            assert a.keys() == b.keys() and not differ, differ
+        finally:
+            timer.restore()
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2053,7 +2359,11 @@ def main(argv=None) -> int:
     del ws_bank, ws_small
     torch.cuda.empty_cache()
 
-    # ---- 10. report
+    # ---- 10. the product path: cli.train fit, evaluate best and last, resume
+    launches["product_fit"] = product_path(fa, card)
+    torch.cuda.empty_cache()
+
+    # ---- 11. report
     paths = {"flash_fwd_ble": "serving", "flash_fwd_bhld": "whole_slide_serving",
              "flash_bwd_ble": "training", "flash_bwd_dq": "whole_slide_training",
              "flash_bwd_dkv": "whole_slide_training",

@@ -23,7 +23,7 @@ import torch
 from gemm_gan_tpu_torch.config import ExperimentConfig, ModelConfig, load_config
 from gemm_gan_tpu_torch.convert import flax_to_state_dict, load_params_npz
 from gemm_gan_tpu_torch.models.gan import Generator
-from gemm_gan_tpu_torch.utils.device import DeviceLike
+from gemm_gan_tpu_torch.utils.device import DeviceLike, host
 
 CONFIG_FILE = "config.json"
 PARAMS_FILE = "generator_params.npz"
@@ -137,33 +137,48 @@ class GeneratorServer:
                 n = next(iter(c.values())).shape[0]
             return self.gen(self._z(n, generator), c)
 
-    def sample_all(self, batches: Iterable[Mapping[str, Any]], num_repeats: int,
-                   generator: torch.Generator) -> Dict[str, np.ndarray]:
+    def sample_all(self, batches, num_repeats: int, generator: torch.Generator,
+                   device_out: bool = False) -> Dict[str, Any]:
         """Fakes for every batch and repeat, as the JAX engine's
         `generate_samples_all(scan=True)`: each batch's condition embedding
         is computed once and reused by all `num_repeats` z draws. z for
         (batch k, repeat r) is drawn in batch-major order from `generator`.
 
-        Returns numpy arrays ordered repeat-major (all batches of repeat 0,
-        then repeat 1, ...): "fake" [R * N, n_genes], plus "real",
-        "disease" and "site" when the batches carry "genes", "disease" and
-        "site"."""
-        batches = list(batches)
-        per_batch = []
+        `batches`: an iterable of batches, or a callable returning one; they
+        are consumed one at a time, so a device-resident loader's epoch
+        (`lambda: cache.epoch(e)`) is never held whole on the device.
+
+        Returns arrays ordered repeat-major (all batches of repeat 0, then
+        repeat 1, ...): "fake" [R * N, n_genes], plus "real", "disease" and
+        "site" when the batches carry "genes", "disease" and "site". With
+        `device_out` "real" and "fake" are float32 tensors on the device,
+        else numpy arrays; labels are numpy either way."""
+        if callable(batches):
+            batches = batches()
+        fakes = []
+        extras = {"real": [], "disease": [], "site": []}
+        n_batches = 0
         with torch.inference_mode():
             for batch in batches:
+                n_batches += 1
                 c = self.cond_tensors(batch)
                 n = (next(iter(c.values())).shape[0] if c is not None
                      else batch["genes"].shape[0])
                 cvec = self.gen.embed_cond(c)
-                fakes = torch.stack([self.gen.score(self._z(n, generator), cvec)
-                                     for _ in range(num_repeats)])
-                per_batch.append(fakes.cpu().numpy())  # [R, n, n_genes]
-        out = {"fake": np.concatenate([f[r] for r in range(num_repeats)
-                                       for f in per_batch])}
-        for key, name in (("genes", "real"), ("disease", "disease"), ("site", "site")):
-            if batches and all(key in b for b in batches):
-                out[name] = np.concatenate([np.asarray(b[key])
-                                            for _ in range(num_repeats)
-                                            for b in batches])
+                f = torch.stack([self.gen.score(self._z(n, generator), cvec)
+                                 for _ in range(num_repeats)])  # [R, n, n_genes]
+                fakes.append(f if device_out else f.cpu().numpy())
+                if "genes" in batch:
+                    extras["real"].append(
+                        torch.as_tensor(batch["genes"], dtype=torch.float32, device=self.device)
+                        if device_out else host(batch["genes"]))
+                for key in ("disease", "site"):
+                    if key in batch:
+                        extras[key].append(host(batch[key]))
+            cat = torch.cat if device_out else np.concatenate
+            out = {"fake": cat([f[r] for r in range(num_repeats) for f in fakes])}
+            for name, parts in extras.items():
+                if n_batches and len(parts) == n_batches:
+                    out[name] = (cat if name == "real" else np.concatenate)(
+                        [p for _ in range(num_repeats) for p in parts])
         return out

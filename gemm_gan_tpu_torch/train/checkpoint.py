@@ -1,0 +1,184 @@
+"""Checkpoint / restore of the FULL training state.
+
+Counterpart of `gemm_gan_tpu/train/checkpoint.py` (Orbax there). A
+checkpoint is `<dir>/<step>/state.pt`, one `torch.save` of the whole
+`GANTrainState`:
+
+* `step`; the `gen`, `critic` and (when on) `g_ema` state dicts;
+* each `ScheduledOptimizer`'s host `count`, device `count_t` and moments
+  (`nu`, and Adam's `mu`);
+* `rng`, the state of the run's z / alpha / noise generator;
+* `dropout_rng`, the state of the default generator of the state's device,
+  which the nets' dropout draws from (the JAX state's one key covers both).
+
+A save writes a temporary directory and renames it into place; a step that
+exists is replaced; the newest `MAX_TO_KEEP` (5, as Orbax keeps) are kept.
+A restore copies every tensor into the target state in place, so the target
+keeps its tensors' addresses.
+
+The state a save sees after graphed epochs is what the replays left: the
+parameters and moments are updated in place by each replay, the host counts
+are advanced by the engine, and each replay advances the host offsets of the
+generators the graph registered.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import shutil
+import tempfile
+from typing import Optional
+
+import torch
+
+from gemm_gan_tpu_torch.train.schedules import ScheduledOptimizer
+from gemm_gan_tpu_torch.train.state import GANTrainState
+
+STATE_FILE = "state.pt"
+MAX_TO_KEEP = 5
+
+
+def dropout_generator(device: torch.device) -> torch.Generator:
+    """The default generator of `device`, which dropout draws from."""
+    if device.type == "cuda":
+        return torch.cuda.default_generators[
+            device.index if device.index is not None else torch.cuda.current_device()]
+    return torch.default_generator
+
+
+def _device_of(state: GANTrainState) -> torch.device:
+    return next(state.gen.parameters()).device
+
+
+def _opt_state(opt: ScheduledOptimizer) -> dict:
+    return {"count": opt.count, "count_t": opt.count_t, "nu": opt.nu, "mu": opt.mu}
+
+
+def _load_opt(opt: ScheduledOptimizer, saved: dict) -> None:
+    opt.count = int(saved["count"])
+    opt.count_t.copy_(saved["count_t"])
+    for dst, src in zip(opt.nu, saved["nu"]):
+        dst.copy_(src)
+    if opt.mu is not None:
+        for dst, src in zip(opt.mu, saved["mu"]):
+            dst.copy_(src)
+
+
+def _steps(path: str) -> list:
+    if not os.path.isdir(path):
+        return []
+    return sorted(int(d) for d in os.listdir(path)
+                  if d.isdigit() and os.path.exists(os.path.join(path, d, STATE_FILE)))
+
+
+def save_state(path: str, state: GANTrainState, step: Optional[int] = None) -> int:
+    """Write `state` as checkpoint `step` (default: `state.step`) under
+    `path`; returns the step."""
+    step = int(state.step if step is None else step)
+    os.makedirs(path, exist_ok=True)
+    payload = {
+        "step": int(state.step),
+        "gen": state.gen.state_dict(),
+        "critic": state.critic.state_dict(),
+        "g_ema": None if state.g_ema is None else state.g_ema.state_dict(),
+        "g_opt": _opt_state(state.g_opt),
+        "d_opt": _opt_state(state.d_opt),
+        "rng": state.rng.get_state(),
+        "dropout_rng": dropout_generator(_device_of(state)).get_state(),
+    }
+    tmp = tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=path)
+    try:
+        torch.save(payload, os.path.join(tmp, STATE_FILE))
+        final = os.path.join(path, str(step))
+        if os.path.isdir(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+    finally:
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)
+    for old in _steps(path)[:-MAX_TO_KEEP]:
+        shutil.rmtree(os.path.join(path, str(old)))
+    return step
+
+
+def restore_state(path: str, target: GANTrainState, step: Optional[int] = None
+                  ) -> GANTrainState:
+    """Copy checkpoint `step` (default: the newest) under `path` into
+    `target` (a state of the same configuration, e.g. a fresh
+    `init_state`) and return it."""
+    if step is None:
+        step = latest_step(path)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {path}")
+    file = os.path.join(path, str(int(step)), STATE_FILE)
+    if not os.path.exists(file):
+        raise FileNotFoundError(f"no checkpoint for step {step} under {path}")
+    saved = torch.load(file, map_location="cpu", weights_only=True)
+    with torch.no_grad():
+        target.gen.load_state_dict(saved["gen"])
+        target.critic.load_state_dict(saved["critic"])
+        if (saved["g_ema"] is None) != (target.g_ema is None):
+            raise ValueError("the checkpoint and the target state disagree on the EMA "
+                             "generator (train.ema_decay)")
+        if target.g_ema is not None:
+            target.g_ema.load_state_dict(saved["g_ema"])
+        _load_opt(target.g_opt, saved["g_opt"])
+        _load_opt(target.d_opt, saved["d_opt"])
+    target.step = int(saved["step"])
+    target.rng.set_state(saved["rng"])
+    dropout_generator(_device_of(target)).set_state(saved["dropout_rng"])
+    return target
+
+
+def resolve_ckpt_dir(ckpt_dir: str, which: str = "last"):
+    """Map (a run's checkpoint dir, which in {'last','best'}) -> (dir, step).
+
+    `which="best"` swaps the directory for the sibling `ckpt_best/` (the
+    gate-best validation checkpoint `Experiment._maybe_save_best` tracks)
+    and pins the restore step to the one `best.json` records, so that a
+    stale higher-step checkpoint left in `ckpt_best/` by an earlier run in
+    the same out_dir can never win over the recorded best."""
+    if which not in ("last", "best"):
+        raise ValueError(f"which must be 'last' or 'best', got {which!r}")
+    if which == "last":
+        return ckpt_dir, None
+    run_dir = os.path.dirname(os.path.normpath(ckpt_dir))
+    best_dir = os.path.join(run_dir, "ckpt_best")
+    if not os.path.isdir(best_dir):
+        raise FileNotFoundError(
+            f"no best checkpoint under {best_dir}: gate-best tracking needs "
+            "periodic validation during fit (train.freq_compute_test < "
+            "train.epochs); use which='last'")
+    step = None
+    best_json = os.path.join(run_dir, "best.json")
+    if os.path.exists(best_json):
+        with open(best_json) as f:
+            step = json.load(f).get("step")
+    return best_dir, step
+
+
+def latest_step(path: str) -> Optional[int]:
+    steps = _steps(path)
+    return steps[-1] if steps else None
+
+
+def resume_or_fresh(ckpt_dir: str, template_state: GANTrainState, steps_per_epoch: int,
+                    epochs: int, loader=None):
+    """Restore the newest checkpoint into `template_state` and recover the
+    epochs done from its step; position `loader`'s no-arg epoch stream
+    there. Returns `(state, start_epoch)`, `(template_state, 0)` with a
+    warning when there is no checkpoint (mid-run saves need
+    `train.checkpoint_every_eval`)."""
+    step = latest_step(ckpt_dir)
+    if step is None:
+        logging.getLogger(__name__).warning(
+            "resume requested but no checkpoint under %s — starting fresh "
+            "(mid-run checkpoints need train.checkpoint_every_eval)", ckpt_dir)
+        return template_state, 0
+    state = restore_state(ckpt_dir, template_state, step)
+    start_epoch = min(int(step) // max(steps_per_epoch, 1), epochs)
+    if loader is not None:
+        loader.seek(start_epoch)
+    return state, start_epoch

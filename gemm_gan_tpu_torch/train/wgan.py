@@ -583,9 +583,12 @@ class WGANGPEngine:
             batch if self.keys else None, generator,
             n=None if self.keys else batch["genes"].shape[0])
 
-    def generate_samples_all(self, state: GANTrainState, batches: Iterable[Batch],
-                             num_repeats: int, generator: torch.Generator,
-                             use_ema: Optional[bool] = None) -> Dict[str, Any]:
+    def generate_samples_all(self, state: GANTrainState, batches, num_repeats: int,
+                             generator: torch.Generator, use_ema: Optional[bool] = None,
+                             device_out: bool = False) -> Dict[str, Any]:
         """`GeneratorServer.sample_all` with the state's generator (its EMA
-        by default when it tracks one)."""
-        return self._sampler(state, use_ema).sample_all(batches, num_repeats, generator)
+        by default when it tracks one). `batches` may be a callable returning
+        a fresh iterable (streamed one batch at a time off a `DeviceCache`);
+        `device_out=True` keeps "real" and "fake" as device tensors."""
+        return self._sampler(state, use_ema).sample_all(batches, num_repeats, generator,
+                                                        device_out=device_out)

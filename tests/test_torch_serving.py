@@ -268,10 +268,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'gemm_gan_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'gemm_gan_tpu')]\n"
-        "assert len(mods) >= 19, mods\n"
-        "new = {'gemm_gan_tpu_torch.data.' + m for m in "
-        "('splits', 'loader', 'tcga', 'device_cache')}\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gemm_gan_tpu', 'sklearn', "
+        "'matplotlib')]\n"
+        "assert len(mods) >= 46, mods\n"
+        "new = {'gemm_gan_tpu_torch.' + m for m in "
+        "('data.splits', 'data.loader', 'data.tcga', 'data.device_cache', "
+        "'train.checkpoint', 'utils.metrics', 'eval.gamma', 'eval.knn_pr', 'eval.prdc', "
+        "'eval.classifiers', 'native.forest', 'eval._sklearn_free', 'eval.detection', "
+        "'eval.privacy', 'eval.utility', 'viz', 'cli.experiment', 'cli.train')}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")
