@@ -31,7 +31,11 @@ imports nothing of JAX or of the JAX package. Phases:
    to their plain
    versions within BF16_ULPS bf16 ulp of each row's largest entry (each
    side rounds once from f32), lse within LSE_ATOL, and timed on bf16
-   inputs against the library's bf16 SDPA.
+   inputs against the library's bf16 SDPA. Every mode of Q1 / Q2 is also
+   held at token cross-attention's Lq 300 x Lk 300 with a ragged key mask,
+   and of Q3 / Q4 / Q5 at its whole-slide Lq 300 x Lk 4,097
+   (XATTN_TOKENS_SHAPE, XATTN_WHOLE_SLIDE_SHAPE; Q5's mxu_bf16 mode there
+   with its ulp distance printed, not held: NOT_ULP_GATED).
 3. Serving, the main path: `GeneratorServer.sample_all` with the flagship
    `film_cross_attention` generator at canonical widths (random weights from
    a seeded numpy tree in Flax layout, carried over by `convert.py`),
@@ -82,12 +86,21 @@ imports nothing of JAX or of the JAX package. Phases:
    Canonical serving through `sample_all` (Q1's bf16 mode, launches
    checked), one batch card vs CPU within BF16_E2E_TOL of the output's
    largest entry, printed beside `use_pallas=False` on the card vs the CPU.
-   (b) One dropout-free step card vs CPU, held as phase 6: each net may miss
-   PARAM_ATOL on at most PLAIN_LOOSE_FACTOR times as many entries (or
-   MAX_LOOSE) as the same bf16 step with `use_pallas=False` on the card,
-   each metric within PLAIN_LOOSE_FACTOR times that step's distance (or
-   BF16_STEP_RTOL of its value if more); the same kernel step with cuBLAS's
-   reduced-precision bf16 reductions off is printed beside it. (c) A
+   (b) The bf16 step against the CPU, with the kernels' plain versions on
+   the card as the yardstick (`plain_kernels`): first the gradient gate
+   (`grad_gate`): at the step's starting params, dropout 0, the gradients
+   of each net's fusion's params under the cotangent that the critic loss
+   (with its penalty) or the generator loss gives the fusion's output on
+   the CPU, each param's ||g - g_cpu|| / ||g_cpu|| at most
+   PLAIN_LOOSE_FACTOR times the plain versions' (or GRAD_GATE_FLOOR), and
+   the gate must reject both negative controls, Q1's output scaled by
+   1 + 2^-5 and Q1 with the last valid key of every row masked out; then
+   one dropout-free step: each
+   net may miss PARAM_ATOL on at most PLAIN_LOOSE_FACTOR times as many
+   entries (or MAX_LOOSE) as the plain versions' step, each metric within
+   `bf16_metric_tol` of the CPU's with that step as the yardstick; the
+   same kernel step with cuBLAS's reduced-precision bf16 reductions off is
+   printed beside it. (c) A
    4-step graphed epoch from phase 8's small cache against eager steps
    (bitwise equality printed, `step_diff` gated), then a 128-step graphed
    epoch of phase 8's bank: steps/s and the replays' busy share, device
@@ -118,8 +131,10 @@ imports nothing of JAX or of the JAX package. Phases:
    device time, Q3 / Q4 / Q5 launches per replay (16 / 12 / 12) and no
    other kernel.
    Every step-level device time (`device_busy`, `replay_busy`) is read
-   until two profiles in a row record the same work (`agreed_profile`),
-   and prints how many readings it took.
+   until a whole profile records the same work as the last whole one
+   (`agreed_profile`; whole: it kept one or more of the sentinel kernels
+   that open each profiler window, `profiled`), and prints how many
+   readings it took.
 10. The product path, `python -m gemm_gan_tpu_torch.cli.train` (`main`)
    with the product run's settings (`scripts/quality_experiment.py`:
    `film_cross_attention` f32, per_update, drift 1e-3, EMA 0.999, on-device
@@ -141,7 +156,32 @@ imports nothing of JAX or of the JAX package. Phases:
    block's LR / MLP / RF / two-sample logistic regression / PCA / PRDC / Γ,
    evaluate, the post-hoc suites), graphed steps/s inside `fit`, and
    whether scikit-learn and matplotlib are importable.
-11. Prints one `{"kernels": [...]}` JSON line (each kernel with its tile),
+11. The paper's other variants (VARIANTS: concat_text, concat_image,
+   attention, img_transformer, film, cross_attention and the benchmark
+   label oracle) at the published widths (18,868 genes, 256 x 1024
+   patches, 300 x 768 tokens with ragged masks, a 768-d text CLS vector,
+   cond_dim 256, 4 heads, ff 512, 2 layers; seeded random Flax-layout
+   weights through `convert.py`): (a) `sample_all`, 4 batches of 8, one
+   batch card vs CPU within E2E_RTOL / E2E_ATOL, Q1 launches per batch by
+   `kernel_attentions` (0 for concat, attention and the labels; 2 for
+   img_transformer and film; 4 for cross_attention: its text queries over
+   the patches and over the ragged tokens reach Q1 too); (b) one
+   dropout-free f32 step card vs CPU, its metrics and RMSprop's bound held
+   as phase 5 (its count of params beyond PARAM_ATOL printed beside the
+   plain versions', not held: it is chaotic), launches by `step_launches`;
+   (c) a graphed epoch from a `DeviceCache` of what the
+   variant reads: 4 graphed steps against 4 eager ones, then 32-step
+   epochs, steps/s, busy share and launches per replay. (d)
+   cross_attention in the bench configuration: serving and phase 9 (b)'s
+   gates in bf16 and under mxu_bf16, and at 4,096 patches a bf16 serving
+   batch against `use_pallas=False` and a step through
+   `relative_step_gate` with its Q3 / Q4 / Q5 (and Q1 / Q2) launches. (e)
+   `cli.train --variant cross_attention` and `--variant film`, 2 epochs on
+   phase 10's 128-case layout (which carries the text-CLS table the
+   multi_patch schema reads), one test run: finite metrics, `best.json`,
+   launches as `product_launches` counts them.
+12. Prints the most sentinel records a profiler window lost, one
+   `{"kernels": [...]}` JSON line (each kernel with its tile),
    the card's line, then the contract line `{"ok": true, "device": {...}}`
    last.
 
@@ -158,6 +198,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -192,7 +233,6 @@ KERNELS = {
 # has its `*_wg_kernel` instantiation for the entry point at D 64 and an
 # mma.sync one none
 _MMA_F32 = "mma.sync m16n8k8 3xTF32"
-_MMA_BF16 = "mma.sync m16n8k16"
 _WG_FWD = "wgmma m64nNk16, flash_fwd_wg.cuh"
 _WG_FUSED = "wgmma m64nNk16, flash_bwd_wg.cuh dk/dv and dq tiles"
 TILES = {"flash_fwd_ble": f"{_MMA_F32}, flash_fwd.cuh",
@@ -201,9 +241,8 @@ TILES = {"flash_fwd_ble": f"{_MMA_F32}, flash_fwd.cuh",
          "flash_bwd_dq": f"{_MMA_F32}, flash_bwd_tc.cuh dq tile",
          "flash_bwd_dkv": f"{_MMA_F32}, flash_bwd_tc.cuh dk/dv tile",
          "flash_bwd_bhld_fused": f"{_MMA_F32}, flash_bwd_tc.cuh",
-         "flash_fwd_ble_bf16": f"{_MMA_BF16}, P in 3 terms, flash_fwd.cuh",
-         **{f"flash_fwd_{layout}_{mode}": _WG_FWD for layout, mode in
-            (("ble", "mxu"), ("bhld", "bf16"), ("bhld", "mxu"))},
+         **{f"flash_fwd_{layout}_{mode}": _WG_FWD for layout in ("ble", "bhld")
+            for mode in ("bf16", "mxu")},
          **{f"flash_bwd_{kind}_{mode}": _WG_FUSED for kind in ("ble", "bhld_fused")
             for mode in ("bf16", "mxu")},
          **{f"flash_bwd_dq_{mode}": "wgmma m64nNk16, flash_bwd_wg.cuh dq tile"
@@ -252,6 +291,27 @@ BF16_ULPS, LSE_ATOL = 1, 1e-5
 # of its value if more
 BF16_E2E_TOL = 2e-2
 BF16_STEP_RTOL = 5e-2
+# Phase 9 (b) / (d) hold the bf16 step's first gradients, before any
+# optimizer move (`grad_gate`), where the step's metrics, after n_critic
+# RMSprop updates, scatter chaotically (`scripts/torch_bf16_step_scatter.py`
+# prints both). Of those gradients the gate takes the part that passes
+# through the attention kernels: each net's fusion's params' gradients,
+# with the cotangent the step's loss gives the fusion's output fixed
+# (computed once, on the CPU). The trunks' ReLUs, whose pattern flips with
+# any rounding of their inputs, stay out: they move the whole nets'
+# gradients in jumps as large as a wrong Q1 does. Each param's gradient may
+# lie from the CPU's at most PLAIN_LOOSE_FACTOR times as far as the plain
+# versions' on the card (relative distance), or GRAD_GATE_FLOOR if more:
+# per param, since a key dropped by a wrong kernel moves the attention
+# projections' gradients far beyond bf16's scatter, and the whole nets'
+# norm would drown it. The yardstick is itself one draw of how bf16
+# rounding lands, and a draw closer to the CPU than half of bf16's unit
+# roundoff (2^-8) says nothing of where another right computation lands:
+# below that the gate would reject right kernels by chance.
+GRAD_GATE_FLOOR = 2 ** -9
+# the gate's negative controls: Q1's output scaled by Q1_SCALE (4 to 8
+# bf16 ulps of each entry), or the last valid key of every row masked out
+Q1_SCALE = 1 + 2 ** -5
 # H100 SXM data sheet: f32 outside the tensor cores, dense TF32 on the
 # tensor cores, and HBM3 bandwidth. `bound_tc_ms` counts 3 TF32 products per
 # f32 product (3xTF32, as every kernel under csrc/ computes and as the
@@ -289,6 +349,7 @@ WS_BANK_CASES, WS_BANK_SLOTS, WS_MIN_VALID = 256, 4608, 4096
 # update. The summary counts the misses whose RMS by the CPU run's
 # accumulator is above NEGLIGIBLE_GRAD times their net's.
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-4
+F32_EPS = 2 ** -23  # float32's machine epsilon
 PARAM_ATOL = 5e-5  # 1% of RMSprop's largest single update (10 lr, lr 5e-4)
 NEGLIGIBLE_GRAD = 1e-4
 MAX_LOOSE = 200
@@ -484,40 +545,80 @@ def bound(H, Lq, D, q, k, v, mask) -> dict:
 
 
 PROFILER_PAD_S = 0.05  # host time inside each torch.profiler window, before and after the work
-PROFILER_ATTEMPTS = 6  # readings device_ms takes at most before it gives up
-# readings device_ms took, and the device times it returned (two readings
-# each when the profiler misses no record)
-PROFILER_READINGS = {"readings": 0, "times": 0}
+PROFILER_ATTEMPTS = 8  # readings device_ms and agreed_profile take at most before they give up
+SENTINEL_CYCLES = 1_000_000  # clock cycles each sentinel kernel spins (about 0.5 ms on an H100)
+SENTINEL_KEY = "spin_kernel"  # the name of the sentinels' records (torch.cuda._sleep's kernel)
+LEAD_IN_MAX = 4096  # the most sentinels a window opens with
+# sentinels that open the next torch.profiler window (`profiled`); doubled
+# whenever a window keeps fewer than half of them
+PROFILER_LEAD_IN = {"n": 64}
+# readings device_ms took, the device times it returned (two readings each
+# when the profiler misses no record), and the most sentinels a window lost
+PROFILER_READINGS = {"readings": 0, "times": 0, "most_sentinels_lost": 0}
 
 
 def profiled(fn):
     """torch.profiler (CPU and CUDA activities) over `fn()` and a
     synchronise, with PROFILER_PAD_S of host time at each end of the window.
-    The profiler has been seen to drop whole device records (on an NVIDIA
-    H100 80GB HBM3: 5 of 10 records of a 0.98 ms kernel, and all 10 of a
-    0.017 ms one); it may drop those that it places outside its window,
-    hence the margin. Only `device_ms` checks that a reading is whole."""
+    Returns (the profile, whether it is whole).
+
+    The profiler drops the first device records of a window, more of them
+    the more windows a process has opened (on an NVIDIA H100 80GB HBM3 at
+    700 W: the first records of an eager step, its host-to-device copies
+    and random draws, in most readings of it). So each window opens with PROFILER_LEAD_IN sentinel kernels
+    (`torch.cuda._sleep`), synchronised before `fn`: they take the dropped
+    records, `device_records` leaves them out, and the profile is whole
+    when it kept one of them or more (the drop ended inside the lead-in).
+    The lead-in doubles, up to LEAD_IN_MAX, when a window keeps fewer than
+    half of its sentinels."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    n = PROFILER_LEAD_IN["n"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILER_PAD_S)
+        for _ in range(n):
+            torch.cuda._sleep(SENTINEL_CYCLES)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
         time.sleep(PROFILER_PAD_S)
-    return prof
+    kept = sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and SENTINEL_KEY in e.key)
+    PROFILER_READINGS["most_sentinels_lost"] = max(PROFILER_READINGS["most_sentinels_lost"],
+                                                   n - kept)
+    if 2 * kept < n:
+        PROFILER_LEAD_IN["n"] = min(2 * n, LEAD_IN_MAX)
+    return prof, kept > 0
 
 
 def device_records(prof) -> list:
-    """The device-side events of a profile (kernels, copies, memsets): a
-    host op's own device time, or a user annotation's span, would count its
-    kernels twice."""
+    """The device-side events of a profile (kernels, copies, memsets),
+    without `profiled`'s sentinels: a host op's own device time, or a user
+    annotation's span, would count its kernels twice."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.count
-            and not getattr(e, "is_user_annotation", False)]
+            and not getattr(e, "is_user_annotation", False) and SENTINEL_KEY not in e.key]
+
+
+def agreeing_reading(readings) -> int:
+    """The index of the first reading that settles a measurement, else
+    None. `readings` is a sequence of (whole, counts): whether `profiled`
+    found the profile whole, and its device records' counts by key. A
+    reading settles it when it is whole, has records, and records the same
+    work, key for key, as the last whole reading before it."""
+    last = None
+    for i, (whole, counts) in enumerate(readings):
+        if not whole or not counts:
+            continue
+        if counts == last:
+            return i
+        last = counts
+    return None
 
 
 def device_ms(fn, iters: int = 10) -> float:
@@ -525,28 +626,28 @@ def device_ms(fn, iters: int = 10) -> float:
     copies and memsets that `iters` calls ran, by torch.profiler, over
     `iters` (after one warm-up call). Unlike `cuda_ms` it leaves out the
     host's time between launches. A reading counts only when it is whole:
-    each kernel, copy and memset has a multiple of `iters` records (every
-    call runs the same work), and the next reading has as many of each.
-    Else it is set aside and another taken; after PROFILER_ATTEMPTS
-    readings with no two whole ones in a row that agree, it raises."""
+    `profiled` found it so, each kernel, copy and memset has a multiple of
+    `iters` records (every call runs the same work), and the last whole
+    reading before it has as many of each (`agreeing_reading`). After
+    PROFILER_ATTEMPTS readings with none that counts, it raises."""
     fn()
-    last = None  # the counts of the last whole reading
+    readings = []
     for _ in range(PROFILER_ATTEMPTS):
-        records = device_records(profiled(lambda: [fn() for _ in range(iters)]))
+        prof, whole = profiled(lambda: [fn() for _ in range(iters)])
+        records = device_records(prof)
         counts = {e.key: e.count for e in records}
-        whole = bool(counts) and all(c % iters == 0 for c in counts.values())
+        readings.append((whole and all(c % iters == 0 for c in counts.values()), counts))
         PROFILER_READINGS["readings"] += 1
-        if whole and counts == last:
+        if agreeing_reading(readings) is not None:
             PROFILER_READINGS["times"] += 1
             return sum(e.self_device_time_total for e in records) / 1e3 / iters
-        last = counts if whole else None
     raise RuntimeError(f"torch.profiler missed device records in {PROFILER_ATTEMPTS} readings "
-                       f"of {iters} calls: no two whole readings in a row agree (last {counts})")
+                       f"of {iters} calls: no two whole readings agree (last {counts})")
 
 
 def device_kernels(fn) -> list:
     """Names of the CUDA kernels one call of `fn` ran, from torch.profiler."""
-    return sorted({e.key[:90] for e in device_records(profiled(fn))
+    return sorted({e.key[:90] for e in device_records(profiled(fn)[0])
                    if e.self_device_time_total > 0})
 
 
@@ -747,10 +848,12 @@ def output_labels(name: str) -> tuple:
     return BWD_OUTPUTS.get(name.split("_")[2], ("dq", "dk", "dv"))
 
 
-def check_bf16_kernel(fa, name, B, H, Lq, Lk, D, ragged, seed, dtype):
+def check_bf16_kernel(fa, name, B, H, Lq, Lk, D, ragged, seed, dtype, ulp_gated=True):
     """A bf16 mode against its plain version on one input, within
     BF16_ULPS of each row's largest entry (lse within LSE_ATOL); returns
-    (max |err| over its outputs, args)."""
+    (max |err| over its outputs, args). With `ulp_gated` False the outputs'
+    distance in ulps is printed, not held (NOT_ULP_GATED); the other
+    checks (dtypes, lse, zeros where nothing is valid) hold either way."""
     import torch
 
     layout = kernel_layout(name)
@@ -766,7 +869,12 @@ def check_bf16_kernel(fa, name, B, H, Lq, Lk, D, ragged, seed, dtype):
             torch.testing.assert_close(a, b, rtol=0, atol=LSE_ATOL)
         else:
             assert a.dtype == dtype, (name, label, a.dtype)
-            assert_rows_within_ulps(a, b, H if layout == "ble" else 1, f"{name} {label}")
+            if ulp_gated:
+                assert_rows_within_ulps(a, b, H if layout == "ble" else 1, f"{name} {label}")
+            else:
+                print(f"    {name} {label}: {ulp_excess(a, b, H if layout == 'ble' else 1):.3e} "
+                      f"beyond {BF16_ULPS} bf16 ulp of a row's largest entry (not held: "
+                      f"NOT_ULP_GATED)", flush=True)
             err = max(err, float((a.float() - b.float()).abs().max()))
     if ragged:  # sample 0 has no valid key; dk = dv = 0 at masked keys
         mask = args[3]
@@ -778,8 +886,9 @@ def check_bf16_kernel(fa, name, B, H, Lq, Lk, D, ragged, seed, dtype):
                 x = a if layout == "ble" else a.transpose(1, 2)
                 assert float(x[~mask].abs().max()) == 0.0, f"{name} {label}: masked keys not 0"
     print(f"  {name:26s} {str(dtype).split('.')[-1]:8s} B={B} H={H} Lq={Lq} Lk={Lk} D={D} "
-          f"{'ragged' if ragged else 'full  '} max|err|={err:.3e} (within {BF16_ULPS} bf16 ulp "
-          f"of each row's largest entry)", flush=True)
+          f"{'ragged' if ragged else 'full  '} max|err|={err:.3e}"
+          + (f" (within {BF16_ULPS} bf16 ulp of each row's largest entry)" if ulp_gated else ""),
+          flush=True)
     return err, args
 
 
@@ -859,14 +968,29 @@ def time_bf16_kernel(fa, name, args) -> dict:
 SINGLE_BLOCK_SHAPES = ((4, 4, 512, 512, 64), (2, 4, 300, 257, 64), (2, 2, 136, 260, 32),
                        (2, 2, 136, 260, 16))
 MAIN_REPEATS = 3
+# Token cross-attention (phase 11) adds its two new shapes: its text
+# queries over the ragged tokens (Q1 / Q2, Lq 300 x Lk 300), and over a
+# whole slide's patch sequence (Q3-Q5, Lq 300 x Lk 4,097).
+XATTN_TOKENS_SHAPE = (8, 4, 300, 300, 64)
+XATTN_WHOLE_SLIDE_SHAPE = (8, 4, 300, WHOLE_SLIDE_PATCHES + 1, 64)
+# (mode, shape) whose outputs are printed against BF16_ULPS, not held to
+# it: under mxu_bf16 dS is rounded to bf16 before dK = dS^T Q, so an
+# output takes a second rounding where the two sides' f32 dS straddle a
+# bf16 boundary, and BF16_ULPS (one rounding each) is no bound. Summed over
+# only 300 queries the flips reach a row's largest entry: Q5's dk lands
+# beyond one ulp of its plain version at Lq 300 x Lk 4,097 for some seeds,
+# and the plain version beyond one ulp of a float64 evaluation of the same
+# roundings (`scripts/torch_mxu_rounding.py` measures both; PERF.md).
+NOT_ULP_GATED = {("flash_bwd_dkv_mxu", XATTN_WHOLE_SLIDE_SHAPE)}
 BF16_SHAPES = {
     "ble": ((8, 4, 257, 257, 64), (2, 2, 136, 260, 8), (2, 2, 136, 260, 128),
-            *SINGLE_BLOCK_SHAPES),
+            *SINGLE_BLOCK_SHAPES, XATTN_TOKENS_SHAPE),
     "bhld_fused": ((8, 4, 257, 257, 64), (2, 2, 130, 260, 64), (2, 2, 136, 260, 8),
                    (2, 2, 136, 260, 128), *SINGLE_BLOCK_SHAPES),
     "bhld": ((8, 4, WHOLE_SLIDE_PATCHES + 1, WHOLE_SLIDE_PATCHES + 1, 64),
              (2, 2, 136, 600, 8), (2, 2, 136, 600, 16), (2, 2, 136, 600, 32),
-             (2, 2, 136, 600, 64), (2, 2, 136, 600, 128), (8, 4, 1100, 1100, 64)),
+             (2, 2, 136, 600, 64), (2, 2, 136, 600, 128), (8, 4, 1100, 1100, 64),
+             XATTN_WHOLE_SLIDE_SHAPE),
 }
 
 
@@ -889,7 +1013,8 @@ def check_bf16_modes(fa, errs: dict, timed: dict) -> None:
             for j, shape in enumerate(shapes):
                 for r in range(repeats if j == 0 else 1):
                     err, _ = check_bf16_kernel(fa, name, *shape, True,
-                                               300 + 10 * i + j + 1000 * r, dtype)
+                                               300 + 10 * i + j + 1000 * r, dtype,
+                                               (name, shape) not in NOT_ULP_GATED)
                     errs[name] = max(errs[name], err)
         err, args = check_bf16_kernel(fa, name, *shapes[0], False, 400 + i, torch.bfloat16)
         errs[name] = max(errs[name], err)
@@ -900,8 +1025,9 @@ def check_bf16_modes(fa, errs: dict, timed: dict) -> None:
 
 
 def bf16_serving(fa, cfg16, params, batches, label, kernel) -> dict:
-    """Phase 9 (a) / (d): `sample_all` of the bf16 model on the card (its
-    launches: `kernel` once per layer and batch, no other), then one batch
+    """Phase 9 (a) / (d), 11 (d): `sample_all` of the bf16 model on the card
+    (its launches: `kernel` once per kernel attention of the fusion
+    (`kernel_attentions`) and batch, no other), then one batch
     card vs CPU within BF16_E2E_TOL of the output's largest entry, printed
     beside `use_pallas=False` on the card vs the CPU. Returns the launches."""
     import torch
@@ -921,7 +1047,7 @@ def bf16_serving(fa, cfg16, params, batches, label, kernel) -> dict:
     assert out["fake"].shape == (n, cfg16.n_genes) and out["fake"].dtype == np.float32
     assert np.isfinite(out["fake"]).all(), "non-finite profiles"
     assert launches == {**dict.fromkeys(KERNELS, 0),
-                        kernel: cfg16.fusion.num_layers * len(batches)}, launches
+                        kernel: sum(kernel_attentions(cfg16).values()) * len(batches)}, launches
     z = torch.randn(BATCH, cfg16.latent_dim, generator=torch.Generator().manual_seed(3))
     on_cpu = GeneratorServer.from_flax(cfg16, params, device="cpu")(z, batches[0])
     on_card = server(z, batches[0]).cpu()
@@ -938,44 +1064,219 @@ def bf16_serving(fa, cfg16, params, batches, label, kernel) -> dict:
     return launches
 
 
-def bf16_step(fa, exp16, params, d_params, batch, label) -> dict:
-    """Phase 9 (b) / (d): one dropout-free step of the bf16 model on the card
-    against the CPU, held relative to the same step with `use_pallas=False`
-    on the card (`loose_limits`), each metric within PLAIN_LOOSE_FACTOR
-    times that step's distance or BF16_STEP_RTOL of its value; the same
-    kernel step with cuBLAS's reduced-precision bf16 reductions off, beside
-    it. Returns the kernel step's launches."""
+def fusion_cotangents(cfg, g_params, d_params, batch, draws) -> dict:
+    """On the CPU, at the step's starting params (Flax-layout trees) and with
+    its draws: the gradient of the first critic update's loss (Wasserstein
+    loss + gp_weight x gp) w.r.t. the critic fusion's output ("D") and of
+    the generator loss w.r.t. the generator fusion's output ("G"), from the
+    engine's own `critic_update` and `generator_update` (the optimizers'
+    `update` replaced by a no-op, so no param moves)."""
     import torch
 
-    cfg_of = lambda **kw: train_cfg(exp16, dropout=0.0, **kw)  # noqa: E731
-    args = (params, d_params, batch, random_draws(cfg_of(), seed=9))
-    on_cpu = run_step(cfg_of(), "cpu", *args)
-    plain = step_diff(run_step(cfg_of(use_pallas=False), "cuda", *args), on_cpu, {}, rtol=None)
-    print(f"    ({label}) bf16 step at dropout 0, use_pallas=False on the card vs CPU: "
-          f"{json.dumps(plain)}", flush=True)
-    max_loose = loose_limits(plain)
-    metric_tol = {k: max(BF16_STEP_RTOL * abs(v), PLAIN_LOOSE_FACTOR
-                         * abs(plain["metrics_test"][k] - v))
-                  for k, v in on_cpu[1].items()}
+    from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
+
+    engine = WGANGPEngine(cfg, steps_per_epoch=1, device="cpu")
+    state = engine.state_from_flax(g_params, d_params)
+    real, cond = engine._tensors(batch)
+    d = {k: torch.as_tensor(np.asarray(draws[k])) for k in ("z", "alpha", "z_gen")}
+    cot = {}
+    for net, module, opt in (("D", state.critic, state.d_opt), ("G", state.gen, state.g_opt)):
+        opt.update = lambda grads: None
+
+        def hook(mod, inputs, out, net=net):
+            if out.requires_grad:  # not the embeddings taken without grad
+                out.register_hook(lambda g: cot.__setitem__(net, g.detach().clone()))
+
+        module.fusion.register_forward_hook(hook)
+    state.gen.train()
+    state.critic.train()
+    engine.critic_update(state, real, cond, engine.embed_generator(state, cond), d["z"][0],
+                         d["alpha"][0])
+    engine.generator_update(state, cond, d["z_gen"])
+    return cot
+
+
+def fusion_grads(cfg, device, g_params, d_params, batch, cot) -> dict:
+    """Per net, the gradient w.r.t. each of its fusion's params of
+    <cot[net], the fusion's output> (`fusion_cotangents`), as float64 on the
+    host ({net: {param name: gradient}}): the part of the step's first
+    gradients that passes through the attention kernels (forward and
+    backward), with the trunk's cotangent fixed. Dropout is `cfg`'s (0 for
+    a gate)."""
+    import torch
+
+    from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
+
+    engine = WGANGPEngine(cfg, steps_per_epoch=1, device=device)
+    state = engine.state_from_flax(g_params, d_params)
+    _, cond = engine._tensors(batch)
+    grads = {}
+    for net, module in (("D", state.critic), ("G", state.gen)):
+        module.train()
+        out = module.fusion(cond)
+        names, params = zip(*module.fusion.named_parameters())
+        gs = torch.autograd.grad(out, params, cot[net].to(out.device, out.dtype))
+        grads[net] = {n: g.detach().double().cpu() for n, g in zip(names, gs)}
+    return grads
+
+
+def _relative(got, want) -> float:
+    """||got - want|| / ||want||; 0 where both are 0."""
+    diff, scale = float((got - want).norm()), float(want.norm())
+    return diff / scale if scale else (0.0 if diff == 0 else float("inf"))
+
+
+def grad_distances(grads: dict, ref: dict) -> dict:
+    """Per net, ||g - g_ref|| / ||g_ref|| over all its gradients."""
+    import torch
+
+    return {net: _relative(torch.cat([g.flatten() for g in by_name.values()]),
+                           torch.cat([ref[net][n].flatten() for n in by_name]))
+            for net, by_name in grads.items()}
+
+
+def tensor_distances(grads: dict, ref: dict) -> dict:
+    """Per net and param, ||g - g_ref|| / ||g_ref||."""
+    return {net: {n: _relative(g, ref[net][n]) for n, g in by_name.items()}
+            for net, by_name in grads.items()}
+
+
+def drop_last_valid_key(mask):
+    """`mask` [B, Lk] with the last valid key of every row masked out."""
+    count = mask.long().sum(1, keepdim=True)
+    return mask & (mask.long().cumsum(1) != count)
+
+
+class perturbed_forward:
+    """Within this context forward wrapper `name` of `fa` is wrong on
+    purpose, a negative control of the gradient gate: "scaled", its output
+    o times Q1_SCALE; "last_key_masked", its kernel run with the last valid
+    key of every row masked out (the backward keeps the whole mask). The
+    kernel itself still runs and counts its launches."""
+
+    def __init__(self, fa, name: str, how: str):
+        self.fa, self.name, self.how = fa, name, how
+
+    def __enter__(self):
+        kernel, how = getattr(self.fa, self.name), self.how
+
+        def wrong(q, k, v, mask, *rest):
+            if how == "last_key_masked":
+                mask = drop_last_valid_key(mask)
+            o, lse = kernel(q, k, v, mask, *rest)
+            return (o * Q1_SCALE if how == "scaled" else o), lse
+
+        self.saved = kernel
+        setattr(self.fa, self.name, wrong)
+
+    def __exit__(self, *exc):
+        setattr(self.fa, self.name, self.saved)
+
+
+def largest_ratio(run: dict, ref: dict, yardstick: dict) -> tuple:
+    """(ratio, "net param") of the param whose gradient in `run` lies
+    farthest from `ref`'s (`tensor_distances`) against its limit:
+    PLAIN_LOOSE_FACTOR times `yardstick`'s distance from `ref`, or
+    GRAD_GATE_FLOOR if more. A gate takes `run` where the ratio is <= 1."""
+    limits = tensor_distances(yardstick, ref)
+    return max((d / max(PLAIN_LOOSE_FACTOR * limits[net][n], GRAD_GATE_FLOOR), f"{net} {n}")
+               for net, by_name in tensor_distances(run, ref).items()
+               for n, d in by_name.items())
+
+
+def grad_gate(fa, cfg, device, step_args, fwd: str) -> dict:
+    """Phase 9 (b) / (d)'s gradient gate on `device` (the card; "cpu" in the
+    tests): `fusion_grads` of `cfg` (dropout 0) at the step's starting
+    params, with the cotangents the step's losses give each net's fusion
+    on the CPU, computed with the kernels and with their plain versions
+    (`plain_kernels`, the yardstick), both on `device`, and on the CPU.
+    Each param's gradient may lie from the CPU's (`tensor_distances`) at
+    most PLAIN_LOOSE_FACTOR times as far as the yardstick's, or
+    GRAD_GATE_FLOOR if more. Then the negative controls: the gate run again
+    with forward kernel `fwd` wrong on purpose (`perturbed_forward`,
+    "scaled" and "last_key_masked") must reject each, some param beyond its
+    limit. Raises otherwise. Returns per run the whole nets' distances
+    (`grad_distances`) and the largest ratio of a param's distance to its
+    limit, and the kernel run's launches."""
+    g_params, d_params, batch, draws = step_args
+    cot = fusion_cotangents(cfg, *step_args)
+
+    def grads(on):
+        return fusion_grads(cfg, on, g_params, d_params, batch, cot)
+
+    cpu = grads("cpu")
+    with plain_kernels(fa):
+        plain = grads(device)
     fa.reset_launch_counts()
-    got = run_step(cfg_of(), "cuda", *args)
+    runs = {"kernels": grads(device)}
+    launches = {k: n for k, n in fa.launch_counts().items() if n}
+    for how in ("scaled", "last_key_masked"):
+        with perturbed_forward(fa, fwd, how):
+            runs[how] = grads(device)
+    summary = {"plain": grad_distances(plain, cpu)}
+    worst = {}
+    for label, run in runs.items():
+        worst[label] = largest_ratio(run, cpu, plain)
+        summary[label] = {**grad_distances(run, cpu),
+                          "largest ratio to its limit": [round(worst[label][0], 4),
+                                                         worst[label][1]]}
+    summary["kernels_from_plain"] = grad_distances(runs["kernels"], plain)
+    summary["launches"] = launches
+    assert worst["kernels"][0] <= 1, ("the gate rejects the kernels", summary)
+    for how in ("scaled", "last_key_masked"):
+        assert worst[how][0] > 1, (f"the gate accepts the {how} control", summary)
+    return summary
+
+
+def bf16_step(fa, exp16, params, d_params, batch, label, n_attn=None) -> dict:
+    """Phase 9 (b) / (d): the bf16 model's step on the card against the CPU,
+    with the kernels' plain versions on the card (`plain_kernels`) as the
+    yardstick. (1) `grad_gate` on the step's first gradients, with its
+    negative controls on Q1 in the model's mode. (2) One dropout-free step:
+    each net may miss PARAM_ATOL on at most `loose_limits` of the plain
+    versions' step entries, each metric within `bf16_metric_tol` of the
+    CPU step's with the plain versions' step as the yardstick; the launches
+    are `step_launches` (`n_attn` kernel attentions per fusion forward, the
+    model's by default); the same kernel step with cuBLAS's
+    reduced-precision bf16 reductions off is printed beside it. Returns
+    the kernel step's launches."""
+    import torch
+
+    cfg0 = train_cfg(exp16, dropout=0.0)
+    mxu = exp16.model.fusion.flash_mxu_bf16
+    fwd, bwd = (f"flash_fwd_ble_{'mxu' if mxu else 'bf16'}",
+                f"flash_bwd_ble_{'mxu' if mxu else 'bf16'}")
+    args = (params, d_params, batch, random_draws(cfg0, seed=9))
+    gate = grad_gate(fa, cfg0, "cuda", args, fwd)
+    assert gate["launches"].get(fwd) and gate["launches"].get(bwd), gate["launches"]
+    print(f"    ({label}) bf16 gradient gate, mxu_bf16={mxu} (||g - g_cpu|| / ||g_cpu|| of "
+          f"the fusion's params' gradients at the step's starting params, with the step's "
+          f"cotangents at the fusion outputs from the CPU; per param at most "
+          f"{PLAIN_LOOSE_FACTOR} x the plain versions' or {GRAD_GATE_FLOOR}; whole nets "
+          f"printed): {json.dumps(gate)}; the controls scale {fwd}'s output by {Q1_SCALE} "
+          f"or mask the last valid key of every row", flush=True)
+    on_cpu = run_step(cfg0, "cpu", *args)
+    with plain_kernels(fa):
+        plain = step_diff(run_step(cfg0, "cuda", *args), on_cpu, {}, rtol=None)
+    max_loose = loose_limits(plain)
+    metric_tol = bf16_metric_tol(on_cpu[1], plain["metrics_test"])
+    fa.reset_launch_counts()
+    got = run_step(cfg0, "cuda", *args)
     torch.cuda.synchronize()
     launches = fa.launch_counts()
     cmp = step_diff(got, on_cpu, max_loose, metric_tol=metric_tol)
     flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = not flag
     try:
-        other = step_diff(run_step(cfg_of(), "cuda", *args), on_cpu, {}, rtol=None)
+        other = step_diff(run_step(cfg0, "cuda", *args), on_cpu, {}, rtol=None)
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
-    mxu = exp16.model.fusion.flash_mxu_bf16
-    n_fwd, n_bwd = step_launches(cfg_of())
-    fwd, bwd = (f"flash_fwd_ble_{'mxu' if mxu else 'bf16'}",
-                f"flash_bwd_ble_{'mxu' if mxu else 'bf16'}")
+    n_fwd, n_bwd = step_launches(cfg0, n_attn)
     assert launches == {**dict.fromkeys(KERNELS, 0), fwd: n_fwd, bwd: n_bwd}, launches
-    print(f"    ({label}) bf16 step at dropout 0, mxu_bf16={mxu}, card vs CPU: {json.dumps(cmp)} "
-          f"(metrics within {json.dumps(metric_tol)}; params beyond atol {PARAM_ATOL} per net "
-          f"at most {max_loose}); launches {launches}; the kernel step with "
+    print(f"    ({label}) bf16 step at dropout 0, mxu_bf16={mxu}: the plain versions on the card "
+          f"vs CPU {json.dumps(plain)}; the kernels vs CPU {json.dumps(cmp)} (metrics within "
+          f"{json.dumps(metric_tol)} by bf16_metric_tol; params beyond atol {PARAM_ATOL} per "
+          f"net at most {max_loose}); launches {launches}; the kernel step with "
           f"allow_bf16_reduced_precision_reduction={not flag} vs CPU (not gated): "
           f"{json.dumps(other)}", flush=True)
     return launches
@@ -1028,9 +1329,10 @@ def bhld_bf16_step(fa, exp16, params, d_params, batch, label) -> dict:
 
 
 def whole_slide_bf16_serving(fa, cfg16, params, ws_batch, label) -> dict:
-    """Phase 9 (f) / (h): `sample_all` of one whole-slide batch with the
-    bf16 model (its launches: the classic forward in the model's mode once
-    per layer, no other kernel), then one batch against `use_pallas=False`
+    """Phase 9 (f) / (h), 11 (d): `sample_all` of one whole-slide batch with
+    the bf16 model (its launches: the forward of each kernel attention's
+    route (`kernel_attentions`) in the model's mode, no other kernel: the
+    classic one for the patch sequence), then one batch against `use_pallas=False`
     (the blocked reference), both on the card, within BF16_E2E_TOL of the
     output's largest entry. Returns the launches."""
     import torch
@@ -1048,8 +1350,9 @@ def whole_slide_bf16_serving(fa, cfg16, params, ws_batch, label) -> dict:
     seconds = time.perf_counter() - t0
     launches = fa.launch_counts()
     assert out["fake"].shape == (BATCH, cfg16.n_genes) and np.isfinite(out["fake"]).all()
-    assert launches == {**dict.fromkeys(KERNELS, 0),
-                        f"flash_fwd_bhld_{mode}": cfg16.fusion.num_layers}, launches
+    assert launches == {**dict.fromkeys(KERNELS, 0), **{
+        f"flash_fwd_{route}_{mode}": n for route, n in kernel_attentions(
+            cfg16, patches=WHOLE_SLIDE_PATCHES).items()}}, launches
     ref = dataclasses.replace(cfg16, fusion=dataclasses.replace(cfg16.fusion, use_pallas=False))
     z = torch.randn(BATCH, cfg16.latent_dim, generator=torch.Generator().manual_seed(4))
     with_kernels = server(z, ws_batch).cpu()
@@ -1146,7 +1449,9 @@ def device_breakdown(server, batch) -> dict:
 def flax_param_tree(m, seed: int, critic: bool = False) -> dict:
     """Random generator (or critic) params in the Flax layout, with the
     paths that `gemm_gan_tpu.models.gan.Generator.init` (`Critic.init`)
-    gives them."""
+    gives them for model config `m`'s fusion kind."""
+    from gemm_gan_tpu_torch.fusion.modules import cond_dim_of
+
     rng = np.random.RandomState(seed)
     f = m.fusion
     E = f.cond_dim
@@ -1163,27 +1468,57 @@ def flax_param_tree(m, seed: int, critic: bool = False) -> dict:
     def mha():
         return {n: dense(E, E) for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
 
-    layers = {f"TransformerEncoderLayer_{i}": {
-        "MaskedMultiHeadAttention_0": mha(), "LayerNorm_0": norm(E),
-        "Dense_0": dense(E, f.ff_dim), "Dense_1": dense(f.ff_dim, E),
-        "LayerNorm_1": norm(E)} for i in range(f.num_layers)}
-    fusion = {
-        "film": {"film_proj": dense(f.text_dim, 2 * f.patch_dim)},
-        "text_encoder": dense(f.text_dim, E),
-        "_PatchTransformer_0": {"patches_encoder": dense(f.patch_dim, E),
-                                "cls_token": arr(1, 1, E, scale=0.02),
-                                "patches_transformer": layers},
-        "patch2text_attention": mha(),
-        "text2patch_attention": mha(),
-    }
+    def layers():
+        return {f"TransformerEncoderLayer_{i}": {
+            "MaskedMultiHeadAttention_0": mha(), "LayerNorm_0": norm(E),
+            "Dense_0": dense(E, f.ff_dim), "Dense_1": dense(f.ff_dim, E),
+            "LayerNorm_1": norm(E)} for i in range(f.num_layers)}
+
+    def patch_transformer(stack, encode_mlp=False):
+        pt = {"patches_encoder": dense(f.patch_dim, E)}
+        if encode_mlp:
+            pt["LayerNorm_0"] = norm(E)
+        return {**pt, "cls_token": arr(1, 1, E, scale=0.02), "patches_transformer": stack}
+
+    def embed(n):
+        return {"embedding": arr(n, f.label_embed_dim, scale=f.label_embed_dim ** -0.5)}
+
+    fusion = None
+    if f.kind == "film_xattn":  # the flagship's draws, in the order phases 3-10 take them
+        stack = layers()
+        fusion = {
+            "film": {"film_proj": dense(f.text_dim, 2 * f.patch_dim)},
+            "text_encoder": dense(f.text_dim, E),
+            "_PatchTransformer_0": patch_transformer(stack),
+            "patch2text_attention": mha(),
+            "text2patch_attention": mha(),
+        }
+    elif f.kind == "xattn":
+        fusion = {"text_encoder": dense(f.text_dim, E),
+                  "_PatchTransformer_0": patch_transformer(layers()),
+                  "patch2text_attention": mha(), "text2patch_attention": mha()}
+    elif f.kind == "film":
+        fusion = {"film": {"film_proj": dense(f.text_dim, 2 * f.patch_dim)},
+                  "_PatchTransformer_0": patch_transformer(layers())}
+    elif f.kind == "img_transformer":
+        fusion = {"_PatchTransformer_0": patch_transformer(layers(), encode_mlp=True)}
+    elif f.kind == "attention":
+        fusion = {"text_encoder": dense(f.text_dim, E), "patches_encoder": dense(f.patch_dim, E),
+                  "attention": mha(), "attn_norm": norm(E)}
+    elif f.kind == "concat":
+        fusion = {"encoder": dense(f.text_dim if f.condition_type == "text" else f.patch_dim, E)}
+    elif f.kind == "labels":
+        fusion = {"disease_embed": embed(f.n_disease_types),
+                  "site_embed": embed(f.n_primary_sites)}
+    C = cond_dim_of(f)
     if critic:
-        dims, out = [m.n_genes + E, *m.disc_dims], 1
+        dims, out = [m.n_genes + C, *m.disc_dims], 1
     else:
-        dims, out = [m.latent_dim + E, *m.gen_dims], m.n_genes
+        dims, out = [m.latent_dim + C, *m.gen_dims], m.n_genes
     trunk = {f"LinearBlock_{i}": {"Dense_0": dense(a, b)}
              for i, (a, b) in enumerate(zip(dims[:-1], dims[1:]))}
     trunk["Dense_0"] = dense(dims[-1], out)
-    return {"fusion": fusion, "trunk": trunk}
+    return {"trunk": trunk} if fusion is None else {"fusion": fusion, "trunk": trunk}
 
 
 def train_cfg(cfg, **fusion):
@@ -1196,17 +1531,47 @@ def train_cfg(cfg, **fusion):
                                   batched_scores=True))
 
 
-def step_launches(cfg) -> tuple:
-    """Launches of one fused per_update step, from `train/wgan.py`: the patch
-    self-attention runs once per layer in every fusion forward: the
-    generator's embedding (1), each critic update's (n_critic, with grad),
-    the generator update's critic embedding (1) and generator forward (1,
-    with grad). With `train.grad_accum` = M the critic updates' embeddings
-    and the generator's forward run once per microbatch (M times), the two
+def attention_route(Lq: int, Lk: int) -> str:
+    """Where `masked_mha` (ble layout) sends an attention of Lq queries over
+    Lk keys: "ble" (Q1 / Q2), "bhld" (the classic kernels) or "plain" (the
+    reference, for CLS-like queries)."""
+    from gemm_gan_tpu_torch.kernels import flash_attention as fa
+
+    if Lq < fa.MIN_PALLAS_LQ:
+        return "plain"
+    return "ble" if Lq <= fa.BLE_MAX_L and Lk <= fa.BLE_MAX_L else "bhld"
+
+
+def kernel_attentions(cfg, patches: int = NUM_PATCHES, tokens: int = NUM_TOKENS) -> dict:
+    """{route: count} of the attentions that one fusion forward of `cfg`'s
+    kind sends to a kernel (`attention_route`), at `patches` patches and
+    `tokens` text tokens: the patch transformer's self-attention, once per
+    layer (img_transformer, film, xattn, film_xattn), and token
+    cross-attention's two (xattn: the tokens over the patch sequence, then
+    over the tokens). The CLS-query attentions (film_xattn's, the pooled
+    attention's) and concat, labels and vanilla reach none."""
+    f = cfg.model.fusion if hasattr(cfg, "model") else cfg.fusion
+    calls = []
+    if f.kind in ("img_transformer", "film", "xattn", "film_xattn"):
+        calls += [attention_route(patches + 1, patches + 1)] * f.num_layers
+    if f.kind == "xattn":
+        calls += [attention_route(tokens, patches + 1), attention_route(tokens, tokens)]
+    return {route: calls.count(route) for route in ("ble", "bhld") if route in calls}
+
+
+def step_launches(cfg, n_attn: int = None) -> tuple:
+    """Launches of one fused per_update step, from `train/wgan.py`: each
+    fusion forward runs `n_attn` kernel attentions (by default those of
+    `kernel_attentions` at the canonical shapes): the generator's embedding
+    (1), each critic update's (n_critic, with grad), the generator update's
+    critic embedding (1) and generator forward (1, with grad). With
+    `train.grad_accum` = M the critic updates' embeddings and the
+    generator's forward run once per microbatch (M times), the two
     embeddings without grad once at full batch. Returns (forwards,
     backwards)."""
-    layers, n_critic, M = cfg.model.fusion.num_layers, cfg.train.n_critic, cfg.train.grad_accum
-    return layers * (2 + (n_critic + 1) * M), layers * (n_critic + 1) * M
+    n = sum(kernel_attentions(cfg).values()) if n_attn is None else n_attn
+    n_critic, M = cfg.train.n_critic, cfg.train.grad_accum
+    return n * (2 + (n_critic + 1) * M), n * (n_critic + 1) * M
 
 
 def random_draws(cfg, seed):
@@ -1264,14 +1629,19 @@ def step_diff(test, ref, max_loose=None, rtol=STEP_RTOL, atol=STEP_ATOL,
         net_rms = float(torch.cat([r.flatten() for r in rms]).square().mean().sqrt())
         loose_by_net[net] = 0
         for p_got, p_want, r in zip(opt_got.params, opt_want.params, rms):
-            diff = (p_got.detach().cpu() - p_want.detach().cpu()).abs()
+            p_got, p_want = p_got.detach().cpu(), p_want.detach().cpu()
+            diff = (p_got - p_want).abs()
             clear = r > NEGLIGIBLE_GRAD * net_rms
             loose_by_net[net] += int((diff > PARAM_ATOL).sum())
             loose_clear += int((diff[clear] > PARAM_ATOL).sum())
             negligible += int((~clear).sum())
             total += diff.numel()
             max_err = max(max_err, float(diff.max()))
-            beyond_bound |= float(diff.max()) > 2 * bound
+            # two params that each moved the whole bound, the opposite
+            # ways, differ by 2 x bound and the f32 roundings of their
+            # updates (one each an update)
+            slack = F32_EPS * opt_want.count * (p_got.abs() + p_want.abs())
+            beyond_bound |= bool((diff > 2 * bound + slack).any())
     loose = sum(loose_by_net.values())
     summary = {"metrics_test": m_got, "metrics_ref": m_want, "params": total,
                "params_negligible_grad": negligible, "params_beyond_atol": loose,
@@ -1355,22 +1725,22 @@ class plain_kernels:
 
 
 def agreed_profile(run, what: str):
-    """torch.profiler over `run()` (`profiled`) until two readings in a row
-    record the same device work, key for key (each kernel, copy and memset
-    as many times): as `device_ms`, a reading that lost records is not
-    taken. Returns (the last profile, its device records, the readings
-    taken); raises after PROFILER_ATTEMPTS readings with no two in a row
-    that agree. Each reading runs `run` once more."""
-    last = None
+    """torch.profiler over `run()` (`profiled`) until a whole reading
+    records the same device work as the last whole one before it, key for
+    key (each kernel, copy and memset as many times; `agreeing_reading`).
+    Returns (that profile, its device records, the readings taken); raises
+    after PROFILER_ATTEMPTS readings with none that agrees. Each reading
+    runs `run` once more."""
+    readings = []
     for n in range(1, PROFILER_ATTEMPTS + 1):
-        prof = profiled(run)
+        prof, whole = profiled(run)
         records = device_records(prof)
-        counts = {e.key: e.count for e in records}
-        if counts and counts == last:
+        readings.append((whole, {e.key: e.count for e in records}))
+        if agreeing_reading(readings) is not None:
             return prof, records, n
-        last = counts or None
-    raise RuntimeError(f"torch.profiler: no two readings in a row of {what} agree in "
-                       f"{PROFILER_ATTEMPTS} readings (last {len(counts)} kinds of record)")
+    raise RuntimeError(f"torch.profiler: no two whole readings of {what} agree in "
+                       f"{PROFILER_ATTEMPTS} readings ({sum(w for w, _ in readings)} whole; "
+                       f"last {len(records)} kinds of record)")
 
 
 def device_busy(engine, state, batch) -> dict:
@@ -1567,9 +1937,10 @@ PRODUCT_FLAGS = ("--variant", "film_cross_attention", "--freq_compute_test", "1"
 
 
 def write_tcga_layout(root: str, data: dict, n: int, files_of: str = None) -> str:
-    """The on-disk layout `load_tcga` reads (rna_seq.parquet, per-case patch
-    and token npys, metainfos.pkl) for the first `n` cases of `data`; with
-    `files_of` the per-case files are that layout's (linked, not copied)."""
+    """The on-disk layout `load_tcga` reads (rna_seq.parquet, the text-CLS
+    table, per-case patch and token npys, metainfos.pkl) for the first `n`
+    cases of `data`; with `files_of` the per-case files are that layout's
+    (linked, not copied)."""
     import pickle
 
     import pandas as pd
@@ -1592,6 +1963,11 @@ def write_tcga_layout(root: str, data: dict, n: int, files_of: str = None) -> st
             np.save(os.path.join(pdir, f"{c}.npy"), data["patches"][i])
             np.save(os.path.join(tdir, f"{c}.npy"), data["tokens"][i])
             np.save(os.path.join(tdir, f"{c}_attention_mask.npy"), data["token_mask"][i])
+    # the text-CLS table the multi_patch schema reads: each case's first
+    # (CLS) token
+    cls = pd.DataFrame(data["tokens"][:n, 0], index=pd.Index(cases, name="case_id"))
+    cls.columns = [str(c) for c in cls.columns]
+    cls.to_parquet(os.path.join(d, "clinical_modernbert_embeddings.parquet"))
     metainfos = {c: {"disease_type": f"disease-{data['disease'][i]}",
                      "primary_site": f"site-{data['site'][i]}"} for i, c in enumerate(cases)}
     with open(os.path.join(d, "metainfos.pkl"), "wb") as f:
@@ -1668,9 +2044,10 @@ def load_checkpoint(run_dir: str, which: str = "ckpt", step: int = None) -> dict
 
 def product_launches(cfg, n_cases: int) -> dict:
     """Q1 / Q2 launches one product-run fit makes: `step_launches` per
-    graphed step (every epoch's full batches) and `num_layers` Q1 per
-    generation batch (the generator embeds each batch once): each
-    validation regenerates train and val, the test block train and test."""
+    graphed step (every epoch's full batches) and the fusion's kernel
+    attentions (`kernel_attentions`) in Q1 per generation batch (the
+    generator embeds each batch once): each validation regenerates train
+    and val, the test block train and test."""
     from gemm_gan_tpu_torch.data.splits import split_indices
 
     tr, va, te = (len(i) for i in split_indices(n_cases, seed=cfg.train.seed))
@@ -1682,16 +2059,18 @@ def product_launches(cfg, n_cases: int) -> dict:
                    + ev.n_runs * (batches(tr) + batches(te)))
     steps = t.epochs * (tr // B)
     fwd, bwd = step_launches(cfg)
-    return {"flash_fwd_ble": steps * fwd + gen_batches * cfg.model.fusion.num_layers,
-            "flash_bwd_ble": steps * bwd, "steps": steps, "gen_batches": gen_batches}
+    per_batch = sum(kernel_attentions(cfg).values())
+    return {"flash_fwd_ble": steps * fwd + gen_batches * per_batch,
+            "flash_bwd_ble": steps * bwd, "steps": steps, "gen_batches": gen_batches,
+            "per_batch": per_batch}
 
 
-def product_path(fa, card) -> dict:
+def product_path(fa, card, root: str) -> tuple:
     """Phase 10: the product path through `cli.train.main` at the published
-    widths (see the module docstring). Returns the launch counts of the
-    product run's fit."""
+    widths (see the module docstring), on a TCGA layout it writes under
+    `root`. Returns (the launch counts of the product run's fit, the
+    RESUME_CASES layout, which phase 11 (e) reads)."""
     import importlib.util
-    import tempfile
 
     import torch
 
@@ -1711,130 +2090,457 @@ def product_path(fa, card) -> dict:
           flush=True)
     t0 = time.perf_counter()
     data = structured_dataset(PRODUCT_CASES, n_genes=PRODUCT_GENES, seed=21)
-    with tempfile.TemporaryDirectory() as root:
-        full = write_tcga_layout(root, data, PRODUCT_CASES)
-        small = write_tcga_layout(root, data, RESUME_CASES, files_of=full)
-        shapes = {k: data[k].shape[1:] for k in ("genes", "patches", "tokens")}
-        del data
-        print(f"    TCGA layout of {PRODUCT_CASES} cases written in "
-              f"{time.perf_counter() - t0:.1f} s: {shapes} per case", flush=True)
-        timer = PartTimer()
-        saved, restored, epochs = [], [], []
-        for owner, name, label in (
-                (tcga, "load_tcga", "load"), (expmod.Experiment, "fit", "fit"),
-                (expmod.Experiment, "_validation_eval", "validation"),
-                (expmod.Experiment, "_test_block", "test block"),
-                (expmod.Experiment, "evaluate", "evaluate"),
-                (expmod.Experiment, "posthoc_utility", "posthoc utility"),
-                (expmod.Experiment, "posthoc_privacy", "posthoc privacy"),
-                (expmod, "gamma_coef", "gamma"), (expmod, "knn_detection", "kNN detection"),
-                (expmod, "compute_prdc", "PRDC"), (detection, "compute_prdc", "PRDC"),
-                (classifiers.MLPClassifier, "fit", lambda a: "MLP" if a[0].hidden else "LR"),
-                (forest.HistForestClassifier, "fit", "RF"),
-                (skf.LogisticRegression, "fit", "logistic regression (two-sample)"),
-                (skf.PCA, "fit_transform", "PCA")):
-            timer.wrap(owner, name, label)
-        timer.wrap(expmod, "save_state", "checkpoint save", after=lambda a, step: saved.append(
-            os.path.getsize(os.path.join(a[0], str(step), checkpoint.STATE_FILE))))
-        for owner in (expmod, checkpoint):
-            timer.wrap(owner, "restore_state", "checkpoint restore",
-                       after=lambda a, state: restored.append((a[0], state.step)))
-        timer.wrap(WGANGPEngine, "step_many_cached", "graphed epoch",
-                   after=lambda a, out: epochs.append(a[2].n_full_batches))
-        try:
-            out = os.path.join(root, "runs")
-            run = os.path.join(out, "product")
-            args = [*PRODUCT_FLAGS, "--data_dir", full, "--output_path", out,
-                    "--epochs", str(PRODUCT_EPOCHS)]
-            fa.reset_launch_counts()
-            results = cli_train.main([*args, "--run_name", "product"])
-            counts = fa.launch_counts()
-            fit_epochs = list(zip(epochs, timer.seconds["graphed epoch"]))
-            cfg = load_config(os.path.join(run, "config.json"))
-            want = product_launches(cfg, PRODUCT_CASES)
-            print(f"    fit: launches {counts}; expected {json.dumps(want)} "
-                  f"({want['steps']} graphed steps x step_launches {step_launches(cfg)}, "
-                  f"{want['gen_batches']} generation batches x {cfg.model.fusion.num_layers} "
-                  f"layers)", flush=True)
-            assert counts == {**dict.fromkeys(KERNELS, 0), "flash_fwd_ble": want["flash_fwd_ble"],
-                              "flash_bwd_ble": want["flash_bwd_ble"]}, (counts, want)
-            with open(os.path.join(run, "product_metrics.jsonl")) as f:
-                logged = [json.loads(r) for r in f]
-            with open(os.path.join(run, "val_metrics.json")) as f:
-                val = json.load(f)
-            last = load_checkpoint(run)
-            assert all_finite(logged) and all_finite(val) and all_finite(results), "non-finite"
-            assert all(bool(torch.isfinite(t).all()) for _, t in checkpoint_tensors(last)
-                       if t.is_floating_point()), "non-finite state"
-            assert [r["epoch"] for r in val] == list(range(PRODUCT_EPOCHS - 1)), val
-            steady = fit_epochs[1:]
-            sps = sum(k for k, _ in steady) / sum(s for _, s in steady)
-            print(f"    fit: {want['steps']} steps in {PRODUCT_EPOCHS} graphed epochs of "
-                  f"{fit_epochs[0][0]} (epoch seconds {[s for _, s in fit_epochs]}, the first "
-                  f"with the capture); graphed {sps:.2f} steps/s over epochs 1.. inside fit on "
-                  f"{card}; gamma {results['gamma_mean']:.4f}; validation (KNN accuracy, "
-                  f"precision, recall, coverage): "
-                  f"{[(r['detection']['KNN']['accuracy'], round(r['metrics']['precision'], 4), round(r['metrics']['recall'], 4), round(r['metrics']['coverage'], 4)) for r in val]}",
-                  flush=True)
-            print(f"    test block (run 0): {json.dumps(results['runs'][0]['detection'])}; "
-                  f"checkpoint bytes {saved}", flush=True)
-            print(f"    seconds per part of the product run (cli.train: load, fit, post-hoc "
-                  f"suites) on {card}: {json.dumps(timer.seconds)}", flush=True)
-            timer.seconds.clear()
+    full = write_tcga_layout(root, data, PRODUCT_CASES)
+    small = write_tcga_layout(root, data, RESUME_CASES, files_of=full)
+    shapes = {k: data[k].shape[1:] for k in ("genes", "patches", "tokens")}
+    del data
+    print(f"    TCGA layout of {PRODUCT_CASES} cases written in "
+          f"{time.perf_counter() - t0:.1f} s: {shapes} per case", flush=True)
+    timer = PartTimer()
+    saved, restored, epochs = [], [], []
+    for owner, name, label in (
+            (tcga, "load_tcga", "load"), (expmod.Experiment, "fit", "fit"),
+            (expmod.Experiment, "_validation_eval", "validation"),
+            (expmod.Experiment, "_test_block", "test block"),
+            (expmod.Experiment, "evaluate", "evaluate"),
+            (expmod.Experiment, "posthoc_utility", "posthoc utility"),
+            (expmod.Experiment, "posthoc_privacy", "posthoc privacy"),
+            (expmod, "gamma_coef", "gamma"), (expmod, "knn_detection", "kNN detection"),
+            (expmod, "compute_prdc", "PRDC"), (detection, "compute_prdc", "PRDC"),
+            (classifiers.MLPClassifier, "fit", lambda a: "MLP" if a[0].hidden else "LR"),
+            (forest.HistForestClassifier, "fit", "RF"),
+            (skf.LogisticRegression, "fit", "logistic regression (two-sample)"),
+            (skf.PCA, "fit_transform", "PCA")):
+        timer.wrap(owner, name, label)
+    timer.wrap(expmod, "save_state", "checkpoint save", after=lambda a, step: saved.append(
+        os.path.getsize(os.path.join(a[0], str(step), checkpoint.STATE_FILE))))
+    for owner in (expmod, checkpoint):
+        timer.wrap(owner, "restore_state", "checkpoint restore",
+                   after=lambda a, state: restored.append((a[0], state.step)))
+    timer.wrap(WGANGPEngine, "step_many_cached", "graphed epoch",
+               after=lambda a, out: epochs.append(a[2].n_full_batches))
+    try:
+        out = os.path.join(root, "runs")
+        run = os.path.join(out, "product")
+        args = [*PRODUCT_FLAGS, "--data_dir", full, "--output_path", out,
+                "--epochs", str(PRODUCT_EPOCHS)]
+        fa.reset_launch_counts()
+        results = cli_train.main([*args, "--run_name", "product"])
+        counts = fa.launch_counts()
+        fit_epochs = list(zip(epochs, timer.seconds["graphed epoch"]))
+        cfg = load_config(os.path.join(run, "config.json"))
+        want = product_launches(cfg, PRODUCT_CASES)
+        print(f"    fit: launches {counts}; expected {json.dumps(want)} "
+              f"({want['steps']} graphed steps x step_launches {step_launches(cfg)}, "
+              f"{want['gen_batches']} generation batches x {cfg.model.fusion.num_layers} "
+              f"layers)", flush=True)
+        assert counts == {**dict.fromkeys(KERNELS, 0), "flash_fwd_ble": want["flash_fwd_ble"],
+                          "flash_bwd_ble": want["flash_bwd_ble"]}, (counts, want)
+        with open(os.path.join(run, "product_metrics.jsonl")) as f:
+            logged = [json.loads(r) for r in f]
+        with open(os.path.join(run, "val_metrics.json")) as f:
+            val = json.load(f)
+        last = load_checkpoint(run)
+        assert all_finite(logged) and all_finite(val) and all_finite(results), "non-finite"
+        assert all(bool(torch.isfinite(t).all()) for _, t in checkpoint_tensors(last)
+                   if t.is_floating_point()), "non-finite state"
+        assert [r["epoch"] for r in val] == list(range(PRODUCT_EPOCHS - 1)), val
+        steady = fit_epochs[1:]
+        sps = sum(k for k, _ in steady) / sum(s for _, s in steady)
+        print(f"    fit: {want['steps']} steps in {PRODUCT_EPOCHS} graphed epochs of "
+              f"{fit_epochs[0][0]} (epoch seconds {[s for _, s in fit_epochs]}, the first "
+              f"with the capture); graphed {sps:.2f} steps/s over epochs 1.. inside fit on "
+              f"{card}; gamma {results['gamma_mean']:.4f}; validation (KNN accuracy, "
+              f"precision, recall, coverage): "
+              f"{[(r['detection']['KNN']['accuracy'], round(r['metrics']['precision'], 4), round(r['metrics']['recall'], 4), round(r['metrics']['coverage'], 4)) for r in val]}",
+              flush=True)
+        print(f"    test block (run 0): {json.dumps(results['runs'][0]['detection'])}; "
+              f"checkpoint bytes {saved}", flush=True)
+        print(f"    seconds per part of the product run (cli.train: load, fit, post-hoc "
+              f"suites) on {card}: {json.dumps(timer.seconds)}", flush=True)
+        timer.seconds.clear()
 
-            with open(os.path.join(run, "best.json")) as f:
-                best = json.load(f)
-            assert os.path.exists(os.path.join(run, "ckpt_best", str(best["step"]),
-                                               checkpoint.STATE_FILE)), best
-            restored.clear()
-            res_best = cli_train.main([*args, "--run_name", "product", "--evaluate_only",
-                                       "--evaluate_which", "best"])
-            assert [(os.path.basename(p), s) for p, s in restored] == [
-                ("ckpt_best", best["step"])], (restored, best)
-            assert all_finite(res_best)
-            dumps = os.path.join(run, f"test_0_epoch_{PRODUCT_EPOCHS}")
-            before = {f: np.load(os.path.join(dumps, f)) for f in sorted(os.listdir(dumps))}
-            restored.clear()
-            cli_train.main([*args, "--run_name", "product", "--evaluate_only"])
-            assert [s for _, s in restored] == [want["steps"]], restored
-            same = {f: bool(np.array_equal(a, np.load(os.path.join(dumps, f))))
-                    for f, a in before.items()}
-            print(f"    best.json {json.dumps(best)}: evaluate('best') restored step "
-                  f"{best['step']} (gamma {res_best['gamma_mean']:.4f}); evaluate('last') "
-                  f"regenerated the test block's {len(same)} arrays bitwise equal: "
-                  f"{all(same.values())}", flush=True)
-            assert all(same.values()), same
-            print(f"    seconds per part of evaluate best, then last (cli.train "
-                  f"--evaluate_only) on {card}: {json.dumps(timer.seconds)}", flush=True)
+        with open(os.path.join(run, "best.json")) as f:
+            best = json.load(f)
+        assert os.path.exists(os.path.join(run, "ckpt_best", str(best["step"]),
+                                           checkpoint.STATE_FILE)), best
+        restored.clear()
+        res_best = cli_train.main([*args, "--run_name", "product", "--evaluate_only",
+                                   "--evaluate_which", "best"])
+        assert [(os.path.basename(p), s) for p, s in restored] == [
+            ("ckpt_best", best["step"])], (restored, best)
+        assert all_finite(res_best)
+        dumps = os.path.join(run, f"test_0_epoch_{PRODUCT_EPOCHS}")
+        before = {f: np.load(os.path.join(dumps, f)) for f in sorted(os.listdir(dumps))}
+        restored.clear()
+        cli_train.main([*args, "--run_name", "product", "--evaluate_only"])
+        assert [s for _, s in restored] == [want["steps"]], restored
+        same = {f: bool(np.array_equal(a, np.load(os.path.join(dumps, f))))
+                for f, a in before.items()}
+        print(f"    best.json {json.dumps(best)}: evaluate('best') restored step "
+              f"{best['step']} (gamma {res_best['gamma_mean']:.4f}); evaluate('last') "
+              f"regenerated the test block's {len(same)} arrays bitwise equal: "
+              f"{all(same.values())}", flush=True)
+        assert all(same.values()), same
+        print(f"    seconds per part of evaluate best, then last (cli.train "
+              f"--evaluate_only) on {card}: {json.dumps(timer.seconds)}", flush=True)
 
-            # resume: B stops after epoch 2 and resumes to PRODUCT_EPOCHS with
-            # --resume; A runs straight through. Both validate every epoch, so
-            # they validate at different epochs (A after 0, 1, 2; B after 0,
-            # then 2)
-            timer.seconds.clear()
-            small_args = [*PRODUCT_FLAGS, "--data_dir", small, "--output_path", out]
-            cli_train.main([*small_args, "--run_name", "straight", "--epochs",
-                            str(PRODUCT_EPOCHS)])
-            cli_train.main([*small_args, "--run_name", "resumed", "--epochs", "2"])
-            cli_train.main([*small_args, "--run_name", "resumed", "--epochs",
-                            str(PRODUCT_EPOCHS), "--resume"])
-            with open(os.path.join(out, "resumed", "val_metrics.json")) as f:
-                assert [r["epoch"] for r in json.load(f)] == [0, 2]
-            pa, pb = (load_checkpoint(os.path.join(out, r)) for r in ("straight", "resumed"))
-            a, b = dict(checkpoint_tensors(pa)), dict(checkpoint_tensors(pb))
-            differ = [k for k in a if not torch.equal(a[k], b[k])]
-            counts_of = lambda p: (p["step"], p["g_opt"]["count"], p["d_opt"]["count"])  # noqa: E731
-            if counts_of(pa) != counts_of(pb):
-                differ.append(f"step and counts {counts_of(pa)} vs {counts_of(pb)}")
-            print(f"    resume ({RESUME_CASES} cases): 2 epochs, then --resume to "
-                  f"{PRODUCT_EPOCHS}, against {PRODUCT_EPOCHS} straight: {len(a)} tensors of "
-                  f"the final checkpoints (params, optimizer moments and counts, EMA, step, "
-                  f"generators), {len(differ)} differ {differ[:4]}; seconds per part "
-                  f"{json.dumps(timer.seconds)}", flush=True)
-            assert a.keys() == b.keys() and not differ, differ
-        finally:
-            timer.restore()
+        # resume: B stops after epoch 2 and resumes to PRODUCT_EPOCHS with
+        # --resume; A runs straight through. Both validate every epoch, so
+        # they validate at different epochs (A after 0, 1, 2; B after 0,
+        # then 2)
+        timer.seconds.clear()
+        small_args = [*PRODUCT_FLAGS, "--data_dir", small, "--output_path", out]
+        cli_train.main([*small_args, "--run_name", "straight", "--epochs",
+                        str(PRODUCT_EPOCHS)])
+        cli_train.main([*small_args, "--run_name", "resumed", "--epochs", "2"])
+        cli_train.main([*small_args, "--run_name", "resumed", "--epochs",
+                        str(PRODUCT_EPOCHS), "--resume"])
+        with open(os.path.join(out, "resumed", "val_metrics.json")) as f:
+            assert [r["epoch"] for r in json.load(f)] == [0, 2]
+        pa, pb = (load_checkpoint(os.path.join(out, r)) for r in ("straight", "resumed"))
+        a, b = dict(checkpoint_tensors(pa)), dict(checkpoint_tensors(pb))
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        counts_of = lambda p: (p["step"], p["g_opt"]["count"], p["d_opt"]["count"])  # noqa: E731
+        if counts_of(pa) != counts_of(pb):
+            differ.append(f"step and counts {counts_of(pa)} vs {counts_of(pb)}")
+        print(f"    resume ({RESUME_CASES} cases): 2 epochs, then --resume to "
+              f"{PRODUCT_EPOCHS}, against {PRODUCT_EPOCHS} straight: {len(a)} tensors of "
+              f"the final checkpoints (params, optimizer moments and counts, EMA, step, "
+              f"generators), {len(differ)} differ {differ[:4]}; seconds per part "
+              f"{json.dumps(timer.seconds)}", flush=True)
+        assert a.keys() == b.keys() and not differ, differ
+    finally:
+        timer.restore()
+    return counts, small
+
+
+# phase 11, the paper's other variants (the ablation of the reference's
+# model files) at the published widths, in this order; the label oracle's
+# tables are sized by structured_dataset's classes and sites, as cli.train
+# sizes them from the data
+VARIANTS = ("concat_text", "concat_image", "attention", "img_transformer", "film",
+            "cross_attention", "benchmark")
+LABEL_VOCAB = dict(n_disease_types=8, n_primary_sites=4)
+# the cases of (c)'s bank: 32 graphed steps an epoch
+VARIANT_BANK_CASES = 256
+# (e): cli.train for these variants on phase 10's RESUME_CASES layout
+VARIANT_CLI = ("cross_attention", "film")
+VARIANT_CLI_EPOCHS = 2
+
+
+def variant_data(n: int, seed: int, num_patches: int = NUM_PATCHES) -> dict:
+    """structured_dataset at the published widths with every conditioning
+    key: the text CLS vector (`text_emb`) is each case's first token, the
+    token mask ragged (16..NUM_TOKENS valid, the CLS token always, padded
+    tokens zero), so token cross-attention's second attention runs on
+    ragged keys."""
+    from gemm_gan_tpu_torch.data.synthetic import structured_dataset
+
+    d = structured_dataset(n=n, n_genes=PRODUCT_GENES, num_patches=num_patches, seed=seed,
+                           n_classes=LABEL_VOCAB["n_disease_types"],
+                           n_sites=LABEL_VOCAB["n_primary_sites"])
+    lens = np.random.RandomState(seed).randint(16, NUM_TOKENS + 1, n)
+    d["token_mask"] = np.arange(NUM_TOKENS)[None, :] < lens[:, None]
+    d["tokens"] *= d["token_mask"][..., None]
+    d["text_emb"] = d["tokens"][:, 0].copy()
+    d["disease"], d["site"] = d["disease"].astype(np.int32), d["site"].astype(np.int32)
+    return d
+
+
+def variant_serving(fa, cfg, params, batches, label) -> dict:
+    """11 (a): `sample_all` (REPEATS repeats) of the variant's generator on
+    the card; its launches are Q1 once per kernel attention of the fusion
+    (`kernel_attentions`) and batch, no other kernel; one batch card vs CPU
+    within E2E_RTOL / E2E_ATOL, as phase 3. Returns the launches."""
+    import torch
+
+    from gemm_gan_tpu_torch.serving import GeneratorServer
+
+    server = GeneratorServer.from_flax(cfg, params)
+    server.sample_all(batches[:1], 1, torch.Generator().manual_seed(1))  # warm-up
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = server.sample_all(batches, REPEATS, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fa.launch_counts()
+    n = BATCH * len(batches) * REPEATS
+    assert out["fake"].shape == (n, cfg.n_genes) and np.isfinite(out["fake"]).all()
+    per_batch = kernel_attentions(cfg)
+    assert launches == {**dict.fromkeys(KERNELS, 0), **{
+        f"flash_fwd_{route}": k * len(batches) for route, k in per_batch.items()}}, launches
+    z = torch.randn(BATCH, cfg.latent_dim, generator=torch.Generator().manual_seed(3))
+    on_card = server(z, batches[0]).cpu()
+    on_cpu = GeneratorServer.from_flax(cfg, params, device="cpu")(z, batches[0])
+    err = float((on_card - on_cpu).abs().max())
+    print(f"    ({label}) serving: {n / seconds:.1f} profiles/s ({seconds * 1e3:.1f} ms for {n}) "
+          f"on {card_line()}; launches {launches}; one batch card vs CPU max|err|={err:.3e} "
+          f"(max|out|={float(on_cpu.abs().max()):.3f}; rtol {E2E_RTOL}, atol {E2E_ATOL})",
+          flush=True)
+    torch.testing.assert_close(on_card, on_cpu, rtol=E2E_RTOL, atol=E2E_ATOL)
+    return launches
+
+
+def variant_step(fa, exp, params, d_params, batch, label) -> dict:
+    """11 (b): one dropout-free f32 step on the card against the same step
+    on the CPU: metrics within STEP_RTOL / STEP_ATOL and every param within
+    RMSprop's bound, as phase 5, and its launches by `step_launches`.
+    Printed beside it, not held: phase 5's count of params beyond
+    PARAM_ATOL, the kernels' and the plain versions' on the card
+    (`plain_kernels`), and the distances of their first gradients from the
+    CPU's (phase 9 (b)'s fusion gradients). Over n_critic RMSprop updates
+    f32 rounding turns into +-10 lr moves chaotically, so two right steps
+    can miss PARAM_ATOL on a few hundred entries or on a hundred thousand;
+    and an f32 ReLU whose input is within rounding of 0 flips one way or
+    the other, moving the first gradients in a jump (PERF.md gives both).
+    A variant with no kernel attention runs the same ops either way.
+    Returns the launches."""
+    import torch
+
+    cfg0 = train_cfg(exp, dropout=0.0)
+    args = (params, d_params, batch, random_draws(cfg0, seed=31))
+    cot = fusion_cotangents(cfg0, *args)
+
+    def grads(device):
+        return fusion_grads(cfg0, device, params, d_params, batch, cot)
+
+    on_cpu = run_step(cfg0, "cpu", *args)
+    cpu_grads = grads("cpu")
+    with plain_kernels(fa):
+        plain = step_diff(run_step(cfg0, "cuda", *args), on_cpu, max_loose={})
+        plain_grads = grad_distances(grads("cuda"), cpu_grads)
+    fa.reset_launch_counts()
+    got = run_step(cfg0, "cuda", *args)
+    torch.cuda.synchronize()
+    launches = fa.launch_counts()
+    n_fwd, n_bwd = step_launches(cfg0)
+    assert launches == {**dict.fromkeys(KERNELS, 0),
+                        **({"flash_fwd_ble": n_fwd, "flash_bwd_ble": n_bwd} if n_fwd else {})}, \
+        launches
+    cmp = step_diff(got, on_cpu, max_loose={})
+    print(f"    ({label}) one f32 step at dropout 0, card vs CPU: {json.dumps(cmp)} (metrics "
+          f"rtol {STEP_RTOL}, atol {STEP_ATOL}); the plain versions' step on the card vs CPU: "
+          f"params beyond atol {PARAM_ATOL} {plain['beyond_atol_by_net']}; the fusions' first "
+          f"gradients' distances from the CPU's (not held): kernels "
+          f"{json.dumps(grad_distances(grads('cuda'), cpu_grads))}, plain versions "
+          f"{json.dumps(plain_grads)}; launches {launches}", flush=True)
+    return launches
+
+
+def variant_epochs(fa, tcfg, params, d_params, arrays, label) -> dict:
+    """11 (c): the graphed epoch of the variant (dropout 0.1), from a
+    `DeviceCache` of `arrays` (what the variant reads, on the card; bf16
+    store, NUM_PATCHES a step): a SMALL_CASES epoch through
+    `step_many_cached` against the same steps run eagerly (bitwise equality
+    printed, `step_diff` gated) and its replays' device time
+    (`replay_busy`); then two epochs of the whole bank, the second of
+    replays only, timed: launches equal the replays (and the warm-up step)
+    times `step_launches`, and one replay records exactly that. Returns the
+    second epoch's launches."""
+    import torch
+
+    from gemm_gan_tpu_torch.data.device_cache import DeviceCache
+    from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
+
+    cache_kw = dict(batch_size=BATCH, num_patches=NUM_PATCHES, seed=0,
+                    embedding_store_dtype=torch.bfloat16)
+    bank = DeviceCache(arrays, **cache_kw)
+    small = DeviceCache({k: v[:SMALL_CASES] for k, v in arrays.items()}, **cache_kw)
+
+    def fresh(cache):
+        engine = WGANGPEngine(tcfg, steps_per_epoch=cache.n_full_batches)
+        return engine, engine.state_from_flax(params, d_params, seed=0)
+
+    runs = {}
+    for path in ("step_many_cached", "eager"):
+        engine, state = fresh(small)
+        torch.manual_seed(0)  # dropout
+        if path == "eager":
+            for b in small.epoch(0):
+                state, m = engine.step(state, b)
+        else:
+            state, m = engine.step_many_cached(state, small, 0)
+        torch.cuda.synchronize()
+        runs[path] = (engine, state, floats(m))
+    same = identical(runs["step_many_cached"][1:], runs["eager"][1:])
+    cmp = step_diff(runs["step_many_cached"][1:], runs["eager"][1:])
+    busy = replay_busy(*runs["step_many_cached"][:2], small, 1)
+    del runs
+    n_fwd, n_bwd = step_launches(tcfg)
+    per_step = {"flash_fwd_ble": n_fwd, "flash_bwd_ble": n_bwd} if n_fwd else {}
+    engine, state = fresh(bank)
+    K = bank.n_full_batches
+    epoch_s = []
+    for e in (0, 1):
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = engine.step_many_cached(state, bank, e)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        launches = fa.launch_counts()
+        assert launches == {**dict.fromkeys(KERNELS, 0),
+                            **{k: n * K for k, n in per_step.items()}}, launches
+        metrics = floats(metrics)
+        assert all(np.isfinite(v) for v in metrics.values()), metrics
+    recorded = engine._cached_graphs[bank].recorded
+    assert recorded == per_step, recorded
+    busy_line = ("not measured (the profiler saw no device time)" if busy is None else
+                 f"{busy['device_ms']:.2f} ms of device time per step ({busy['readings']} "
+                 f"readings, {busy['device_events']:.0f} device events) / {busy['host_ms']:.2f} "
+                 f"ms = busy {busy['device_ms'] / busy['host_ms']:.3f}; top kernels per step "
+                 f"(name, calls, ms): {json.dumps(busy['top'])}")
+    print(f"    ({label}) graphed epoch: {SMALL_CASES // BATCH} steps through step_many_cached "
+          f"vs eager: bitwise equal {same}; {json.dumps(cmp)}; {K}-step epochs: epoch 0 (eager "
+          f"warm-up step, capture, {K - 1} replays) {epoch_s[0]:.3f} s, epoch 1 ({K} replays) "
+          f"{epoch_s[1]:.3f} s = {K / epoch_s[1]:.2f} steps/s ({epoch_s[1] * 1e3 / K:.2f} ms "
+          f"per step, host clock) on {card_line()}; one replay launches {recorded}; replayed "
+          f"steps: {busy_line}; last metrics {json.dumps(metrics)}", flush=True)
+    del engine, state, bank, small
+    return launches
+
+
+def variant_bench(fa, exp, params, d_params, batches, ws_batch, label) -> dict:
+    """11 (d), token cross-attention in the bench configuration: canonical
+    serving (`bf16_serving`) and one step through phase 9 (b)'s gates
+    (`bf16_step`) in bf16 and under mxu_bf16; then at WHOLE_SLIDE_PATCHES in
+    bf16 one serving batch against `use_pallas=False` on the card
+    (`whole_slide_bf16_serving`) and one step through `relative_step_gate`,
+    its launches (Q3 / Q4 / Q5 for the patch sequence and the text queries
+    over it, Q1 / Q2 for the text queries over the tokens) asserted.
+    Returns {path: launches}."""
+    import torch
+
+    launches = {}
+    exp16 = dataclasses.replace(exp, model=dataclasses.replace(exp.model,
+                                                               compute_dtype="bfloat16"))
+    for mode, e in (("bf16", exp16), ("mxu", train_cfg(exp16, flash_mxu_bf16=True))):
+        launches[f"{label}_{mode}_serving"] = bf16_serving(
+            fa, e.model, params, batches, f"{label}, {mode}", f"flash_fwd_ble_{mode}")
+        launches[f"{label}_{mode}_step"] = bf16_step(fa, e, params, d_params, batches[0],
+                                                     f"{label}, {mode}")
+    launches[f"{label}_whole_slide_bf16_serving"] = whole_slide_bf16_serving(
+        fa, exp16.model, params, ws_batch, f"{label}, whole slide")
+    cfg_of = lambda **kw: train_cfg(exp16, dropout=0.0, **kw)  # noqa: E731
+    fa.reset_launch_counts()
+    cmp, plain, limits = relative_step_gate(
+        fa, cfg_of, ("cuda", params, d_params, ws_batch, random_draws(cfg_of(), seed=33)),
+        bf16=True)
+    torch.cuda.synchronize()
+    got = fa.launch_counts()  # the kernel step's: the other two launch nothing
+    want = dict.fromkeys(KERNELS, 0)
+    for route, n in kernel_attentions(exp16, patches=WHOLE_SLIDE_PATCHES).items():
+        n_fwd, n_bwd = step_launches(cfg_of(), n)
+        want[f"flash_fwd_{route}_bf16"] = n_fwd
+        for bwd in (("flash_bwd_dq", "flash_bwd_dkv") if route == "bhld" else ("flash_bwd_ble",)):
+            want[f"{bwd}_bf16"] = n_bwd
+    assert got == want, (got, want)
+    launches[f"{label}_whole_slide_bf16_step"] = got
+    print(f"    ({label}) whole-slide bf16 step at dropout 0, kernels vs use_pallas=False, both "
+          f"on the card: {json.dumps(cmp)}; the plain versions vs the same: {json.dumps(plain)} "
+          f"(limits {json.dumps(limits)}); launches {got}", flush=True)
+    return launches
+
+
+def variant_cli(fa, variant, layout, out, card) -> dict:
+    """11 (e): `cli.train` with phase 10's flags for `variant`,
+    VARIANT_CLI_EPOCHS epochs on `layout` (phase 10's RESUME_CASES cases),
+    one test run. Gates: finite logged, validation and test metrics,
+    `best.json` and its checkpoint, and Q1 / Q2 launches over `fit` as
+    `product_launches` counts them. Returns the launches."""
+    from gemm_gan_tpu_torch.cli import train as cli_train
+    from gemm_gan_tpu_torch.config import load_config
+    from gemm_gan_tpu_torch.train import checkpoint
+
+    flags = list(PRODUCT_FLAGS)
+    flags[flags.index("--variant") + 1] = variant
+    t0 = time.perf_counter()
+    fa.reset_launch_counts()
+    results = cli_train.main([*flags, "--data_dir", layout, "--output_path", out,
+                              "--epochs", str(VARIANT_CLI_EPOCHS), "--run_name", variant])
+    seconds = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    run = os.path.join(out, variant)
+    cfg = load_config(os.path.join(run, "config.json"))
+    want = product_launches(cfg, RESUME_CASES)
+    assert counts == {**dict.fromkeys(KERNELS, 0), "flash_fwd_ble": want["flash_fwd_ble"],
+                      "flash_bwd_ble": want["flash_bwd_ble"]}, (counts, want)
+    with open(os.path.join(run, f"{variant}_metrics.jsonl")) as f:
+        logged = [json.loads(r) for r in f]
+    with open(os.path.join(run, "val_metrics.json")) as f:
+        val = json.load(f)
+    with open(os.path.join(run, "best.json")) as f:
+        best = json.load(f)
+    assert all_finite(logged) and all_finite(val) and all_finite(results), "non-finite"
+    assert os.path.exists(os.path.join(run, "ckpt_best", str(best["step"]),
+                                       checkpoint.STATE_FILE)), best
+    print(f"    (e) cli.train --variant {variant}, {VARIANT_CLI_EPOCHS} epochs on "
+          f"{RESUME_CASES} cases: {seconds:.1f} s on {card}; launches {counts} = "
+          f"{want['steps']} graphed steps x step_launches {step_launches(cfg)} + "
+          f"{want['gen_batches']} generation batches x {want['per_batch']}; best.json "
+          f"{json.dumps(best)}; gamma {results['gamma_mean']:.4f}; test block (run 0) "
+          f"detection {json.dumps(results['runs'][0]['detection'])}", flush=True)
     return counts
+
+
+def variants_phase(fa, card, ws_batch, layout, out) -> dict:
+    """Phase 11: every variant of VARIANTS at the published widths (random
+    Flax-layout weights from seeded numpy trees, carried over by
+    `convert.py`): (a) serving, (b) one f32 step against the CPU, (c) the
+    graphed epoch; (d) token cross-attention in the bench configuration;
+    (e) `cli.train` for VARIANT_CLI on `layout`. Returns {path: launches}."""
+    import torch
+
+    from gemm_gan_tpu_torch.config import variant_config
+    from gemm_gan_tpu_torch.serving import cond_keys_for
+
+    t_phase = time.perf_counter()
+    print(f"[11] the variants at the published widths: {', '.join(VARIANTS)}", flush=True)
+    data = variant_data(BATCH * N_BATCHES, seed=40)
+    # (c)'s bank, made on the card: phase 8's ragged patch slots and tokens,
+    # the text CLS vector (the first token) and the labels
+    bank = bank_data(variant_config("film_cross_attention").model, VARIANT_BANK_CASES, seed=41)
+    g = torch.Generator(device="cuda").manual_seed(42)
+    bank["text_emb"] = bank["tokens"][:, 0].clone()
+    for key, n in (("disease", "n_disease_types"), ("site", "n_primary_sites")):
+        bank[key] = torch.randint(0, LABEL_VOCAB[n], (VARIANT_BANK_CASES,), generator=g,
+                                  device="cuda", dtype=torch.int32)
+    launches, seconds = {}, {}
+    for i, variant in enumerate(VARIANTS):
+        t0 = time.perf_counter()
+        exp = variant_config(variant, fusion_kw=LABEL_VOCAB)
+        cfg = exp.model
+        params = flax_param_tree(cfg, seed=50 + 2 * i)
+        d_params = flax_param_tree(cfg, seed=51 + 2 * i, critic=True)
+        keys = cond_keys_for(cfg.fusion)
+        batches = [{k: data[k][j * BATCH:(j + 1) * BATCH] for k in (*keys, "genes")}
+                   for j in range(N_BATCHES)]
+        print(f"  {variant} (fusion {cfg.fusion.kind}, reads {list(keys)}; kernel attentions "
+              f"per fusion forward {kernel_attentions(cfg)})", flush=True)
+        launches[f"{variant}_serving"] = variant_serving(fa, cfg, params, batches,
+                                                         f"{variant}, a")
+        launches[f"{variant}_step"] = variant_step(fa, exp, params, d_params, batches[0],
+                                                   f"{variant}, b")
+        launches[f"{variant}_epoch"] = variant_epochs(
+            fa, train_cfg(exp), params, d_params, {k: bank[k] for k in ("genes", *keys)},
+            f"{variant}, c")
+        if variant == "cross_attention":
+            launches.update(variant_bench(fa, exp, params, d_params, batches,
+                                          {k: ws_batch[k] for k in (*keys, "genes")},
+                                          f"{variant}, d"))
+        torch.cuda.empty_cache()
+        seconds[variant] = round(time.perf_counter() - t0, 1)
+    del bank
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for variant in VARIANT_CLI:
+        launches[f"{variant}_cli"] = variant_cli(fa, variant, layout, out, card)
+    seconds["cli.train"] = round(time.perf_counter() - t0, 1)
+    print(f"    phase 11 took {time.perf_counter() - t_phase:.1f} s on {card}: seconds per "
+          f"variant (a)-(d) {json.dumps(seconds)}", flush=True)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1892,7 +2598,8 @@ def main(argv=None) -> int:
              ("ble", 2, 2, 136, 260, 8), ("ble", 2, 2, 136, 260, 128),
              ("bhld", 8, 4, 4097, 4097, 64), ("bhld", 2, 2, 130, 260, 64),
              ("bhld", 2, 2, 136, 600, 64), ("bhld", 2, 2, 136, 600, 8),
-             ("bhld", 2, 2, 136, 600, 128)]
+             ("bhld", 2, 2, 136, 600, 128),
+             ("ble", *XATTN_TOKENS_SHAPE), ("bhld", *XATTN_WHOLE_SLIDE_SHAPE)]
     for i, case in enumerate(cases):
         name = "flash_fwd_" + case[0]
         errs[name] = max(errs[name], check_kernel(fa, *case, True, seed=i)[0])
@@ -1906,6 +2613,9 @@ def main(argv=None) -> int:
     bwd_cases += [(name, ("bhld", 2, 2, 136, 600, D))
                   for name in ("flash_bwd_dq", "flash_bwd_dkv") for D in (8, 64, 128)]
     bwd_cases += [("flash_bwd_ble", ("ble", 2, 2, 136, 260, D)) for D in (8, 128)]
+    bwd_cases += [("flash_bwd_ble", ("ble", *XATTN_TOKENS_SHAPE))]
+    bwd_cases += [(name, ("bhld", *XATTN_WHOLE_SLIDE_SHAPE))
+                  for name in ("flash_bwd_dq", "flash_bwd_dkv")]
     for i, (name, case) in enumerate(bwd_cases):
         errs[name] = max(errs[name], check_bwd_kernel(fa, name, *case, True, seed=20 + i)[0])
     # the main paths' shapes with all-valid masks (structured data): checked and timed
@@ -2360,10 +3070,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 10. the product path: cli.train fit, evaluate best and last, resume
-    launches["product_fit"] = product_path(fa, card)
+    # ---- 11. the variants; (e) trains on phase 10's layout
+    with tempfile.TemporaryDirectory() as root:
+        launches["product_fit"], layout = product_path(fa, card, root)
+        torch.cuda.empty_cache()
+        launches.update(variants_phase(fa, card, ws_batch, layout, os.path.join(root, "runs")))
     torch.cuda.empty_cache()
 
-    # ---- 11. report
+    # ---- 12. report
     paths = {"flash_fwd_ble": "serving", "flash_fwd_bhld": "whole_slide_serving",
              "flash_bwd_ble": "training", "flash_bwd_dq": "whole_slide_training",
              "flash_bwd_dkv": "whole_slide_training",
@@ -2378,6 +3092,9 @@ def main(argv=None) -> int:
              "flash_bwd_dq_mxu": "mxu_whole_slide_epoch_loop",
              "flash_bwd_dkv_mxu": "mxu_whole_slide_epoch_loop",
              "flash_bwd_bhld_fused_mxu": "mxu_bhld_training"}
+    print(f"[12] torch.profiler over the run: at most {PROFILER_READINGS['most_sentinels_lost']} "
+          f"sentinel records lost at a window's start; lead-in now "
+          f"{PROFILER_LEAD_IN['n']} sentinels", flush=True)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -12,8 +12,10 @@ arrays.
 Mapping (Flax path -> torch key), applied to any subtree:
   Dense `kernel` [in, out]            -> Linear `weight` [out, in]
   LayerNorm `scale`                   -> `weight`
+  Embed `embedding` [n, d]            -> Embedding `weight` [n, d] (not transposed)
   `bias`, `cls_token`                 -> kept
   _PatchTransformer_0                 -> patch_transformer
+  _PatchTransformer_0/LayerNorm_0     -> patch_transformer.encode_norm
   TransformerEncoderLayer_{i}         -> layers.{i}
   MaskedMultiHeadAttention_0          -> self_attn
   (in a layer) LayerNorm_0/1, Dense_0/1 -> norm1/2, linear1/2
@@ -33,6 +35,7 @@ _LAYER = r"TransformerEncoderLayer_(\d+)/"
 
 # (flax regex, torch replacement), applied in order to "/"-joined paths
 _TO_TORCH = [
+    (r"(^|/)_PatchTransformer_0/LayerNorm_0/", r"\1_PatchTransformer_0/encode_norm/"),
     (r"(^|/)_PatchTransformer_0/", r"\1patch_transformer/"),
     (_LAYER + r"MaskedMultiHeadAttention_0/", r"layers/\1/self_attn/"),
     (_LAYER + r"LayerNorm_0/", r"layers/\1/norm1/"),
@@ -44,6 +47,7 @@ _TO_TORCH = [
 ]
 _LAYERS = r"layers/(\d+)/"
 _TO_FLAX = [
+    (r"(^|/)patch_transformer/encode_norm/", r"\1patch_transformer/LayerNorm_0/"),
     (r"(^|/)patch_transformer/", r"\1_PatchTransformer_0/"),
     (_LAYERS + r"self_attn/", r"TransformerEncoderLayer_\1/MaskedMultiHeadAttention_0/"),
     (_LAYERS + r"norm1/", r"TransformerEncoderLayer_\1/LayerNorm_0/"),
@@ -53,6 +57,8 @@ _TO_FLAX = [
     (r"(^|/)blocks/(\d+)/linear/", r"\1LinearBlock_\2/Dense_0/"),
     (r"(^|/)head/", r"\1Dense_0/"),
 ]
+# the modules whose 2-D `weight` is an embedding table, not a Linear's
+_EMBEDDINGS = ("disease_embed", "site_embed")
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -92,7 +98,7 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         *parents, leaf = path.split("/")
         if leaf == "kernel":
             leaf, val = "weight", val.T
-        elif leaf == "scale":
+        elif leaf in ("scale", "embedding"):
             leaf = "weight"
         sd[".".join([*parents, leaf])] = torch.tensor(np.asarray(val),
                                                       dtype=torch.float32)
@@ -106,7 +112,9 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     for key, val in state_dict.items():
         *parents, leaf = key.split(".")
         arr = val.detach().cpu().numpy()
-        if leaf == "weight":
+        if leaf == "weight" and parents and parents[-1] in _EMBEDDINGS:
+            leaf = "embedding"
+        elif leaf == "weight":
             leaf, arr = ("kernel", arr.T) if arr.ndim == 2 else ("scale", arr)
         path = _rewrite("/".join([*parents, leaf]), _TO_FLAX)
         flat[path] = np.ascontiguousarray(arr)

@@ -306,14 +306,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args<Elem<kMo
 
 // whether an instantiation runs the wgmma tile of flash_fwd_wg.cuh: the
 // bf16-ref modes (kBf16, kMxuBf16) of either layout at the head dims it
-// takes, but the ble layout's bf16 mode (flash_fwd_ble_bf16). On the wgmma
-// tile that mode ran 1.46x faster and within one bf16 ulp of its plain
-// version, but the bf16 training step it feeds landed outside chip_smoke's
-// phase 9 (b) metric gate, which the kernels' own plain versions miss too
-// (PERF.md): it stays on the mma.sync tile until that gate is redesigned.
+// takes
 template <int D, bool kBle, int kMode>
 constexpr bool kWg = (kMode == flash_ops::kBf16 || kMode == flash_ops::kMxuBf16) &&
-                     !(kBle && kMode == flash_ops::kBf16) && flash_fwd_wg::kTakes<D>;
+                     flash_fwd_wg::kTakes<D>;
 
 // the wgmma tile's buffers: the classic layout's (whole-slide) 2, the ble
 // layout's (L 257, mxu_bf16) 3, as measured (PERF.md)

@@ -10,14 +10,15 @@ differentiates only the critic's trunk twice (`train/wgan.py`).
 Initialisation follows Flax's distributions (the bits cannot match):
 lecun-normal kernels (truncated normal, std sqrt(1/fan_in) corrected for
 the truncation at two standard deviations), zero biases, unit LayerNorm
-scales, and a truncated-normal(0.02) CLS token.
+scales, a truncated-normal(0.02) CLS token, and embedding tables from
+`default_embed_init` (an untruncated normal, std sqrt(1/features)).
 
 Params stay f32. `compute_dtype="bfloat16"` runs the fusion and the
 trunks' hidden Linears in bf16 (the trunks' heads, LayerNorms and the
 condition vector `embed_cond` returns stay f32), as the JAX modules with
 `dtype=jnp.bfloat16`; `fusion.flash_mxu_bf16` rounds the flash kernels'
-product operands to bf16. `fusion.sequence_parallel=True` and fusion kinds
-other than `film_xattn` / `none` raise `NotImplementedError`.
+product operands to bf16. Every fusion kind of the JAX package is served;
+`fusion.sequence_parallel=True` raises `NotImplementedError`.
 Modules are built in train mode (dropout active), as `nn.Module`s are;
 `GeneratorServer` switches its generator to eval mode.
 """
@@ -59,6 +60,8 @@ def init_flax_like_(module: nn.Module, generator: Optional[torch.Generator] = No
             elif isinstance(m, nn.LayerNorm):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.Embedding):
+                nn.init.normal_(m.weight, std=m.embedding_dim ** -0.5, generator=generator)
         for name, p in module.named_parameters():
             if name.endswith("cls_token"):
                 nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=generator)

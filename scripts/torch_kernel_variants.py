@@ -223,17 +223,15 @@ DQ_OPTIONS = {"keys128": {"flash_bwd_wg.cuh": [DQ_KEYS128], "flash_bwd_dq.cuh": 
               "stages2": {"flash_bwd_dq.cuh": [DQ_STAGES2]},
               "sub32": {"flash_bwd_dq.cuh": [DQ_SUB32]},
               "stages2_blocks4": {"flash_bwd_dq.cuh": [DQ_STAGES2, DQ_BLOCKS4]}}
-# Q1 on the forward wgmma tile (shipped: mxu_bf16 with 128-key steps and a
-# ring of 3, flash_fwd.cuh's kWgStages; bf16 on the mma.sync tile),
-# {file: substitutions}: the bf16 mode routed onto the wgmma tile, with
-# 128- or 64-key steps; mxu_bf16 with 64-key steps or a ring of 2
-BLE_BF16_WG = ("!(kBle && kMode == flash_ops::kBf16) && ", "")
+# Q1 on the forward wgmma tile (shipped: both bf16-ref modes with 128-key
+# steps and a ring of 3, flash_fwd.cuh's kWgStages; the mma.sync tile is
+# `fwd_ble_{mode}_mma_sync`), {file: substitutions}: 64-key steps or a
+# ring of 2
 FWD_KEYS64_FILE = {"flash_fwd_wg.cuh": [FWD_KEYS64]}
-BLE_OPTIONS = {"bf16": {"wgmma": {"flash_fwd.cuh": [BLE_BF16_WG]},
-                        "wgmma_keys64": {"flash_fwd.cuh": [BLE_BF16_WG], **FWD_KEYS64_FILE}},
-               "mxu": {"keys64": FWD_KEYS64_FILE,
-                       "stages2": {"flash_fwd.cuh": [("constexpr int kWgStages = kBle ? 3 :",
-                                                      "constexpr int kWgStages = kBle ? 2 :")]}}}
+BLE_STAGES2 = {"flash_fwd.cuh": [("constexpr int kWgStages = kBle ? 3 :",
+                                  "constexpr int kWgStages = kBle ? 2 :")]}
+BLE_OPTIONS = {mode: {"keys64": FWD_KEYS64_FILE, "stages2": BLE_STAGES2}
+               for mode in ("bf16", "mxu")}
 # Ablations of the forward tile, timing only (as ABLATIONS): exp: P = S - m
 # without the exp; rs: no P.V products; prefetch: no step staged ahead;
 # pass1 (mxu_bf16): no first pass over a key block (P rounded per step)

@@ -185,3 +185,86 @@ def test_variant_substitutions_find_their_targets():
         assert os.path.isfile(os.path.join(tkv.CSRC, source)), name
         for fname, file_subs in subs.items():  # raises on a target not found
             tkv.substitute((Path(tkv.CSRC) / fname).read_text(), file_subs)
+
+
+def _gate_model():
+    """The flagship in the bench configuration at tiny widths, dropout 0,
+    130 patches (Q1's bf16 plain version runs), phase 9's step setting."""
+    import dataclasses
+
+    from gemm_gan_tpu_torch.config import variant_config
+
+    exp = variant_config("film_cross_attention", n_genes=24, fusion_kw=dict(
+        cond_dim=16, text_dim=12, patch_dim=16, ff_dim=32, num_heads=2, num_layers=1))
+    exp = dataclasses.replace(exp, model=dataclasses.replace(
+        exp.model, gen_dims=(32, 32), disc_dims=(32, 32), latent_dim=16,
+        compute_dtype="bfloat16"))
+    return chip_smoke.train_cfg(exp, dropout=0.0)
+
+
+def test_bf16_gradient_gate_accepts_plain_versions_and_rejects_both_controls():
+    """Phase 9 (b)'s gradient gate, run on the CPU: the kernels' plain
+    versions (what a wrapper runs on the CPU) land exactly on the CPU's
+    gradients and pass; Q1 wrong by its output scaled by 1 + 2^-5, or by
+    its last valid key of every row masked out, is rejected (the gate
+    raises unless both are): both controls move both nets' fusion
+    gradients."""
+    from gemm_gan_tpu_torch.data.synthetic import synthetic_dataset
+
+    cfg = _gate_model()
+    d = synthetic_dataset(n=chip_smoke.BATCH, n_genes=24, num_patches=130, patch_dim=16,
+                          num_tokens=6, text_dim=12, seed=1)
+    batch = {k: d[k] for k in ("genes", "tokens", "token_mask", "patches", "patch_mask")}
+    args = (chip_smoke.flax_param_tree(cfg.model, seed=0),
+            chip_smoke.flax_param_tree(cfg.model, seed=1, critic=True), batch,
+            chip_smoke.random_draws(cfg, seed=9))
+    gate = chip_smoke.grad_gate(tfa, cfg, "cpu", args, "flash_fwd_ble_bf16")
+    assert gate["plain"] == {"D": 0.0, "G": 0.0}, gate
+    assert gate["kernels"]["D"] == gate["kernels"]["G"] == 0.0, gate
+    assert gate["kernels"]["largest ratio to its limit"][0] == 0.0, gate
+    for how in ("scaled", "last_key_masked"):  # beyond the floor: every limit is the floor
+        assert gate[how]["largest ratio to its limit"][0] > 1, (how, gate)
+        assert min(gate[how]["D"], gate[how]["G"]) > 0, (how, gate)
+    assert gate["launches"] == {}  # CPU tensors launch nothing
+    assert tfa.flash_fwd_ble_bf16.__name__ == "flash_fwd_ble_bf16"  # the wrapper is back
+
+
+def test_drop_last_valid_key():
+    import torch
+
+    mask = torch.tensor([[True, True, False, False], [True, True, True, True],
+                         [False, False, False, False]])
+    assert chip_smoke.drop_last_valid_key(mask).tolist() == [
+        [True, False, False, False], [True, True, True, False], [False] * 4]
+
+
+def test_kernel_attentions_follow_masked_mha_routes():
+    """How many attentions of one fusion forward reach a kernel, by route,
+    at the canonical and the whole-slide patch counts (300 tokens)."""
+    from gemm_gan_tpu_torch.config import variant_config
+
+    want = {"film_cross_attention": ({"ble": 2}, {"bhld": 2}),
+            "cross_attention": ({"ble": 4}, {"bhld": 3, "ble": 1}),
+            "img_transformer": ({"ble": 2}, {"bhld": 2}), "film": ({"ble": 2}, {"bhld": 2}),
+            "attention": ({}, {}), "concat_image": ({}, {}), "benchmark": ({}, {}),
+            "vanilla": ({}, {})}
+    for variant, (canonical, whole_slide) in want.items():
+        cfg = variant_config(variant)
+        assert chip_smoke.kernel_attentions(cfg) == canonical, variant
+        assert chip_smoke.kernel_attentions(cfg, patches=4096) == whole_slide, variant
+    assert chip_smoke.step_launches(variant_config("cross_attention")) == (4 * 8, 4 * 6)
+
+
+A, B = {"gemm": 4, "copy": 1}, {"gemm": 4}  # B: a reading that lost a record
+
+
+@pytest.mark.parametrize("readings, settled", [
+    ([(True, A), (True, A)], 1),
+    ([(True, B), (True, A), (True, A)], 2),
+    ([(True, A), (False, B), (True, A)], 2),  # a reading that is not whole is passed over
+    ([(False, A), (False, A), (True, A)], None),  # two readings that are not whole never agree
+    ([(True, {}), (True, {})], None),  # a reading with no records settles nothing
+    ([(True, A), (True, B), (True, A), (True, B)], None),
+])
+def test_agreeing_reading(readings, settled):
+    assert chip_smoke.agreeing_reading(readings) == settled

@@ -181,6 +181,8 @@ def test_cond_dim_and_unported_kinds():
         assert tfusion.cond_dim_of(tc) == jfusion.cond_dim_of(jc)
         if kind == "none":
             assert tfusion.build_fusion(tc) is None
-        elif kind != "film_xattn":
-            with pytest.raises(NotImplementedError):
-                tfusion.build_fusion(tc)
+        else:  # every kind is ported: it builds, under its JAX class's name
+            built = tfusion.build_fusion(tc)
+            assert type(built).__name__ == jfusion._FUSIONS[kind].__name__
+    with pytest.raises(ValueError, match="unknown fusion kind"):
+        tfusion.build_fusion(tcfg.FusionConfig(kind="bogus"))

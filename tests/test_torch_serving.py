@@ -225,15 +225,17 @@ def test_init_follows_flax_distributions():
 
 
 def test_unsupported_settings_raise():
-    """What the port still does not serve raises; bf16 compute and
-    `flash_mxu_bf16` are served (tests/test_torch_bf16.py)."""
+    """What the port still does not serve raises; bf16 compute,
+    `flash_mxu_bf16` (tests/test_torch_bf16.py) and every fusion kind
+    (tests/test_torch_fusions.py) are served."""
     m = _port_cfg(_jax_cfg()).model
-    for bad in (dataclasses.replace(m, fusion=dataclasses.replace(m.fusion,
-                                                                  sequence_parallel=True)),
-                *(dataclasses.replace(m, fusion=dataclasses.replace(m.fusion, kind=kind))
-                  for kind in ("film", "concat", "xattn"))):
-        with pytest.raises(NotImplementedError):
-            Generator(bad, device="cpu")
+    with pytest.raises(NotImplementedError):
+        Generator(dataclasses.replace(m, fusion=dataclasses.replace(
+            m.fusion, sequence_parallel=True)), device="cpu")
+    for kind in ("film", "concat", "xattn"):
+        fusion = dataclasses.replace(m.fusion, kind=kind)
+        gen = Generator(dataclasses.replace(m, fusion=fusion), device="cpu")
+        assert gen.trunk.blocks[0].linear.in_features == m.latent_dim + fusion.cond_dim
     with pytest.raises(ValueError, match="compute_dtype"):
         Generator(dataclasses.replace(m, compute_dtype="float16"), device="cpu")
     for served in (dataclasses.replace(m, compute_dtype="bfloat16"),
