@@ -34,8 +34,11 @@ imports nothing of JAX or of the JAX package. Phases:
    inputs against the library's bf16 SDPA. Every mode of Q1 / Q2 is also
    held at token cross-attention's Lq 300 x Lk 300 with a ragged key mask,
    and of Q3 / Q4 / Q5 at its whole-slide Lq 300 x Lk 4,097
-   (XATTN_TOKENS_SHAPE, XATTN_WHOLE_SLIDE_SHAPE; Q5's mxu_bf16 mode there
-   with its ulp distance printed, not held: NOT_ULP_GATED).
+   (XATTN_TOKENS_SHAPE, XATTN_WHOLE_SLIDE_SHAPE; Q5's mxu_bf16 mode there,
+   where a rounded dS or P summed over only 300 queries can move an output
+   by more than one ulp, under the per-entry bound of `rounded_operand_bound`
+   instead (ROUNDED_OPERAND_GATED), with a negative control: its dk scaled
+   by 1 + 2^-5 must fail it).
 3. Serving, the main path: `GeneratorServer.sample_all` with the flagship
    `film_cross_attention` generator at canonical widths (random weights from
    a seeded numpy tree in Flax layout, carried over by `convert.py`),
@@ -180,7 +183,30 @@ imports nothing of JAX or of the JAX package. Phases:
    phase 10's 128-case layout (which carries the text-CLS table the
    multi_patch schema reads), one test run: finite metrics, `best.json`,
    launches as `product_launches` counts them.
-12. Prints the most sentinel records a profiler window lost, one
+12. The post-hoc evaluator, `python -m gemm_gan_tpu_torch.cli.evaluate`
+   (`main`), over phase 10's product run directory (`--epoch auto`: the
+   dumps of best.json's epoch, test 155 and train 491 cases x 18,868
+   genes; the utility suites on): every number finite, the exact 1- /
+   2-Wasserstein against scipy's assignment over a float64 cost built on
+   the host (OT_RTOL), the linear / polynomial MMD against numpy in float64
+   (POSTHOC_MMD_RTOL), DCR / NNDR equal `Experiment.posthoc_privacy`'s,
+   `PrivacyEvaluator` over the run finite, `--plots` without matplotlib
+   raising; the seconds of each part (utility, Γ, the cost matrix, OT,
+   MMD, privacy) and Sinkhorn's 2-Wasserstein beside the exact one.
+13. The VAE family (`vae`, `cvae`) at the published widths of
+   `variant_config` (18,868 genes, encoder and decoder (256, 256), latent
+   64; seeded random Flax-layout weights through `convert.py`): (a) one
+   step card vs CPU with the same eps (metrics within VAE_METRIC_RTOL, each
+   parameter's first gradient within VAE_GRAD_RTOL, rejecting the
+   decoder's output scaled by 1 + 2^-5); (b) a 4-step graphed epoch
+   (`VAEEngine.step_many`, one CUDA graph) bitwise equal to 4 eager steps,
+   graphed and eager steps/s, a replay's device time; (c) sampled
+   profiles/s; (d) `cli.train --variant vae` and `cvae`, 2 epochs on phase
+   10's 128-case layout: finite metrics, the dumps' files and shapes,
+   best.json, evaluate best, then `cli.evaluate` over each run dir; (e)
+   1 epoch, then `--resume` to 2: the final checkpoint bitwise equal to
+   (d)'s. No kernel launches over the phase.
+14. Prints the most sentinel records a profiler window lost, one
    `{"kernels": [...]}` JSON line (each kernel with its tile),
    the card's line, then the contract line `{"ok": true, "device": {...}}`
    last.
@@ -848,12 +874,11 @@ def output_labels(name: str) -> tuple:
     return BWD_OUTPUTS.get(name.split("_")[2], ("dq", "dk", "dv"))
 
 
-def check_bf16_kernel(fa, name, B, H, Lq, Lk, D, ragged, seed, dtype, ulp_gated=True):
+def check_bf16_kernel(fa, name, B, H, Lq, Lk, D, ragged, seed, dtype):
     """A bf16 mode against its plain version on one input, within
-    BF16_ULPS of each row's largest entry (lse within LSE_ATOL); returns
-    (max |err| over its outputs, args). With `ulp_gated` False the outputs'
-    distance in ulps is printed, not held (NOT_ULP_GATED); the other
-    checks (dtypes, lse, zeros where nothing is valid) hold either way."""
+    BF16_ULPS of each row's largest entry (lse within LSE_ATOL), or for a
+    (mode, shape) of ROUNDED_OPERAND_GATED within `rounded_operand_bound`;
+    returns (max |err| over its outputs, args)."""
     import torch
 
     layout = kernel_layout(name)
@@ -862,6 +887,8 @@ def check_bf16_kernel(fa, name, B, H, Lq, Lk, D, ragged, seed, dtype, ulp_gated=
     got, want = ((x,) if isinstance(x, torch.Tensor) else x for x in (got, want))
     torch.cuda.synchronize()
     labels = output_labels(name)
+    rounded = (name, (B, H, Lq, Lk, D)) in ROUNDED_OPERAND_GATED
+    bounds = rounded_operand_bound(args) if rounded else None
     err = 0.0
     for label, a, b in zip(labels, got, want, strict=True):
         assert a.dtype == b.dtype, (name, label, a.dtype, b.dtype)
@@ -869,12 +896,16 @@ def check_bf16_kernel(fa, name, B, H, Lq, Lk, D, ragged, seed, dtype, ulp_gated=
             torch.testing.assert_close(a, b, rtol=0, atol=LSE_ATOL)
         else:
             assert a.dtype == dtype, (name, label, a.dtype)
-            if ulp_gated:
-                assert_rows_within_ulps(a, b, H if layout == "ble" else 1, f"{name} {label}")
+            if rounded:
+                ratio = bound_ratio(a, b, bounds[label])
+                control = bound_ratio(a.float() * (1 + 2 ** -5), b, bounds[label])
+                print(f"    {name} {label}: |kernel - plain| at most {ratio:.4f} of "
+                      f"rounded_operand_bound; scaled by 1 + 2^-5 (the control) "
+                      f"{control:.4f}", flush=True)
+                assert ratio <= 1.0, (name, label, ratio)
+                assert control > 1.0, (name, label, "the control passed", control)
             else:
-                print(f"    {name} {label}: {ulp_excess(a, b, H if layout == 'ble' else 1):.3e} "
-                      f"beyond {BF16_ULPS} bf16 ulp of a row's largest entry (not held: "
-                      f"NOT_ULP_GATED)", flush=True)
+                assert_rows_within_ulps(a, b, H if layout == "ble" else 1, f"{name} {label}")
             err = max(err, float((a.float() - b.float()).abs().max()))
     if ragged:  # sample 0 has no valid key; dk = dv = 0 at masked keys
         mask = args[3]
@@ -886,10 +917,62 @@ def check_bf16_kernel(fa, name, B, H, Lq, Lk, D, ragged, seed, dtype, ulp_gated=
                 x = a if layout == "ble" else a.transpose(1, 2)
                 assert float(x[~mask].abs().max()) == 0.0, f"{name} {label}: masked keys not 0"
     print(f"  {name:26s} {str(dtype).split('.')[-1]:8s} B={B} H={H} Lq={Lq} Lk={Lk} D={D} "
-          f"{'ragged' if ragged else 'full  '} max|err|={err:.3e}"
-          + (f" (within {BF16_ULPS} bf16 ulp of each row's largest entry)" if ulp_gated else ""),
-          flush=True)
+          f"{'ragged' if ragged else 'full  '} max|err|={err:.3e} ("
+          + ("within rounded_operand_bound" if rounded else
+             f"within {BF16_ULPS} bf16 ulp of each row's largest entry") + ")", flush=True)
     return err, args
+
+
+def bf16_ulp(x):
+    """One bf16 ulp of each entry of `x` (f32): 2^(e - 8) for |x| in
+    [2^(e-1), 2^e), 0 where x is 0."""
+    import torch
+
+    _, e = torch.frexp(x.float())
+    return torch.where(x != 0, torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8),
+                       torch.zeros_like(x, dtype=torch.float32))
+
+
+def rounded_operand_bound(args) -> dict:
+    """Per-entry bounds of |kernel - plain| for `flash_bwd_dkv_mxu`'s dk and
+    dv on the classic layout's args (q, k, v, mask, dO, lse, delta).
+
+    Under mxu_bf16 both sides round the f32 dS (and P) to bf16 before
+    dK = dSᵀ·Q (dV = Pᵀ·dO), each from its own f32 value. The two f32
+    values differ by far less than a bf16 ulp, so their roundings agree or,
+    where they straddle a rounding boundary, differ by one ulp of dS_ij.
+    Summed over the queries i, the products then differ by at most
+    Σ_i ulp(dS_ij)·|q_id| (Σ_i ulp(P_ij)·|dO_id|); their f32 summation
+    orders differ by ≈Lq·2^-24 of Σ_i |dS_ij||q_id|, which that sum covers
+    many times (ulp(x) > 2^-8 |x|). Each side then rounds its output once
+    (bf16 refs): together one bf16 ulp of the row's largest entry, as
+    BF16_ULPS counts. dS and P are taken from the plain version's formula
+    on the operands as the mode rounds them; the entries where no key is
+    valid are 0 on both sides and bound 0."""
+    import torch
+
+    from gemm_gan_tpu_torch.kernels.flash_attention import _bwd_probs
+
+    q, k, v, mask, do, lse, delta = args
+    qf, kf, vf, dof = (x.to(torch.bfloat16).float() for x in (q, k, v, do))
+    p = _bwd_probs(qf, kf, mask[:, None, None, :], lse)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    return {"dk": bf16_ulp(ds).transpose(-1, -2) @ qf.abs(),
+            "dv": bf16_ulp(p).transpose(-1, -2) @ dof.abs()}
+
+
+def bound_ratio(got, want, bound) -> float:
+    """The largest |got - want| over its per-entry bound plus one bf16 ulp
+    of the row's (last axis's) largest |want|; <= 1 within the bound (a
+    zero bound must be met exactly)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    limit = bound + bf16_ulp(w.abs().amax(-1, keepdim=True))
+    diff = (g - w).abs()
+    if bool((diff[limit == 0] > 0).any()):
+        return float("inf")
+    return float((diff / torch.where(limit > 0, limit, 1.0)).max())
 
 
 def time_bf16_kernel(fa, name, args) -> dict:
@@ -973,15 +1056,15 @@ MAIN_REPEATS = 3
 # whole slide's patch sequence (Q3-Q5, Lq 300 x Lk 4,097).
 XATTN_TOKENS_SHAPE = (8, 4, 300, 300, 64)
 XATTN_WHOLE_SLIDE_SHAPE = (8, 4, 300, WHOLE_SLIDE_PATCHES + 1, 64)
-# (mode, shape) whose outputs are printed against BF16_ULPS, not held to
-# it: under mxu_bf16 dS is rounded to bf16 before dK = dS^T Q, so an
-# output takes a second rounding where the two sides' f32 dS straddle a
-# bf16 boundary, and BF16_ULPS (one rounding each) is no bound. Summed over
-# only 300 queries the flips reach a row's largest entry: Q5's dk lands
-# beyond one ulp of its plain version at Lq 300 x Lk 4,097 for some seeds,
-# and the plain version beyond one ulp of a float64 evaluation of the same
-# roundings (`scripts/torch_mxu_rounding.py` measures both; PERF.md).
-NOT_ULP_GATED = {("flash_bwd_dkv_mxu", XATTN_WHOLE_SLIDE_SHAPE)}
+# (mode, shape) held to `rounded_operand_bound` instead of BF16_ULPS:
+# under mxu_bf16 dS and P are rounded to bf16 before dK = dS^T Q and
+# dV = P^T dO, so an output takes a second rounding where the two sides'
+# f32 dS straddle a bf16 boundary, and BF16_ULPS (one rounding each) is no
+# bound. Summed over only 300 queries the flips reach a row's largest
+# entry: Q5's dk lands beyond one ulp of its plain version at Lq 300 x Lk
+# 4,097 for some seeds (`scripts/torch_mxu_rounding.py` measures both
+# bounds' margins; PERF.md).
+ROUNDED_OPERAND_GATED = {("flash_bwd_dkv_mxu", XATTN_WHOLE_SLIDE_SHAPE)}
 BF16_SHAPES = {
     "ble": ((8, 4, 257, 257, 64), (2, 2, 136, 260, 8), (2, 2, 136, 260, 128),
             *SINGLE_BLOCK_SHAPES, XATTN_TOKENS_SHAPE),
@@ -1013,8 +1096,7 @@ def check_bf16_modes(fa, errs: dict, timed: dict) -> None:
             for j, shape in enumerate(shapes):
                 for r in range(repeats if j == 0 else 1):
                     err, _ = check_bf16_kernel(fa, name, *shape, True,
-                                               300 + 10 * i + j + 1000 * r, dtype,
-                                               (name, shape) not in NOT_ULP_GATED)
+                                               300 + 10 * i + j + 1000 * r, dtype)
                     errs[name] = max(errs[name], err)
         err, args = check_bf16_kernel(fa, name, *shapes[0], False, 400 + i, torch.bfloat16)
         errs[name] = max(errs[name], err)
@@ -2543,6 +2625,445 @@ def variants_phase(fa, card, ws_batch, layout, out) -> dict:
     return launches
 
 
+# phase 12, the post-hoc evaluator over phase 10's product run: the
+# float64 checks' tolerances (the exact optimal transport against scipy's
+# assignment over an independently built cost; the f32 MMDs against numpy
+# in float64)
+OT_RTOL, POSTHOC_MMD_RTOL = 1e-9, 1e-4
+
+
+def quiet(fn, *args):
+    """`fn(*args)` with its standard output dropped (`cli.evaluate` prints
+    its whole report, which the phases print in short)."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def host_cost(x0, x1) -> np.ndarray:
+    """Squared L2 distances [n, m] in float64 on the host, one row of x0 at
+    a time (independent of `eval.distances.cost_matrix`)."""
+    h1 = np.asarray(x1, np.float64)
+    out = np.empty((len(x0), len(x1)))
+    for i, row in enumerate(np.asarray(x0, np.float64)):
+        d = row - h1
+        out[i] = np.einsum("ij,ij->i", d, d)
+    return out
+
+
+def numpy_mmds(x, y) -> dict:
+    """The linear and polynomial (d 2, alpha 1, c 2) linear-time MMDs in
+    float64 over the first min(n, m) rows."""
+    n = min(len(x), len(y))
+    x, y = np.asarray(x[:n], np.float64), np.asarray(y[:n], np.float64)
+    d = x - y
+
+    def k(u, v):
+        return np.mean((np.sum(u[:-1] * v[1:], axis=1) + 2.0) ** 2)
+
+    return {"Linear_MMD": float(np.mean(np.sum(d[:-1] * d[1:], axis=1))),
+            "Poly_MMD": float(k(x, x) + k(y, y) - k(x, y) - k(y, x))}
+
+
+def posthoc_phase(fa, card, run: str) -> dict:
+    """Phase 12: `cli.evaluate.main` over phase 10's product run directory
+    (`--epoch auto`: best.json's epoch; the utility suites on). Gates:
+    every number finite; each dump's exact 1- / 2-Wasserstein against
+    scipy's `linear_sum_assignment` over a float64 cost built on the host
+    (the dumps are square with uniform marginals, so the optima are the
+    same) within OT_RTOL; Linear / Poly MMD within POSTHOC_MMD_RTOL of numpy
+    in float64; DCR / NNDR equal `Experiment.posthoc_privacy`'s for the
+    same directory and reference (the dump's data_real); `PrivacyEvaluator`
+    over the run finite; `--plots` without matplotlib raises naming it.
+    Prints the seconds of each part and Sinkhorn's 2-Wasserstein beside
+    the exact one. Returns the launches (none: no kernel is on this path)."""
+    from types import SimpleNamespace
+
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from gemm_gan_tpu_torch.cli import evaluate as cli_evaluate
+    from gemm_gan_tpu_torch.cli.experiment import Experiment
+    from gemm_gan_tpu_torch.eval import distances, gamma, privacy, utility
+    from gemm_gan_tpu_torch.viz import matplotlib_available
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(run, "best.json")) as f:
+        best = json.load(f)
+    print(f"[12] post-hoc evaluation (cli.evaluate --epoch auto) of phase 10's run: "
+          f"best.json epoch {best['epoch']}", flush=True)
+    timer = PartTimer()
+    for owner, name, label in (
+            (utility.UtilityEvaluator, "evaluate", "utility"), (gamma, "gamma_coef", "gamma"),
+            (distances, "cost_matrix", "cost matrix"), (distances, "emd2", "OT"),
+            (distances, "linear_mmd2", "MMD"), (distances, "poly_mmd2", "MMD"),
+            (privacy, "dcr", "privacy"), (privacy, "nndr", "privacy")):
+        timer.wrap(owner, name, label)
+    try:
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        report = quiet(cli_evaluate.main, ["--results_path", run, "--out",
+                                           os.path.join(run, "posthoc.json")])
+        seconds = time.perf_counter() - t0
+        counts = fa.launch_counts()
+    finally:
+        timer.restore()
+    assert all_finite(report), "non-finite post-hoc report"
+    dirs = [r["dir"] for r in report["per_run"]]
+    assert dirs == [f"test_0_epoch_{best['epoch']}"], dirs
+    assert {"utility_disease", "utility_primary_site"} <= set(report), sorted(report)
+    print(f"    cli.evaluate took {seconds:.1f} s on {card}; seconds per part "
+          f"{json.dumps(timer.seconds)}; launches {sum(counts.values())}", flush=True)
+    for rec in report["per_run"]:
+        d = os.path.join(run, rec["dir"])
+        test_real, test_gen = (np.load(os.path.join(d, f"{k}.npy"))
+                               for k in ("test_real", "test_gen"))
+        t0 = time.perf_counter()
+        sq = host_cost(test_gen, test_real)
+        dist = np.sqrt(sq)
+        r, c = linear_sum_assignment(dist)
+        w1 = float(dist[r, c].mean())
+        r, c = linear_sum_assignment(sq)
+        w2 = float(np.sqrt(sq[r, c].mean()))
+        host_s = time.perf_counter() - t0
+        rel = {"1-Wasserstein": abs(rec["1-Wasserstein"] - w1) / w1,
+               "2-Wasserstein": abs(rec["2-Wasserstein"] - w2) / w2}
+        ref = numpy_mmds(test_gen, test_real)
+        rel.update({k: abs(rec[k] - v) / abs(v) for k, v in ref.items()})
+        print(f"    {rec['dir']} ({test_gen.shape[0]} x {test_real.shape[0]} cases x "
+              f"{test_real.shape[1]} genes): {json.dumps(rec)}; relative distance from "
+              f"scipy's assignment / numpy float64 ({host_s:.1f} s on the host): "
+              f"{json.dumps(rel)}", flush=True)
+        assert test_gen.shape == test_real.shape, "the exact check needs square dumps"
+        assert max(rel["1-Wasserstein"], rel["2-Wasserstein"]) <= OT_RTOL, rel
+        assert max(rel["Linear_MMD"], rel["Poly_MMD"]) <= POSTHOC_MMD_RTOL, rel
+        # the same directory and reference through the GAN experiment's suite
+        holder = SimpleNamespace(
+            out_dir=run, device=torch.device("cuda", torch.cuda.current_device()),
+            splits={"train": {"genes": np.load(os.path.join(d, "data_real.npy"))}})
+        pp = Experiment.posthoc_privacy(holder, epoch=best["epoch"])
+        assert (pp["dcr"][0], pp["nndr"][0]) == (rec["dcr"], rec["nndr"]), (pp, rec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sinkhorn = distances.wasserstein(test_gen, test_real, method="sinkhorn", power=2)
+        torch.cuda.synchronize()
+        print(f"    {rec['dir']}: DCR / NNDR equal Experiment.posthoc_privacy's "
+              f"({pp['dcr'][0]}, {pp['nndr'][0]}); Sinkhorn (reg 0.05, 500 iterations, "
+              f"f32) 2-Wasserstein {sinkhorn:.6f} in {time.perf_counter() - t0:.3f} s beside "
+              f"the exact {rec['2-Wasserstein']:.6f}", flush=True)
+    t0 = time.perf_counter()
+    scores = privacy.PrivacyEvaluator(run).evaluate()
+    assert scores and all_finite(scores), scores
+    print(f"    PrivacyEvaluator over {run.rsplit(os.sep, 1)[-1]}'s dump dirs in "
+          f"{time.perf_counter() - t0:.1f} s: {json.dumps(scores)}", flush=True)
+    if matplotlib_available():
+        figs = quiet(cli_evaluate.main, ["--results_path", run, "--skip_utility", "--plots"])
+        assert all(os.path.isdir(r["figures"]) for r in figs["per_run"])
+        print("    --plots: matplotlib is installed, the figures were written", flush=True)
+    else:
+        try:
+            quiet(cli_evaluate.main, ["--results_path", run, "--skip_utility", "--plots"])
+        except ImportError as e:
+            assert "matplotlib" in str(e), e
+            print(f"    --plots without matplotlib raised: {e}", flush=True)
+        else:
+            raise AssertionError("--plots without matplotlib did not raise")
+    print(f"    phase 12 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return counts
+
+
+# phase 13, the VAE family at the published widths of variant_config (18,868
+# genes, encoder and decoder (256, 256), latent 64; the CVAE's label tables
+# sized as phase 10's layout sizes them, LABEL_VOCAB): the steps of the
+# graphed epoch timed, the profiles sampled per timing, the gates of (a)
+# (the ELBO, recon and KL of one step card vs CPU, and each parameter's
+# first gradient), and cli.train's epochs on phase 10's RESUME_CASES layout
+VAE_VARIANTS = ("vae", "cvae")
+VAE_EPOCH_STEPS, VAE_EAGER_STEPS, VAE_PROFILE_STEPS, VAE_SAMPLES = 128, 32, 32, 4096
+VAE_METRIC_RTOL, VAE_GRAD_RTOL = 1e-4, 1e-4
+VAE_CLI_EPOCHS = 2
+
+
+def vae_param_tree(m, conditional: bool, seed: int) -> dict:
+    """Random VAE / CVAE params in the Flax layout of
+    `gemm_gan_tpu.models.vae` for model config `m`."""
+    rng = np.random.RandomState(seed)
+
+    def dense(i, o):
+        return {"kernel": (rng.randn(i, o) * i ** -0.5).astype(np.float32),
+                "bias": (0.01 * rng.randn(o)).astype(np.float32)}
+
+    f = m.fusion
+    extra = 2 * f.label_embed_dim if conditional else 0
+    enc, dec, latent = m.vae_encoder_dims, m.vae_decoder_dims, m.vae_latent_dim
+    tree = {
+        "encoder": {f"Dense_{i}": dense(a, b) for i, (a, b) in
+                    enumerate(zip([m.n_genes + extra, *enc[:-1]], enc))},
+        "mu_head": dense(enc[-1], latent), "logvar_head": dense(enc[-1], latent),
+        "decoder": {f"Dense_{i}": dense(a, b) for i, (a, b) in
+                    enumerate(zip([latent + extra, *dec[:-1]], dec))},
+        "out_head": dense(dec[-1], m.n_genes),
+    }
+    if m.vae_recon == "gaussian_nll":
+        tree["out_logvar"] = dense(dec[-1], m.n_genes)
+    if conditional:
+        for name, n in (("disease_embed", f.n_disease_types), ("site_embed", f.n_primary_sites)):
+            tree[name] = {"embedding": (rng.randn(n, f.label_embed_dim)
+                                        * f.label_embed_dim ** -0.5).astype(np.float32)}
+    return tree
+
+
+def vae_batches(m, conditional: bool, n: int, seed: int) -> list:
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        b = {"genes": rng.randn(BATCH, m.n_genes).astype(np.float32)}
+        if conditional:
+            b["disease"] = rng.randint(0, m.fusion.n_disease_types, BATCH)
+            b["site"] = rng.randint(0, m.fusion.n_primary_sites, BATCH)
+        out.append(b)
+    return out
+
+
+def vae_first_grads(engine, state, batch, eps, scale: float = None) -> dict:
+    """{param: the ELBO's gradient} at `state`'s params with noise `eps`,
+    before any optimizer move; `scale` multiplies the decoder's output (the
+    gate's negative control)."""
+    import torch
+
+    model = state.model
+    hook = (None if scale is None else model.out_head.register_forward_hook(
+        lambda mod, inputs, out: out * scale))
+    try:
+        loss, _, _ = engine._losses(model, engine._tensors(batch),
+                                    torch.tensor(eps, device=engine.device))
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    finally:
+        if hook is not None:
+            hook.remove()
+    return {n: g.detach().cpu().double() for n, g in zip(names, grads)}
+
+
+def grad_gate_ratio(grads: dict, ref: dict) -> tuple:
+    """(the largest ||g - g_ref|| / ||g_ref|| over the params, its param)."""
+    import torch
+
+    rel = {n: float(torch.linalg.norm(g - ref[n]) / torch.linalg.norm(ref[n]))
+           for n, g in grads.items()}
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def vae_engine_checks(variant: str, card) -> dict:
+    """13 (a)-(c) for one variant at the published widths; returns its
+    numbers."""
+    import torch
+
+    from gemm_gan_tpu_torch.config import variant_config
+    from gemm_gan_tpu_torch.train.vae import VAEEngine
+
+    exp = variant_config(variant, fusion_kw=LABEL_VOCAB)
+    m, conditional = exp.model, variant == "cvae"
+    tree = vae_param_tree(m, conditional, seed=60 + VAE_VARIANTS.index(variant))
+    batches = vae_batches(m, conditional, VAE_EPOCH_STEPS, seed=61)
+    eps = np.random.RandomState(62).randn(BATCH, m.vae_latent_dim).astype(np.float32)
+    out = {}
+
+    # (a) one step, card vs CPU, with the same eps
+    engines = {dev: VAEEngine(exp, steps_per_epoch=VAE_EPOCH_STEPS, device=dev)
+               for dev in ("cuda", "cpu")}
+    states = {dev: e.state_from_flax(tree, seed=7) for dev, e in engines.items()}
+    grads = {dev: vae_first_grads(engines[dev], states[dev], batches[0], eps)
+             for dev in engines}
+    ratio, worst = grad_gate_ratio(grads["cuda"], grads["cpu"])
+    control, cworst = grad_gate_ratio(vae_first_grads(
+        engines["cuda"], states["cuda"], batches[0], eps, scale=1 + 2 ** -5), grads["cpu"])
+    metrics = {dev: floats(engines[dev].step(states[dev], batches[0], eps=eps)[1])
+               for dev in engines}
+    rel = {k: abs(metrics["cuda"][k] - v) / abs(v) for k, v in metrics["cpu"].items()}
+    print(f"  {variant} (a) one step card vs CPU (same eps): metrics {json.dumps(metrics)}, "
+          f"relative {json.dumps(rel)}; first gradients: largest ||g - g_cpu|| / ||g_cpu|| "
+          f"{ratio:.3e} ({worst}) against {VAE_GRAD_RTOL}; the decoder's output scaled by "
+          f"1 + 2^-5 (the control): {control:.3e} ({cworst})", flush=True)
+    assert max(rel.values()) <= VAE_METRIC_RTOL, rel
+    assert ratio <= VAE_GRAD_RTOL, (ratio, worst)
+    assert control > VAE_GRAD_RTOL, ("the control passed", control)
+    out["step_rel"] = max(rel.values())
+    out["grad_ratio"] = ratio
+    del engines, states, grads
+
+    # (b) a 4-step graphed epoch against 4 eager steps, bitwise; steps/s
+    def stack(bs):
+        return {k: np.stack([b[k] for b in bs]) for k in bs[0]}
+
+    eager_eng, graph_eng = (VAEEngine(exp, steps_per_epoch=VAE_EPOCH_STEPS) for _ in range(2))
+    sa, sb = (e.state_from_flax(tree, seed=8) for e in (eager_eng, graph_eng))
+    for b in batches[:4]:
+        sa, ma = eager_eng.step(sa, b)
+    sb, mb = graph_eng.step_many(sb, stack(batches[:4]))
+    same = (floats(ma) == floats(mb)
+            and all(torch.equal(x, y) for x, y in zip(sa.model.parameters(),
+                                                       sb.model.parameters()))
+            and all(torch.equal(x, y) for x, y in zip(sa.opt.nu + sa.opt.mu,
+                                                       sb.opt.nu + sb.opt.mu)))
+    print(f"  {variant} (b) 4 graphed steps against 4 eager ones: bitwise equal {same}",
+          flush=True)
+    assert same, (floats(ma), floats(mb))
+    epoch = stack(batches)
+    graph_eng.step_many(sb, epoch)  # captures the K-step layout's graph
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sb, m_last = graph_eng.step_many(sb, epoch)
+    torch.cuda.synchronize()
+    graphed_sps = VAE_EPOCH_STEPS / (time.perf_counter() - t0)
+    assert all(np.isfinite(v) for v in floats(m_last).values()), m_last
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[:VAE_EAGER_STEPS]:
+        sa, _ = eager_eng.step(sa, b)
+    torch.cuda.synchronize()
+    eager_sps = VAE_EAGER_STEPS / (time.perf_counter() - t0)
+    part = stack(batches[:VAE_PROFILE_STEPS])
+    _, records, readings = agreed_profile(lambda: graph_eng.step_many(sb, part),
+                                          f"a {variant} epoch of replays")
+    events = sorted((e for e in records if e.self_device_time_total > 0),
+                    key=lambda e: -e.self_device_time_total)
+    replay_ms = sum(e.self_device_time_total for e in events) / 1e3 / VAE_PROFILE_STEPS
+    print(f"  {variant} (b) batch {BATCH}: graphed {graphed_sps:.2f} steps/s "
+          f"({VAE_EPOCH_STEPS}-step epoch, host clock, the stack's copy in), eager "
+          f"{eager_sps:.2f} steps/s on {card}; device time {replay_ms:.4f} ms a step "
+          f"({sum(e.count for e in events) / VAE_PROFILE_STEPS:.1f} device events, the "
+          f"stack's copy in; {readings} readings); top "
+          f"{[(e.key[:50], e.count, round(e.self_device_time_total / 1e3, 4)) for e in events[:4]]}",
+          flush=True)
+    out.update(graphed_sps=graphed_sps, eager_sps=eager_sps, replay_ms=replay_ms)
+
+    # (c) profiles/s decoded from the prior
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    labels = {}
+    if conditional:
+        labels = {k: torch.randint(0, getattr(m.fusion, n), (VAE_SAMPLES,), generator=gen,
+                                   device="cuda")
+                  for k, n in (("disease", "n_disease_types"), ("site", "n_primary_sites"))}
+    kw = labels if conditional else {"num": VAE_SAMPLES}
+    graph_eng.sample(sb, gen, device_out=True, **kw)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fake = graph_eng.sample(sb, gen, device_out=True, **kw)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    assert fake.shape == (VAE_SAMPLES, m.n_genes) and bool(torch.isfinite(fake).all())
+    out["profiles_per_s"] = VAE_SAMPLES / sample_s
+    print(f"  {variant} (c) sample: {VAE_SAMPLES} profiles in {sample_s * 1e3:.2f} ms = "
+          f"{out['profiles_per_s']:.0f} profiles/s on the card (device tensors) on {card}",
+          flush=True)
+    return out
+
+
+def vae_cli(variant: str, layout: str, out: str, card) -> str:
+    """13 (d): `cli.train --variant V` for VAE_CLI_EPOCHS epochs on `layout`,
+    validating each epoch, then `--evaluate_only --evaluate_which best` and
+    `cli.evaluate` over the run dir. Returns the run dir."""
+    from gemm_gan_tpu_torch.cli import evaluate as cli_evaluate
+    from gemm_gan_tpu_torch.cli import train as cli_train
+    from gemm_gan_tpu_torch.data.splits import split_indices
+    from gemm_gan_tpu_torch.train import checkpoint
+
+    args = ["--variant", variant, "--data_dir", layout, "--output_path", out,
+            "--run_name", variant, "--n_runs", "1", "--freq_compute_test", "1"]
+    t0 = time.perf_counter()
+    results = cli_train.main([*args, "--epochs", str(VAE_CLI_EPOCHS)])
+    fit_s = time.perf_counter() - t0
+    run = os.path.join(out, variant)
+    with open(os.path.join(run, f"{variant}_metrics.jsonl")) as f:
+        logged = [json.loads(r) for r in f]
+    with open(os.path.join(run, "best.json")) as f:
+        best = json.load(f)
+    assert all_finite(logged) and all_finite(results), "non-finite"
+    assert os.path.exists(os.path.join(run, "ckpt_best", str(best["step"]),
+                                       checkpoint.STATE_FILE)), best
+    tr, _, te = (len(i) for i in split_indices(RESUME_CASES, seed=42))
+    dumps = os.path.join(run, f"test_0_epoch_{VAE_CLI_EPOCHS}")
+    shapes = {f[:-4]: np.load(os.path.join(dumps, f)).shape for f in sorted(os.listdir(dumps))}
+    want = {"data_real": (tr, PRODUCT_GENES), "data_gen": (tr, PRODUCT_GENES),
+            "test_real": (te, PRODUCT_GENES), "test_gen": (te, PRODUCT_GENES)}
+    if variant == "cvae":
+        for side, n in (("train", tr), ("test", te)):
+            for kind in ("", "primary_site_"):
+                for who in ("real", "gen"):
+                    want[f"{side}_labels_{kind}{who}"] = (n,)
+    assert shapes == want, (shapes, want)
+    t0 = time.perf_counter()
+    best_res = cli_train.main([*args, "--epochs", str(VAE_CLI_EPOCHS), "--evaluate_only",
+                               "--evaluate_which", "best"])
+    eval_s = time.perf_counter() - t0
+    assert all_finite(best_res)
+    t0 = time.perf_counter()
+    report = quiet(cli_evaluate.main, ["--results_path", run]
+                   + (["--skip_utility"] if variant == "vae" else []))
+    posthoc_s = time.perf_counter() - t0
+    assert all_finite(report), "non-finite"
+    assert [r["dir"] for r in report["per_run"]] == [f"test_0_epoch_{best['epoch']}"], report
+    assert ("utility_disease" in report) == (variant == "cvae")
+    print(f"  {variant} (d) cli.train {VAE_CLI_EPOCHS} epochs on {RESUME_CASES} cases "
+          f"{fit_s:.1f} s, evaluate best {eval_s:.1f} s, cli.evaluate {posthoc_s:.1f} s on "
+          f"{card}: last logged {json.dumps(logged[-1])}; best.json {json.dumps(best)}; "
+          f"gamma {results['gamma_mean']:.4f}; dumps {json.dumps(shapes)}; post-hoc "
+          f"{json.dumps({k: v for k, v in report['per_run'][0].items() if k != 'dir'})}",
+          flush=True)
+    return run
+
+
+def vae_phase(fa, card, layout: str, out: str) -> dict:
+    """Phase 13: the VAE family at the published widths: per variant (a)
+    one step card vs CPU with the same eps (the ELBO, recon and KL within
+    VAE_METRIC_RTOL; each parameter's first gradient within VAE_GRAD_RTOL
+    of the CPU's, the gate rejecting the decoder's output scaled by
+    1 + 2^-5), (b) a 4-step graphed epoch bitwise equal to 4 eager steps,
+    graphed and eager steps/s and a replay's device time (`agreed_profile`),
+    (c) sampled profiles/s; (d) `cli.train` for each on `layout` (phase
+    10's RESUME_CASES cases), evaluate best, `cli.evaluate`; (e) the VAE for
+    1 epoch, then `--resume` to VAE_CLI_EPOCHS: the final checkpoint
+    bitwise equal to (d)'s straight run. No kernel launches over the phase.
+    Returns the launches."""
+    import torch
+
+    from gemm_gan_tpu_torch.cli import train as cli_train
+
+    t_phase = time.perf_counter()
+    print(f"[13] the VAE family at the published widths ({', '.join(VAE_VARIANTS)}; "
+          f"{PRODUCT_GENES} genes, encoder and decoder (256, 256), latent 64, batch "
+          f"{BATCH}; CVAE tables {json.dumps(LABEL_VOCAB)})", flush=True)
+    fa.reset_launch_counts()
+    numbers = {v: vae_engine_checks(v, card) for v in VAE_VARIANTS}
+    torch.cuda.empty_cache()
+    runs = {v: vae_cli(v, layout, out, card) for v in VAE_VARIANTS}
+    t0 = time.perf_counter()
+    args = ["--variant", "vae", "--data_dir", layout, "--output_path", out,
+            "--run_name", "vae_resumed", "--n_runs", "1", "--freq_compute_test", "1"]
+    cli_train.main([*args, "--epochs", "1"])
+    cli_train.main([*args, "--epochs", str(VAE_CLI_EPOCHS), "--resume"])
+    pa, pb = (load_checkpoint(p) for p in (runs["vae"], os.path.join(out, "vae_resumed")))
+    a, b = dict(checkpoint_tensors(pa)), dict(checkpoint_tensors(pb))
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if (pa["step"], pa["opt"]["count"]) != (pb["step"], pb["opt"]["count"]):
+        differ.append(f"step and count {(pa['step'], pa['opt']['count'])} vs "
+                      f"{(pb['step'], pb['opt']['count'])}")
+    print(f"  vae (e) 1 epoch, then --resume to {VAE_CLI_EPOCHS}, against (d)'s "
+          f"{VAE_CLI_EPOCHS} straight: {len(a)} tensors of the final checkpoints (params, "
+          f"Adam moments and counts, generator), {len(differ)} differ {differ[:4]} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    assert a.keys() == b.keys() and not differ, differ
+    counts = fa.launch_counts()
+    assert not any(counts.values()), counts
+    print(f"    phase 13 took {time.perf_counter() - t_phase:.1f} s on {card}: "
+          f"{json.dumps(numbers)}; kernel launches over the phase: none", flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3071,13 +3592,19 @@ def main(argv=None) -> int:
 
     # ---- 10. the product path: cli.train fit, evaluate best and last, resume
     # ---- 11. the variants; (e) trains on phase 10's layout
+    # ---- 12. the post-hoc evaluator over phase 10's run
+    # ---- 13. the VAE family; (d), (e) train on phase 10's layout
     with tempfile.TemporaryDirectory() as root:
+        runs = os.path.join(root, "runs")
         launches["product_fit"], layout = product_path(fa, card, root)
         torch.cuda.empty_cache()
-        launches.update(variants_phase(fa, card, ws_batch, layout, os.path.join(root, "runs")))
+        launches.update(variants_phase(fa, card, ws_batch, layout, runs))
+        torch.cuda.empty_cache()
+        launches["posthoc"] = posthoc_phase(fa, card, os.path.join(runs, "product"))
+        launches["vae"] = vae_phase(fa, card, layout, runs)
     torch.cuda.empty_cache()
 
-    # ---- 12. report
+    # ---- 14. report
     paths = {"flash_fwd_ble": "serving", "flash_fwd_bhld": "whole_slide_serving",
              "flash_bwd_ble": "training", "flash_bwd_dq": "whole_slide_training",
              "flash_bwd_dkv": "whole_slide_training",
@@ -3092,7 +3619,7 @@ def main(argv=None) -> int:
              "flash_bwd_dq_mxu": "mxu_whole_slide_epoch_loop",
              "flash_bwd_dkv_mxu": "mxu_whole_slide_epoch_loop",
              "flash_bwd_bhld_fused_mxu": "mxu_bhld_training"}
-    print(f"[12] torch.profiler over the run: at most {PROFILER_READINGS['most_sentinels_lost']} "
+    print(f"[14] torch.profiler over the run: at most {PROFILER_READINGS['most_sentinels_lost']} "
           f"sentinel records lost at a window's start; lead-in now "
           f"{PROFILER_LEAD_IN['n']} sentinels", flush=True)
     kernels = []

@@ -12,12 +12,15 @@ TCGA layout under `--data_dir` (`data.tcga.load_tcga`), size the variant's
 fusion from the data, then `Experiment.fit` (training, periodic validation,
 checkpoints, the test block) and the post-hoc utility and privacy suites,
 or `--evaluate_only` (restore the last or the gate-best checkpoint and
-rerun the test block). Writes `config.json` and `results.json` into
-`<output_path>/<run_name>/`. Runs on the CUDA card unless `--device cpu`.
+rerun the test block). `--variant vae` and `cvae` take the same path
+through `cli/vae_experiment.py`'s `VAEExperiment` (validation by β-ELBO);
+the VAE's own settings (`vae_*`) keep the variant's preset. Writes
+`config.json` and `results.json` into `<output_path>/<run_name>/`. Runs on
+the CUDA card unless `--device cpu`.
 
-Not ported: `--variant vae|cvae`, `--mesh_model` > 1 and `--shard_bank`
-raise `NotImplementedError`; fusions the port does not serve raise from
-the model.
+Not ported: `--mesh_model` > 1 and `--shard_bank` raise
+`NotImplementedError` (with a VAE variant, `--shard_bank` raises the JAX
+package's `ValueError`).
 """
 
 from __future__ import annotations
@@ -27,8 +30,7 @@ import dataclasses
 import json
 import os
 
-VAE_NOT_PORTED = ("the VAE variants (--variant vae|cvae) are not ported yet: "
-                  "ROADMAP item M11")
+VAE_VARIANTS = ("vae", "cvae")
 
 
 def build_parser():
@@ -103,17 +105,20 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.variant in ("vae", "cvae"):
-        raise NotImplementedError(VAE_NOT_PORTED)
 
     from gemm_gan_tpu_torch.cli.experiment import NOT_PORTED, Experiment
+    from gemm_gan_tpu_torch.cli.vae_experiment import VAEExperiment
     from gemm_gan_tpu_torch.config import save_config, variant_config
     from gemm_gan_tpu_torch.data.tcga import load_tcga
 
+    if args.shard_bank and args.variant in VAE_VARIANTS:
+        raise ValueError("--shard_bank is not supported for the VAE variants (they "
+                         "train through VAEExperiment's stacked scan)")
     if args.mesh_model > 1 or args.shard_bank:
         raise NotImplementedError(NOT_PORTED)
 
-    schema = {"vanilla": "genes", "benchmark": "labels", "cross_attention": "multi_token",
+    schema = {"vanilla": "genes", "vae": "genes", "benchmark": "labels", "cvae": "labels",
+              "cross_attention": "multi_token",
               "film_cross_attention": "multi_token"}.get(args.variant, "multi_patch")
     # the full padded patch bank: the device cache draws a fresh subset per step
     splits = load_tcga(args.data_dir, schema=schema, num_patches=args.num_patches,
@@ -159,7 +164,8 @@ def main(argv=None):
             on_device_validation=args.on_device_validation,
             n_runs=cfg.eval.n_runs if args.n_runs is None else args.n_runs),
     )
-    exp = Experiment(cfg, splits, device=args.device)
+    family = VAEExperiment if args.variant in VAE_VARIANTS else Experiment
+    exp = family(cfg, splits, device=args.device)
     # the resolved config first, so an interrupted run dir describes itself
     save_config(cfg, os.path.join(exp.out_dir, "config.json"))
 

@@ -21,6 +21,10 @@ Mapping (Flax path -> torch key), applied to any subtree:
   (in a layer) LayerNorm_0/1, Dense_0/1 -> norm1/2, linear1/2
   LinearBlock_{i}/Dense_0             -> blocks.{i}.linear
   (trunk head) Dense_0                -> head
+  (VAE / CVAE) encoder/Dense_{i}      -> encoder.dense.{i}
+  (VAE / CVAE) decoder/Dense_{i}      -> decoder.dense.{i}
+The VAE's heads (`mu_head`, `logvar_head`, `out_head`, `out_logvar`) and
+the CVAE's tables (`disease_embed`, `site_embed`) keep their names.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ _LAYER = r"TransformerEncoderLayer_(\d+)/"
 
 # (flax regex, torch replacement), applied in order to "/"-joined paths
 _TO_TORCH = [
+    (r"(^|/)(encoder|decoder)/Dense_(\d+)/", r"\1\2/dense/\3/"),
     (r"(^|/)_PatchTransformer_0/LayerNorm_0/", r"\1_PatchTransformer_0/encode_norm/"),
     (r"(^|/)_PatchTransformer_0/", r"\1patch_transformer/"),
     (_LAYER + r"MaskedMultiHeadAttention_0/", r"layers/\1/self_attn/"),
@@ -47,6 +52,7 @@ _TO_TORCH = [
 ]
 _LAYERS = r"layers/(\d+)/"
 _TO_FLAX = [
+    (r"(^|/)(encoder|decoder)/dense/(\d+)/", r"\1\2/Dense_\3/"),
     (r"(^|/)patch_transformer/encode_norm/", r"\1patch_transformer/LayerNorm_0/"),
     (r"(^|/)patch_transformer/", r"\1_PatchTransformer_0/"),
     (_LAYERS + r"self_attn/", r"TransformerEncoderLayer_\1/MaskedMultiHeadAttention_0/"),

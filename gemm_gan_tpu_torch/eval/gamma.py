@@ -7,8 +7,8 @@ reference's zero-variance guard (a standardized value falls back to the
 centered one).
 
 Two paths:
-  * numpy (`*_np` and the scipy extras): copies of the JAX package's
-    goldens;
+  * numpy (`*_np`, the scipy extras and the TF-TG helpers): copies of the
+    JAX package's;
   * blocked on the device (`gamma_coef`): each block of `block` genes takes
     its rows of the two correlation matrices as one GEMM each and adds the
     masked first, second and cross moments over the strict upper triangle
@@ -133,3 +133,54 @@ def gamma_coefficients(expr_x: np.ndarray, expr_z: np.ndarray):
     c_z, coph_z = cophenet(lz, dists_z)
     gamma_tx_tz = pearson_correlation(coph_x[:, None], coph_z[:, None])[0, 0]
     return float(gamma_dx_dz), float(c_x), float(c_z), float(gamma_tx_tz)
+
+
+# ------------------------------------------------------------------- TF-TG
+def tf_tg_corrs(expr: np.ndarray, gene_names, tf_tg: dict):
+    """Per-TF correlations with its target genes (compact dict form)."""
+    idx = {g: i for i, g in enumerate(gene_names)}
+    out = {}
+    for tf, tgs in tf_tg.items():
+        if tf not in idx:
+            continue
+        tg_idx = [idx[t] for t in tgs if t in idx]
+        if not tg_idx:
+            continue
+        corr = pearson_correlation(expr[:, [idx[tf]]], expr[:, tg_idx])
+        out[tf] = corr.ravel()
+    return out
+
+
+def load_tf_tg_graph(path: str) -> dict:
+    """TF -> target genes from a TSV graph file of `tf \\t _ \\t tg` lines."""
+    tf_tg = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            tf, _, tg = line.split("\t")
+            tf_tg.setdefault(tf, []).append(tg)
+    return tf_tg
+
+
+def compute_tf_tg_corrs(expr: np.ndarray, gene_symbols, tf_tg: dict, flat: bool = True):
+    """(TF-TG correlations, TG-TG correlations) per TF, optionally flattened:
+    for each TF present in the expression matrix with at least one present
+    target, the condensed TG-TG correlation list of its targets and the
+    TF-vs-each-TG correlation list."""
+    gene_symbols = np.asarray(gene_symbols)
+    tf_tg_corr, tg_tg_corr = [], []
+    for tf, tgs in tf_tg.items():
+        tg_idxs = np.array([np.where(gene_symbols == tg)[0]
+                            for tg in tgs if tg in gene_symbols]).ravel()
+        if tf in gene_symbols and len(tg_idxs) > 0:
+            expr_tgs = expr[:, tg_idxs.astype(int)]
+            tg_tg_corr.append(correlations_list(expr_tgs, expr_tgs).tolist())
+            tf_idx = int(np.argwhere(gene_symbols == tf)[0][0])
+            corr = pearson_correlation(expr[:, [tf_idx]], expr_tgs).ravel()
+            tf_tg_corr.append(corr.tolist())
+    if flat:
+        tf_tg_corr = [c for lst in tf_tg_corr for c in lst]
+        tg_tg_corr = [c for lst in tg_tg_corr for c in lst]
+    return tf_tg_corr, tg_tg_corr

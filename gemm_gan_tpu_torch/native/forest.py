@@ -1,30 +1,25 @@
 """ctypes binding for the native histogram random forest (`hist_forest.cpp`).
 
-Counterpart of `gemm_gan_tpu/native/forest.py` and `native/build.py`: the
-sklearn-style estimator the detection and utility suites use as their "RF".
-The library is built from the source beside this file at first use, with
-`g++ -O3 -std=c++17 -shared -fPIC -pthread`, into `build/` beside it (listed
-in `.gitignore`) under a name keyed by a hash of the source, so an edited
-source is rebuilt. The build writes a temporary file and renames it, so
-concurrent processes never load a half-written library. A failed build
-raises with the compiler's output; there is no fallback classifier.
+Counterpart of `gemm_gan_tpu/native/forest.py`: the sklearn-style estimator
+the detection and utility suites use as their "RF". The library is built
+from the source beside this file at first use by `native.build` (g++ into
+the ignored `build/`, keyed by a hash of the source; a failed build raises
+with the compiler's output; there is no fallback classifier).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 
 import numpy as np
 
+from gemm_gan_tpu_torch.native.build import BUILD_DIR, build_library  # noqa: F401
+from gemm_gan_tpu_torch.native.build import library_path as _library_path
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(HERE, "hist_forest.cpp")
-BUILD_DIR = os.path.join(HERE, "build")
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _lib = None
@@ -32,31 +27,12 @@ _lib = None
 
 def library_path() -> str:
     """Where the library for the current source and flags lives."""
-    h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libhistforest-{h.hexdigest()[:16]}.so")
+    return _library_path(SOURCE, "histforest")
 
 
 def build() -> str:
     """Compile the library unless it exists; returns its path."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, SOURCE],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"native build of {SOURCE} failed:\n{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+    return build_library(SOURCE, "histforest")
 
 
 def _load():

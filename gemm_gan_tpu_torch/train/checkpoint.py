@@ -11,6 +11,10 @@ checkpoint is `<dir>/<step>/state.pt`, one `torch.save` of the whole
 * `dropout_rng`, the state of the default generator of the state's device,
   which the nets' dropout draws from (the JAX state's one key covers both).
 
+A `VAETrainState` (`train/vae.py`) is saved the same way, as `step`, the
+`model` state dict, its optimizer's counts and Adam moments (`opt`) and
+`rng` (the VAE has no dropout).
+
 A save writes a temporary directory and renames it into place; a step that
 exists is replaced; the newest `MAX_TO_KEEP` (5, as Orbax keeps) are kept.
 A restore copies every tensor into the target state in place, so the target
@@ -34,7 +38,7 @@ from typing import Optional
 import torch
 
 from gemm_gan_tpu_torch.train.schedules import ScheduledOptimizer
-from gemm_gan_tpu_torch.train.state import GANTrainState
+from gemm_gan_tpu_torch.train.state import GANTrainState, TrainState, VAETrainState
 
 STATE_FILE = "state.pt"
 MAX_TO_KEEP = 5
@@ -73,12 +77,11 @@ def _steps(path: str) -> list:
                   if d.isdigit() and os.path.exists(os.path.join(path, d, STATE_FILE)))
 
 
-def save_state(path: str, state: GANTrainState, step: Optional[int] = None) -> int:
-    """Write `state` as checkpoint `step` (default: `state.step`) under
-    `path`; returns the step."""
-    step = int(state.step if step is None else step)
-    os.makedirs(path, exist_ok=True)
-    payload = {
+def _payload(state: TrainState) -> dict:
+    if isinstance(state, VAETrainState):
+        return {"step": int(state.step), "model": state.model.state_dict(),
+                "opt": _opt_state(state.opt), "rng": state.rng.get_state()}
+    return {
         "step": int(state.step),
         "gen": state.gen.state_dict(),
         "critic": state.critic.state_dict(),
@@ -88,6 +91,14 @@ def save_state(path: str, state: GANTrainState, step: Optional[int] = None) -> i
         "rng": state.rng.get_state(),
         "dropout_rng": dropout_generator(_device_of(state)).get_state(),
     }
+
+
+def save_state(path: str, state: TrainState, step: Optional[int] = None) -> int:
+    """Write `state` as checkpoint `step` (default: `state.step`) under
+    `path`; returns the step."""
+    step = int(state.step if step is None else step)
+    os.makedirs(path, exist_ok=True)
+    payload = _payload(state)
     tmp = tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=path)
     try:
         torch.save(payload, os.path.join(tmp, STATE_FILE))
@@ -103,8 +114,8 @@ def save_state(path: str, state: GANTrainState, step: Optional[int] = None) -> i
     return step
 
 
-def restore_state(path: str, target: GANTrainState, step: Optional[int] = None
-                  ) -> GANTrainState:
+def restore_state(path: str, target: TrainState, step: Optional[int] = None
+                  ) -> TrainState:
     """Copy checkpoint `step` (default: the newest) under `path` into
     `target` (a state of the same configuration, e.g. a fresh
     `init_state`) and return it."""
@@ -116,6 +127,16 @@ def restore_state(path: str, target: GANTrainState, step: Optional[int] = None
     if not os.path.exists(file):
         raise FileNotFoundError(f"no checkpoint for step {step} under {path}")
     saved = torch.load(file, map_location="cpu", weights_only=True)
+    if ("model" in saved) != isinstance(target, VAETrainState):
+        raise ValueError(f"the checkpoint under {path} and the target state are of "
+                         "different engines")
+    if isinstance(target, VAETrainState):
+        with torch.no_grad():
+            target.model.load_state_dict(saved["model"])
+            _load_opt(target.opt, saved["opt"])
+        target.step = int(saved["step"])
+        target.rng.set_state(saved["rng"])
+        return target
     with torch.no_grad():
         target.gen.load_state_dict(saved["gen"])
         target.critic.load_state_dict(saved["critic"])
@@ -164,7 +185,7 @@ def latest_step(path: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def resume_or_fresh(ckpt_dir: str, template_state: GANTrainState, steps_per_epoch: int,
+def resume_or_fresh(ckpt_dir: str, template_state: TrainState, steps_per_epoch: int,
                     epochs: int, loader=None):
     """Restore the newest checkpoint into `template_state` and recover the
     epochs done from its step; position `loader`'s no-arg epoch stream

@@ -1,7 +1,8 @@
-"""The optimizers of the WGAN-GP step: RMSprop, Adam and AdamW under the
-halving schedule, with global-norm clipping.
+"""The optimizers of the WGAN-GP step (RMSprop, Adam and AdamW under the
+halving schedule) and of the VAE (Adam under `warmup_exp_decay`), with
+global-norm clipping.
 
-Counterpart of `gemm_gan_tpu/train/schedules.py::make_optimizer`, written
+Counterpart of `gemm_gan_tpu/train/schedules.py`, written
 with `torch._foreach_*` so that an update reads nothing from the host: the
 update count lives on the device (`count_t`) and the rate is computed
 there from it, so a CUDA graph that captured an update replays it with the
@@ -23,13 +24,14 @@ replays) advances it.
 * Clipping is optax's `clip_by_global_norm`: the gradients are scaled by
   max/‖g‖ only when ‖g‖ >= max. `torch.nn.utils.clip_grad_norm_` adds
   1e-6 to the norm and is not used.
-
-The VAE's `warmup_exp_decay` schedule is not ported.
+* `schedule` replaces the halving schedule by any function of the update
+  count that takes a device tensor, such as `warmup_exp_decay` (the VAE's
+  linear warmup, then exponential decay, per epoch of updates).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional
+from typing import Callable, Iterable, List, Optional, Union
 
 import torch
 
@@ -47,6 +49,23 @@ def halving_lr(base_lr: float, count: int, steps_per_epoch: int,
     return base_lr * 0.5 ** (epoch // halve_every_epochs)
 
 
+def warmup_exp_decay(base_lr: float, steps_per_epoch: int, warmup_epochs: int,
+                     decay_per_epoch: float) -> Callable:
+    """The VAE's rate as a function of the update count (an int, or a
+    device tensor for an in-graph rate, computed there in f32): epoch =
+    count / steps_per_epoch, base_lr * epoch / warmup_epochs while epoch <
+    warmup_epochs, then base_lr * decay_per_epoch ** (epoch - warmup_epochs).
+    The first update's rate is 0, as optax's."""
+    def schedule(count: Union[int, torch.Tensor]):
+        if not isinstance(count, torch.Tensor):
+            return float(schedule(torch.tensor(count)))
+        epoch = count.float() / max(steps_per_epoch, 1)
+        warm = epoch / max(warmup_epochs, 1e-8)
+        decay = torch.pow(decay_per_epoch, epoch - warmup_epochs)
+        return base_lr * torch.where(epoch < warmup_epochs, warm, decay)
+    return schedule
+
+
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
     """Scale `grads` in place by max_norm / ‖grads‖ when the global norm is
     at least `max_norm` (no host synchronisation)."""
@@ -57,8 +76,8 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
 
 
 class ScheduledOptimizer:
-    """`cfg.optimizer` over `params` with the halving schedule and optional
-    clipping.
+    """`cfg.optimizer` over `params` with the halving schedule (or
+    `schedule`) and optional clipping.
 
     `update(grads)` takes one gradient per parameter, in order, and updates
     the parameters in place from device state alone; `apply(grads)` is
@@ -66,7 +85,8 @@ class ScheduledOptimizer:
     Adam's), `mu` Adam's first moments."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], cfg: TrainConfig,
-                 lr: float, steps_per_epoch: int, clip_grad: Optional[float] = None):
+                 lr: float, steps_per_epoch: int, clip_grad: Optional[float] = None,
+                 schedule: Optional[Callable] = None):
         if cfg.optimizer not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
         self.kind = cfg.optimizer
@@ -75,6 +95,7 @@ class ScheduledOptimizer:
         self.steps_per_epoch = steps_per_epoch
         self.halve_every_epochs = cfg.lr_halve_every_epochs
         self.clip_grad = clip_grad
+        self.schedule = schedule
         self.b1, self.b2, self.weight_decay = cfg.adam_b1, cfg.adam_b2, cfg.weight_decay
         self.count = 0
         device = self.params[0].device
@@ -86,11 +107,15 @@ class ScheduledOptimizer:
     @property
     def lr(self) -> float:
         """The rate the next update uses."""
+        if self.schedule is not None:
+            return self.schedule(self.count)
         return halving_lr(self.base_lr, self.count, self.steps_per_epoch,
                           self.halve_every_epochs)
 
     def _lr_t(self) -> torch.Tensor:
         """`lr` from `count_t`, on the device (f32)."""
+        if self.schedule is not None:
+            return self.schedule(self.count_t)
         epoch = torch.div(self.count_t, max(self.steps_per_epoch, 1), rounding_mode="floor")
         halvings = torch.div(epoch, self.halve_every_epochs, rounding_mode="floor")
         return self.base_lr * torch.pow(0.5, halvings.float())

@@ -130,10 +130,13 @@ def _accumulate(total, part):
 class _StepGraph:
     """One fused step of `state` that takes its inputs from
     `inputs(step_idx)`, a function of a one-element device index that reads
-    static buffers; each run advances the index. On the card it is captured
-    once as a CUDA graph and replayed; on the CPU the body is called."""
+    static buffers and returns the arguments of `engine._fused_step` after
+    the state; each run advances the index. On the card it is captured once
+    as a CUDA graph and replayed; on the CPU the body is called. Any engine
+    whose `_fused_step` reads device tensors only and whose state draws from
+    `state.rng` can use it (`train/vae.py` does)."""
 
-    def __init__(self, engine: "WGANGPEngine", state: GANTrainState,
+    def __init__(self, engine, state,
                  buffers: Dict[str, torch.Tensor], inputs: Inputs):
         self.engine = engine
         self.state = state
@@ -145,8 +148,7 @@ class _StepGraph:
         self.recorded = {}    # kernel launches one replay makes
 
     def _body(self) -> Dict[str, torch.Tensor]:
-        real, cond, draws = self.inputs(self.step_idx)
-        metrics = self.engine._fused_step(self.state, real, cond, draws)
+        metrics = self.engine._fused_step(self.state, *self.inputs(self.step_idx))
         self.step_idx.add_(1)
         return metrics
 

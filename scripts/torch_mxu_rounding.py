@@ -13,8 +13,12 @@ entry and the rows beyond one ulp: kernel vs plain version, kernel vs
 float64, plain version vs float64. The float64 evaluation rounds what the
 mode rounds (under mxu_bf16 the operands and dS / P before their products)
 and nothing else, so a distance beyond one ulp from it is a second
-rounding landing the other way, not an error of the sums. A measuring
-tool: nothing is gated.
+rounding landing the other way, not an error of the sums. For
+`flash_bwd_dkv_mxu` it also prints the margin of phase 2's per-entry bound
+(`chip_smoke.rounded_operand_bound`): the largest |kernel - plain| over the
+bound (<= 1 within it) and the same for the kernel's dk and dv scaled by
+1 + 2^-5 (the negative control, > 1 when the bound rejects it). A
+measuring tool: nothing is gated.
 """
 
 from __future__ import annotations
@@ -85,6 +89,12 @@ def main(argv) -> int:
                 parts = [f"{label}: kernel vs plain {ulps(g, w)}, kernel vs float64 "
                          f"{ulps(g, exact[label])}, plain vs float64 {ulps(w, exact[label])}"
                          for label, g, w in zip(cs.output_labels(name), got, want)]
+                if name == "flash_bwd_dkv_mxu":
+                    bound = cs.rounded_operand_bound(args)
+                    parts += [f"{label} bound margin: kernel "
+                              f"{cs.bound_ratio(g, w, bound[label]):.4f}, control "
+                              f"{cs.bound_ratio(g.float() * (1 + 2 ** -5), w, bound[label]):.4f}"
+                              for label, g, w in zip(("dk", "dv"), got, want)]
                 print(f"{name} {str(dtype).split('.')[-1]} seed {seed} "
                       f"{cs.XATTN_WHOLE_SLIDE_SHAPE}: " + "; ".join(parts), flush=True)
     return 0

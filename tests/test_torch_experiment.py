@@ -353,8 +353,8 @@ def test_cli_train_evaluate_only(data_dir, tmp_path):
         assert np.isfinite(json.load(f)["gamma_mean"])
 
 
-@pytest.mark.parametrize("extra,match", [(["--variant", "vae"], "M11"),
-                                         (["--variant", "cvae"], "M11"),
+@pytest.mark.parametrize("extra,match", [(["--variant", "vae", "--mesh_model", "2"], "M14"),
+                                         (["--variant", "cvae", "--mesh_model", "2"], "M14"),
                                          (["--mesh_model", "2"], "M14"),
                                          (["--shard_bank"], "M14")])
 def test_cli_train_unported_options_raise(tmp_path, extra, match):

@@ -272,14 +272,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gemm_gan_tpu', 'sklearn', "
         "'matplotlib')]\n"
-        "assert len(mods) >= 46, mods\n"
+        "assert len(mods) >= 55, mods\n"
         "new = {'gemm_gan_tpu_torch.' + m for m in "
         "('data.splits', 'data.loader', 'data.tcga', 'data.device_cache', "
         "'train.checkpoint', 'utils.metrics', 'eval.gamma', 'eval.knn_pr', 'eval.prdc', "
         "'eval.classifiers', 'native.forest', 'eval._sklearn_free', 'eval.detection', "
-        "'eval.privacy', 'eval.utility', 'viz', 'cli.experiment', 'cli.train')}\n"
+        "'eval.privacy', 'eval.utility', 'viz', 'cli.experiment', 'cli.train', "
+        "'native.build', 'native.ot', 'eval.distances', 'eval.heatmap', 'utils.umap_lite', "
+        "'cli.evaluate', 'models.vae', 'train.vae', 'cli.vae_experiment')}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n"
         "assert not bad, bad\n"
+        "from gemm_gan_tpu_torch.native import forest, ot\n"
+        "assert forest._lib is None and ot._lib is None  # nothing built or loaded\n"
         "print('ok', len(mods))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
