@@ -206,7 +206,29 @@ imports nothing of JAX or of the JAX package. Phases:
    best.json, evaluate best, then `cli.evaluate` over each run dir; (e)
    1 epoch, then `--resume` to 2: the final checkpoint bitwise equal to
    (d)'s. No kernel launches over the phase.
-14. Prints the most sentinel records a profiler window lost, one
+14. The serving artifact and `cli.sample`'s data sources over phase 10's
+   run: `python -m gemm_gan_tpu_torch.cli.export --which best --use_ema`
+   on the card (`torch.export`, every attention the op
+   `gemm_gan_tpu_torch::masked_mha`), loaded and served at batches of 8
+   and 3 at 256 and 1,024 patches against `GeneratorServer` of the
+   restored EMA generator on the same z (E2E_RTOL / E2E_ATOL, bitwise
+   printed), with its launches per call (Q1 per patch layer at 256
+   patches, Q3 at 1,024: `kernel_attentions`) and its ms per call beside
+   the server's; the CVAE decoder of phase 13's run exported and held
+   against `VAEEngine.sample`; `cli.sample --data_dir --ckpt_dir --which
+   best --balanced --host_dtype float16`, per call and with `--scan`
+   (bitwise equal), profiles/s.
+15. The encoders and the ingest path at the published widths on seeded
+   random weights: UNI ViT-L/16 at 256-pixel tiles and ModernBERT-base
+   at 300 tokens, card against CPU on two inputs in f32 (ENCODER_TOL of
+   the output's largest entry), bf16 against f32 by cosine (> 0.99),
+   tiles/s at batch 64 and sequences/s at batch 32 in f32 and bf16 beside
+   their bounds, and the bf16 batch's top device kernels;
+   `IngestPipeline` over synthetic tiles of 8 cases through
+   `cli.ingest`'s embed stage, the text caches over random ids and the
+   contrastive caches (`cli.preprocess`'s stages), read back by
+   `load_tcga`. No kernel launches.
+16. Prints the most sentinel records a profiler window lost, one
    `{"kernels": [...]}` JSON line (each kernel with its tile),
    the card's line, then the contract line `{"ok": true, "device": {...}}`
    last.
@@ -3064,6 +3086,332 @@ def vae_phase(fa, card, layout: str, out: str) -> dict:
     return counts
 
 
+def nonzero(counts: dict) -> dict:
+    """The kernels of a launch count that ran."""
+    return {k: n for k, n in counts.items() if n}
+
+
+# phase 14: the serving artifact of phase 10's product run, served at these
+# batch sizes and patch counts; profiles drawn per cli.sample call
+ARTIFACT_BATCHES, ARTIFACT_PATCHES = (8, 3), (NUM_PATCHES, 1024)
+
+
+def artifact_phase(fa, card, root: str) -> dict:
+    """Phase 14: `cli.export --which best --use_ema` of phase 10's product
+    run on the card; the artifact loaded and served at ARTIFACT_BATCHES x
+    ARTIFACT_PATCHES against `GeneratorServer` of the restored EMA
+    generator on the same z (E2E_RTOL / E2E_ATOL; bitwise printed), its
+    launches per call (Q1 at 256 patches, Q3 at 1,024: `kernel_attentions`)
+    and its ms per call beside the server's; the CVAE decoder of phase 13's
+    run exported and held against `VAEEngine.sample`; `cli.sample --which
+    best --balanced --host_dtype float16` with and without `--scan`, bitwise
+    equal, profiles/s. Returns the launches per path."""
+    import torch
+
+    from gemm_gan_tpu_torch.cli import export as cli_export
+    from gemm_gan_tpu_torch.cli import sample as cli_sample
+    from gemm_gan_tpu_torch.config import load_config
+    from gemm_gan_tpu_torch.data.synthetic import structured_dataset
+    from gemm_gan_tpu_torch.serving import GeneratorArtifact, GeneratorServer
+    from gemm_gan_tpu_torch.train.checkpoint import resolve_ckpt_dir, restore_state
+    from gemm_gan_tpu_torch.train.vae import VAEEngine
+    from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
+
+    t_phase = time.perf_counter()
+    run = os.path.join(root, "runs", "product")
+    art_dir = os.path.join(root, "artifacts", "product")
+    t0 = time.perf_counter()
+    cli_export.main(["--ckpt_dir", os.path.join(run, "ckpt"), "--which", "best", "--use_ema",
+                     "--out", art_dir])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = GeneratorArtifact.load(art_dir)
+    load_s = time.perf_counter() - t0
+    cfg = load_config(os.path.join(run, "config.json"))
+    ops = sum(str(n.target) == "gemm_gan_tpu_torch.masked_mha.default"
+              for n in art.program.graph.nodes)
+    print(f"[14] serving artifact of phase 10's run (cli.export --which best --use_ema): "
+          f"exported in {export_s:.1f} s, loaded in {load_s:.1f} s; "
+          f"{ops} attention ops in the program; manifest {json.dumps(art.manifest)}", flush=True)
+    assert ops == cfg.model.fusion.num_layers + 2 and art.manifest["platforms"] == ["cuda"]
+    assert art.manifest["ema"] is True and art.manifest["batch"] == "dynamic"
+    engine = WGANGPEngine(cfg)
+    ckpt, step = resolve_ckpt_dir(os.path.join(run, "ckpt"), "best")
+    state = restore_state(ckpt, engine.init_state(0, cli_export._example_batch(cfg)), step)
+    server = GeneratorServer.for_module(state.g_ema)
+    launches, errs, same = {}, {}, {}
+    for P in ARTIFACT_PATCHES:
+        data = structured_dataset(n=max(ARTIFACT_BATCHES), n_genes=cfg.model.n_genes,
+                                  num_patches=P, seed=P)
+        want_counts = kernel_attentions(cfg, patches=P)
+        for B in ARTIFACT_BATCHES:
+            cond = {k: data[k][:B] for k in server.keys}
+            z = torch.randn(B, cfg.model.latent_dim, generator=torch.Generator().manual_seed(B))
+            art(z, cond)  # warm-up
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            got = art(z, cond)
+            torch.cuda.synchronize()
+            label = f"artifact_{P}_b{B}"
+            launches[label] = fa.launch_counts()
+            want = server(z, cond)
+            errs[label] = float((got - want).abs().max())
+            same[label] = bool(torch.equal(got, want))
+            assert got.shape == (B, cfg.model.n_genes) and bool(torch.isfinite(got).all())
+            kernel = {"ble": "flash_fwd_ble", "bhld": "flash_fwd_bhld"}
+            assert launches[label] == {**dict.fromkeys(KERNELS, 0), **{
+                kernel[r]: n for r, n in want_counts.items()}}, (label, launches[label])
+            torch.testing.assert_close(got, want, rtol=E2E_RTOL, atol=E2E_ATOL)
+        cond = {k: data[k][:BATCH] for k in server.keys}
+        z = torch.randn(BATCH, cfg.model.latent_dim, generator=torch.Generator().manual_seed(0))
+        print(f"    {P} patches: artifact {cuda_ms(lambda: art(z, cond), iters=10):.3f} ms "
+              f"against GeneratorServer {cuda_ms(lambda: server(z, cond), iters=10):.3f} ms a "
+              f"call of batch {BATCH} (host data, CUDA events) on {card}", flush=True)
+    print(f"    artifact vs GeneratorServer on the same z (rtol {E2E_RTOL}, atol {E2E_ATOL}): "
+          f"max|err| {json.dumps(errs)}; bitwise {json.dumps(same)}; launches per call "
+          f"{json.dumps({k: nonzero(v) for k, v in launches.items()})}", flush=True)
+
+    # the CVAE decoder of phase 13's run
+    cvae_run = os.path.join(root, "runs", "cvae")
+    cvae_dir = os.path.join(root, "artifacts", "cvae")
+    cli_export.main(["--ckpt_dir", os.path.join(cvae_run, "ckpt"), "--which", "best",
+                     "--out", cvae_dir])
+    dec = GeneratorArtifact.load(cvae_dir)
+    vcfg = load_config(os.path.join(cvae_run, "config.json"))
+    veng = VAEEngine(vcfg)
+    ckpt, step = resolve_ckpt_dir(os.path.join(cvae_run, "ckpt"), "best")
+    vstate = restore_state(ckpt, veng.init_state(0, cli_export._example_batch(vcfg)), step)
+    rng = np.random.RandomState(1)
+    labels = {"disease": rng.randint(0, vcfg.model.fusion.n_disease_types, 64),
+              "site": rng.randint(0, vcfg.model.fusion.n_primary_sites, 64)}
+    z = rng.randn(64, vcfg.model.vae_latent_dim).astype(np.float32)
+    got = dec(z, labels).cpu()
+    want = torch.from_numpy(veng.sample(vstate, None, z=z, **labels))
+    print(f"    CVAE decoder of phase 13's run (cli.export --which best): max|err| against "
+          f"VAEEngine.sample {float((got - want).abs().max()):.3e}, bitwise "
+          f"{bool(torch.equal(got, want))}; manifest cond_spec "
+          f"{json.dumps(dec.manifest['cond_spec'])}", flush=True)
+    torch.testing.assert_close(got, want, rtol=E2E_RTOL, atol=E2E_ATOL)
+
+    # cli.sample over phase 10's layout and run
+    layout = os.path.join(root, f"tcga_{PRODUCT_CASES}")
+    outs, seconds = {}, {}
+    for label, extra in (("per-call", []), ("scan", ["--scan"])):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[label] = quiet(cli_sample.main, [
+            "--data_dir", layout, "--ckpt_dir", os.path.join(run, "ckpt"), "--which", "best",
+            "--balanced", "--host_dtype", "float16", "--out",
+            os.path.join(root, f"sample_{label}.npy"), *extra])
+        seconds[label] = time.perf_counter() - t0
+        launches[f"cli_sample_{label}"] = fa.launch_counts()
+    a, b = outs["per-call"], outs["scan"]
+    n = len(a["fake"])
+    counts = np.bincount(a["disease"]).tolist()
+    print(f"    cli.sample --which best --balanced --host_dtype float16: {a['fake'].shape} "
+          f"{a['fake'].dtype}, disease counts {counts}; --scan bitwise equal to the per-call "
+          f"path: {bool(np.array_equal(a['fake'], b['fake']))}; seconds (load, restore, "
+          f"generate, save) per-call {seconds['per-call']:.1f}, scan {seconds['scan']:.1f} "
+          f"= {n / seconds['per-call']:.1f} and {n / seconds['scan']:.1f} profiles/s on {card}; "
+          f"launches {json.dumps({k: nonzero(launches[f'cli_sample_{k}']) for k in outs})}",
+          flush=True)
+    assert a["fake"].dtype == np.float16 and np.isfinite(a["fake"]).all()
+    assert min(counts) == max(counts), counts
+    assert np.array_equal(a["fake"], b["fake"]) and np.array_equal(a["disease"], b["disease"])
+    print(f"    phase 14 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return launches
+
+
+# phase 15: the encoders at the published widths (UNI ViT-L/16 at 256-pixel
+# tiles, the ingest default; ModernBERT-base over 300 tokens), timed at
+# these batches; LayerScale gammas of the random ViT set to VIT_GAMMA so the
+# blocks move the output (UNI's init, 1e-5, would leave it the embedding's)
+VIT_TILE, VIT_BATCH, BERT_LEN, BERT_BATCH, VIT_GAMMA = 256, 64, 300, 32, 0.1
+# card (cuBLAS, f32 with TF32 off) vs CPU through 24 / 22 layers of random
+# weights: each output entry within ENCODER_TOL of the output's largest
+ENCODER_TOL = 1e-3
+INGEST_CASES, INGEST_TILES = 8, 24
+
+
+def vit_flops(p, img: int) -> float:
+    """Multiply-adds x 2 of one ViT forward over an img x img tile, as the
+    port computes it (every product, the attention's full L x L)."""
+    g = img // p.patch_size
+    L, E, M = g * g + 1, p.hidden_size, int(p.hidden_size * p.mlp_ratio)
+    layer = 2 * L * E * (3 * E + E + 2 * M) + 4 * L * L * E
+    return 2 * (g * g) * 3 * p.patch_size ** 2 * E + p.num_layers * layer
+
+
+def bert_flops(p, L: int) -> float:
+    """The same for one ModernBERT sequence of L tokens."""
+    E, inter = p.hidden_size, p.intermediate_size
+    return p.num_layers * (2 * L * E * (3 * E + E + 3 * inter) + 4 * L * L * E)
+
+
+def top_device_kernels(fn, n: int = 6) -> dict:
+    """{kernel: device ms} of the `n` kernels that one `fn()` spends the
+    most device time in (one `profiled` window, printed as read, not
+    gated)."""
+    import torch
+
+    with torch.inference_mode():
+        prof, whole = profiled(fn)
+    events = sorted(device_records(prof), key=lambda e: -e.self_device_time_total)
+    top = {e.key[:70]: round(e.self_device_time_total / 1e3, 3) for e in events[:n]}
+    return {"whole": whole, "total_ms": round(sum(e.self_device_time_total
+                                                   for e in events) / 1e3, 3), "top": top}
+
+
+def encoder_rates(model, inputs, n: int, flops: float) -> dict:
+    """Items/s of `model(*inputs)` (n items a call) by CUDA events, and the
+    bound's items/s at the f32 and bf16 data-sheet peaks."""
+    import torch
+
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: model(*inputs), iters=3, warmup=1)
+    return {"per_s": n / ms * 1e3, "ms": ms,
+            "bound_per_s": (PEAK_BF16_FLOPS if model.dtype == torch.bfloat16
+                            else PEAK_F32_FLOPS) / flops}
+
+
+def encoders_phase(fa, card, root: str) -> dict:
+    """Phase 15: UNI ViT-L/16 and ModernBERT-base on seeded random weights
+    at the published widths: card against CPU on two inputs in f32 (each
+    entry within ENCODER_TOL of the output's largest), bf16 against f32 by
+    cosine (> 0.99), tiles/s at VIT_BATCH and sequences/s at BERT_BATCH x
+    BERT_LEN in f32 and bf16 beside their bounds, the bf16 batch's top
+    device kernels (`top_device_kernels`, printed); `IngestPipeline` over
+    synthetic tiles of INGEST_CASES cases (the ViT through `cli.ingest`'s
+    `uni_embedder`), the text caches (random ids through `cli.preprocess`'s
+    `encode_caches`) and the contrastive caches, read back by `load_tcga`.
+    No kernel launches. Returns the launches."""
+    import copy
+    import pickle
+
+    import pandas as pd
+    import torch
+
+    from gemm_gan_tpu_torch.cli.ingest import uni_embedder
+    from gemm_gan_tpu_torch.cli.preprocess import contrastive, encode_caches
+    from gemm_gan_tpu_torch.data.ingest import IngestPipeline
+    from gemm_gan_tpu_torch.data.tcga import load_tcga
+    from gemm_gan_tpu_torch.encoders.modernbert import ModernBert, ModernBertParams
+    from gemm_gan_tpu_torch.encoders.vit import ViT, ViTParams, preprocess_tiles
+
+    t_phase = time.perf_counter()
+    fa.reset_launch_counts()
+    vp, bp = ViTParams(), ModernBertParams()
+    print(f"[15] the encoders at the published widths: UNI ViT-L/16 at {VIT_TILE}-pixel tiles "
+          f"({vit_flops(vp, VIT_TILE) / 1e9:.1f} GFLOP a tile), ModernBERT-base at "
+          f"{BERT_LEN} tokens ({bert_flops(bp, BERT_LEN) / 1e9:.1f} GFLOP a sequence); "
+          f"seeded random weights", flush=True)
+    t0 = time.perf_counter()
+    vit_cpu = ViT(vp, device="cpu", generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for block in vit_cpu.blocks:
+            block.ls1.gamma.fill_(VIT_GAMMA)
+            block.ls2.gamma.fill_(VIT_GAMMA)
+    bert_cpu = ModernBert(bp, device="cpu", generator=torch.Generator().manual_seed(1))
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    tiles = torch.from_numpy(preprocess_tiles(
+        rng.randint(0, 256, (2, VIT_TILE, VIT_TILE, 3)).astype(np.uint8)))
+    ids = torch.from_numpy(rng.randint(0, bp.vocab_size, (2, BERT_LEN)))
+    mask = torch.from_numpy(np.arange(BERT_LEN)[None] < np.array([BERT_LEN, 120])[:, None])
+    numbers = {"init_s": init_s}
+    for name, cpu_model, inputs, n_items, flops, batch_inputs in (
+            ("vit", vit_cpu, (tiles,), VIT_BATCH, vit_flops(vp, VIT_TILE),
+             lambda: (torch.from_numpy(preprocess_tiles(rng.randint(
+                 0, 256, (VIT_BATCH, VIT_TILE, VIT_TILE, 3)).astype(np.uint8))).cuda(),)),
+            ("modernbert", bert_cpu, (ids, mask), BERT_BATCH, bert_flops(bp, BERT_LEN),
+             lambda: (torch.from_numpy(rng.randint(0, bp.vocab_size, (BERT_BATCH, BERT_LEN))
+                                       ).cuda(),
+                      torch.ones(BERT_BATCH, BERT_LEN, dtype=torch.bool, device="cuda")))):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            want = cpu_model(*inputs)
+        cpu_s = time.perf_counter() - t0
+        card_model = copy.deepcopy(cpu_model).cuda()
+        with torch.inference_mode():
+            got = card_model(*(x.cuda() for x in inputs)).cpu()
+        err = float((got - want).abs().max() / want.abs().max())
+        card_model.dtype = torch.bfloat16
+        with torch.inference_mode():
+            half = card_model(*(x.cuda() for x in inputs)).cpu()
+        cos = torch.nn.functional.cosine_similarity(half.flatten(0, -2), want.flatten(0, -2),
+                                                    dim=-1)
+        big = batch_inputs()
+        rates = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            card_model.dtype = dtype
+            rates[str(dtype).replace("torch.", "")] = encoder_rates(card_model, big, n_items,
+                                                                    flops)
+        card_model.dtype = torch.bfloat16
+        top = top_device_kernels(lambda: card_model(*big))
+        numbers[name] = {"card_vs_cpu": err, "bf16_cos_min": float(cos.min()),
+                         "cpu_s_two_inputs": cpu_s, "rates": rates, "bf16_top_kernels": top}
+        unit = "tiles" if name == "vit" else "sequences"
+        print(f"    {name}: card vs CPU (f32, two inputs) max|err| / max|out| = {err:.3e} "
+              f"(tolerance {ENCODER_TOL}); bf16 vs f32 cosine min {float(cos.min()):.6f}; "
+              + "; ".join(f"{d} {r['per_s']:.1f} {unit}/s ({r['ms']:.2f} ms a batch of "
+                          f"{n_items}; bound {r['bound_per_s']:.1f}, share "
+                          f"{r['per_s'] / r['bound_per_s']:.3f})" for d, r in rates.items())
+              + f" on {card}; bf16 batch's top kernels (torch.profiler, device ms) "
+              f"{json.dumps(top)}", flush=True)
+        assert err <= ENCODER_TOL and bool(torch.isfinite(got).all()), (name, err)
+        assert float(cos.min()) > 0.99, (name, float(cos.min()))
+        card_model.dtype = torch.float32
+        if name == "vit":
+            vit_sd = card_model.state_dict()
+        else:
+            bert_card = card_model
+        del big
+    del vit_cpu, bert_cpu
+    torch.cuda.empty_cache()
+
+    # ingest: IngestPipeline over synthetic tiles, then the text and
+    # contrastive caches, read back by load_tcga
+    t0 = time.perf_counter()
+    d = os.path.join(root, "ingest")
+    os.makedirs(d)
+    cases = [f"case-{i:02d}" for i in range(INGEST_CASES)]
+    pd.DataFrame(rng.rand(INGEST_CASES, 64) * 8, index=pd.Index(cases, name="case_id"),
+                 columns=[f"ENSG{i:05d}" for i in range(64)]
+                 ).to_parquet(os.path.join(d, "rna_seq.parquet"))
+    with open(os.path.join(d, "metainfos.pkl"), "wb") as f:
+        pickle.dump({c: {"disease_type": "AB"[i % 2], "primary_site": "XY"[i % 2]}
+                     for i, c in enumerate(cases)}, f)
+    n_tiles = {c: INGEST_TILES - 2 * i for i, c in enumerate(cases)}
+    embed = uni_embedder(vit_sd, batch_size=VIT_BATCH)
+    pipe = IngestPipeline(
+        lambda c: c, lambda c, path: preprocess_tiles(np.random.RandomState(len(c) + n_tiles[c])
+                                                      .randint(0, 256, (n_tiles[c], VIT_TILE,
+                                                                        VIT_TILE, 3))
+                                                      .astype(np.uint8)),
+        embed, os.path.join(d, "patch_embeddings_uni"), delete_after_embed=False)
+    results = pipe.run(cases)
+    assert [r.status for r in results] == ["ok"] * INGEST_CASES, results
+    ids_by_case = {c: rng.randint(5, bp.vocab_size, BERT_LEN).astype(np.int32) for c in cases}
+    mask_by_case = {c: np.arange(BERT_LEN) < 40 + 30 * i for i, c in enumerate(cases)}
+    tok_dir = encode_caches(bert_card, ids_by_case, mask_by_case, d, BERT_BATCH)
+    pairs = contrastive(d, tok_dir, emb_dim=128, epochs=3)
+    splits = load_tcga(d, schema="multi_token", num_patches=NUM_PATCHES, max_tokens=BERT_LEN)
+    shapes = {k: list(splits["train"][k].shape[1:]) for k in ("genes", "patches", "tokens")}
+    n = sum(len(splits[s]["genes"]) for s in ("train", "val", "test"))
+    img = pd.read_parquet(os.path.join(d, "embeddings_contrastive.parquet"))
+    print(f"    ingest of {INGEST_CASES} cases ({sum(n_tiles.values())} tiles) on {card}: "
+          f"{time.perf_counter() - t0:.1f} s; {pairs}; load_tcga(multi_token) read {n} "
+          f"cases, shapes {json.dumps(shapes)}; contrastive table {list(img.shape)}", flush=True)
+    assert n == INGEST_CASES and shapes["patches"] == [NUM_PATCHES, vp.hidden_size]
+    assert shapes["tokens"] == [BERT_LEN, bp.hidden_size] and list(img.shape) == [
+        INGEST_CASES, 128]
+    counts = fa.launch_counts()
+    assert not any(counts.values()), counts
+    print(f"    phase 15 took {time.perf_counter() - t_phase:.1f} s on {card}: "
+          f"{json.dumps(numbers)}; kernel launches over the phase: none", flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3602,9 +3950,15 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         launches["posthoc"] = posthoc_phase(fa, card, os.path.join(runs, "product"))
         launches["vae"] = vae_phase(fa, card, layout, runs)
+        torch.cuda.empty_cache()
+        # ---- 14. the serving artifact and cli.sample over phase 10's run
+        launches.update(artifact_phase(fa, card, root))
+        torch.cuda.empty_cache()
+        # ---- 15. the encoders and the ingest path
+        launches["encoders"] = encoders_phase(fa, card, root)
     torch.cuda.empty_cache()
 
-    # ---- 14. report
+    # ---- 16. report
     paths = {"flash_fwd_ble": "serving", "flash_fwd_bhld": "whole_slide_serving",
              "flash_bwd_ble": "training", "flash_bwd_dq": "whole_slide_training",
              "flash_bwd_dkv": "whole_slide_training",
@@ -3619,7 +3973,7 @@ def main(argv=None) -> int:
              "flash_bwd_dq_mxu": "mxu_whole_slide_epoch_loop",
              "flash_bwd_dkv_mxu": "mxu_whole_slide_epoch_loop",
              "flash_bwd_bhld_fused_mxu": "mxu_bhld_training"}
-    print(f"[14] torch.profiler over the run: at most {PROFILER_READINGS['most_sentinels_lost']} "
+    print(f"[16] torch.profiler over the run: at most {PROFILER_READINGS['most_sentinels_lost']} "
           f"sentinel records lost at a window's start; lead-in now "
           f"{PROFILER_LEAD_IN['n']} sentinels", flush=True)
     kernels = []

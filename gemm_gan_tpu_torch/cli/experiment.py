@@ -26,8 +26,11 @@ numbers differ.) A fresh `fit` seeds the device's default generator, which
 the nets' dropout draws from, with `train.seed`; a checkpoint carries its
 state.
 
+`eval.scan_sampling` takes the engine's graphed sampling path
+(`generate_samples_all(scan=True)`, the same profiles bit for bit).
+
 Not ported: multi-process runs and a mesh or a sharded bank (`mesh`,
-`data.shard_bank` raise), and `generate_balanced`'s `host_dtype`.
+`data.shard_bank` raise).
 """
 
 from __future__ import annotations
@@ -159,7 +162,8 @@ class Experiment:
         if batches is None:
             batches = lambda: loader.epoch(epoch)  # noqa: E731
         return self.engine.generate_samples_all(state, batches, 1, generator,
-                                                device_out=device_out)
+                                                device_out=device_out,
+                                                scan=self.cfg.eval.scan_sampling)
 
     def _generator(self, seed: int, index: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(epoch_seed(seed, index))
@@ -429,9 +433,11 @@ class Experiment:
         return {k: (float(np.mean(v)), float(np.std(v))) for k, v in results.items() if v}
 
     def generate_balanced(self, state, generator: torch.Generator,
-                          num_repeats: int = 1) -> Dict:
+                          num_repeats: int = 1, host_dtype=None) -> Dict:
         """Generation over the train split oversampled to balance the
-        disease classes (at most `eval.balanced_max_oversample` x)."""
+        disease classes (at most `eval.balanced_max_oversample` x).
+        `host_dtype` goes to `generate_samples_all` (a cast on the device
+        before the copy to the host)."""
         t, ev = self.cfg.train, self.cfg.eval
         data = self.splits["train"]
         rng = np.random.RandomState(t.seed)
@@ -439,4 +445,5 @@ class Experiment:
         balanced = {k: v[idx] for k, v in data.items()}
         loader = Batches(balanced, 64, seed=t.seed, shuffle=False, drop_remainder=False)
         return self.engine.generate_samples_all(state, lambda: loader.epoch(0),
-                                                num_repeats, generator)
+                                                num_repeats, generator,
+                                                scan=ev.scan_sampling, host_dtype=host_dtype)

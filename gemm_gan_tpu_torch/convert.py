@@ -137,3 +137,43 @@ def load_params_npz(path: str) -> Dict:
     """Read an .npz written by :func:`save_params_npz` as a nested dict."""
     with np.load(path) as data:
         return unflatten_params({k: data[k] for k in data.files})
+
+
+# ------------------------------------------------------------------ encoders
+# Flax trees of the JAX encoders (`FlaxViT`, `FlaxModernBert`) -> the port's
+# modules' state dicts (timm's and HF's names): (flax regex, torch
+# replacement) on "/"-joined paths, then the generic leaf rules above
+_VIT_TO_TORCH = [
+    (r"^block_(\d+)/", r"blocks/\1/"),
+    (r"^(blocks/\d+/)(fc1|fc2)/", r"\1mlp/\2/"),
+    (r"^(blocks/\d+/)(ls1|ls2)$", r"\1\2/gamma"),
+]
+_MODERNBERT_TO_TORCH = [
+    (r"^tok_embeddings/", r"embeddings/tok_embeddings/"),
+    (r"^emb_norm/", r"embeddings/norm/"),
+    (r"^layer_(\d+)/", r"layers/\1/"),
+    (r"^(layers/\d+/)(Wi|Wo)/", r"\1mlp/\2/"),
+]
+
+
+def _encoder_state_dict(params: Mapping, rules) -> Dict[str, torch.Tensor]:
+    flat = {}
+    for path, val in flatten_params(params).items():
+        path = _rewrite(path, rules)
+        if path == "patch_embed/kernel":  # Conv [k, k, 3, E] -> [E, 3, k, k]
+            path, val = "patch_embed/proj/weight", np.asarray(val).transpose(3, 2, 0, 1)
+        elif path == "patch_embed/bias":
+            path = "patch_embed/proj/bias"
+        flat[path] = val
+    return flax_to_state_dict(unflatten_params(flat))
+
+
+def vit_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """`FlaxViT` params -> `encoders.vit.ViT`'s state dict (timm names)."""
+    return _encoder_state_dict(params, _VIT_TO_TORCH)
+
+
+def modernbert_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """`FlaxModernBert` params -> `encoders.modernbert.ModernBert`'s state
+    dict (HF names)."""
+    return _encoder_state_dict(params, _MODERNBERT_TO_TORCH)

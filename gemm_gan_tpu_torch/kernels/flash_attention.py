@@ -73,6 +73,7 @@ kernels.
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -697,6 +698,14 @@ def flash_mha(q, k, v, kv_mask=None, scale=None, mxu_bf16: bool = False):
     return FlashAttentionBHLD.apply(_scale_q(q, scale), k, v, mask, bool(mxu_bf16))
 
 
+def _dim_ge(dim, bound: int) -> bool:
+    """`dim >= bound`, False for a symbolic dim (`torch.export` with a
+    dynamic sequence length), as the JAX package's `_dim_ge`: such an
+    export takes the plain reference, not the blocked one, when the kernels
+    are off."""
+    return isinstance(dim, int) and dim >= bound
+
+
 def masked_mha(q, k, v, kv_mask=None, scale=None, use_pallas: bool = True,
                layout: str = "bhld", num_heads: int = None, mxu_bf16: bool = False):
     """Dispatch, as the JAX package's `masked_mha`: the kernels for
@@ -706,7 +715,17 @@ def masked_mha(q, k, v, kv_mask=None, scale=None, use_pallas: bool = True,
     `layout="ble"` (requires `num_heads`): q/k/v and the output are
     [B, L, E]. Single-block shapes (MIN_PALLAS_LQ <= Lq, both L <=
     BLE_MAX_L) take `flash_mha_ble`; other shapes split heads and go
-    through the classic dispatch below."""
+    through the classic dispatch below.
+
+    While `torch.export` traces (`torch.compiler.is_exporting()`), a
+    `use_pallas` call is recorded as the one op `gemm_gan_tpu_torch::
+    masked_mha`, whose implementation is this dispatch: the route is chosen
+    when the exported program runs, from the real shapes."""
+    if use_pallas and torch.compiler.is_exporting():
+        if layout == "ble" and num_heads is None:
+            raise ValueError("layout='ble' requires num_heads")
+        return torch.ops.gemm_gan_tpu_torch.masked_mha(q, k, v, kv_mask, scale, layout,
+                                                       num_heads or 0, bool(mxu_bf16))
     if layout == "ble":
         if num_heads is None:
             raise ValueError("layout='ble' requires num_heads")
@@ -723,6 +742,25 @@ def masked_mha(q, k, v, kv_mask=None, scale=None, use_pallas: bool = True,
     if use_pallas and q.shape[2] >= MIN_PALLAS_LQ:
         return flash_mha(q.contiguous(), k.contiguous(), v.contiguous(),
                          kv_mask, scale=scale, mxu_bf16=mxu_bf16)
-    if q.shape[2] >= BLOCKED_REF_MIN_LK or k.shape[2] >= BLOCKED_REF_MIN_LK:
+    if _dim_ge(q.shape[2], BLOCKED_REF_MIN_LK) or _dim_ge(k.shape[2], BLOCKED_REF_MIN_LK):
         return mha_reference_blocked(q, k, v, kv_mask, scale=scale)
     return mha_reference(q, k, v, kv_mask, scale=scale)
+
+
+@torch.library.custom_op("gemm_gan_tpu_torch::masked_mha", mutates_args=())
+def masked_mha_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_mask: Optional[torch.Tensor], scale: Optional[float], layout: str,
+                  num_heads: int, mxu_bf16: bool) -> torch.Tensor:
+    """`masked_mha(..., use_pallas=True)` as one op of an exported program
+    (`num_heads` 0 for the classic layout). On CUDA tensors it launches the
+    kernels, counted by their wrappers; on CPU tensors it runs their plain
+    versions. Inference only: it has no autograd formula."""
+    with torch.no_grad():
+        out = masked_mha(q, k, v, kv_mask, scale, use_pallas=True, layout=layout,
+                         num_heads=num_heads or None, mxu_bf16=mxu_bf16)
+    return out.contiguous()
+
+
+@masked_mha_op.register_fake
+def _masked_mha_fake(q, k, v, kv_mask, scale, layout, num_heads, mxu_bf16):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)

@@ -587,10 +587,15 @@ class WGANGPEngine:
 
     def generate_samples_all(self, state: GANTrainState, batches, num_repeats: int,
                              generator: torch.Generator, use_ema: Optional[bool] = None,
-                             device_out: bool = False) -> Dict[str, Any]:
+                             device_out: bool = False, scan: bool = False,
+                             host_dtype=None) -> Dict[str, Any]:
         """`GeneratorServer.sample_all` with the state's generator (its EMA
         by default when it tracks one). `batches` may be a callable returning
         a fresh iterable (streamed one batch at a time off a `DeviceCache`);
-        `device_out=True` keeps "real" and "fake" as device tensors."""
+        `device_out=True` keeps "real" and "fake" as device tensors;
+        `scan=True` replays one CUDA graph per batch shape (the same
+        profiles, bit for bit); `host_dtype` (e.g. float16) casts "real" and
+        "fake" on the device before the copy to the host."""
         return self._sampler(state, use_ema).sample_all(batches, num_repeats, generator,
-                                                        device_out=device_out)
+                                                        device_out=device_out, scan=scan,
+                                                        host_dtype=host_dtype)
