@@ -59,7 +59,10 @@ imports nothing of JAX or of the JAX package. Phases:
    one dropout-free step on the card against the same step on the CPU,
    beside the same step with `fusion.use_pallas=False` on the card against
    the CPU (its count of params beyond atol printed, not gated: how far
-   cuBLAS's f32 alone lands); a CUDA-event split of one step.
+   cuBLAS's f32 alone lands), and phase 9 (b)'s gradient gate
+   (`grad_gate`) at that step's starting params in f32, with its two
+   negative controls on `flash_fwd_ble` (their ratios printed); a
+   CUDA-event split of one step.
 6. Whole-slide training (4,096 patches, batch 8): `flash_fwd_bhld`,
    `flash_bwd_dq` and `flash_bwd_dkv`; one dropout-free step against the
    same step with `fusion.use_pallas=False`, both on the card, gated by
@@ -171,7 +174,13 @@ imports nothing of JAX or of the JAX package. Phases:
    the patches and over the ragged tokens reach Q1 too); (b) one
    dropout-free f32 step card vs CPU, its metrics and RMSprop's bound held
    as phase 5 (its count of params beyond PARAM_ATOL printed beside the
-   plain versions', not held: it is chaotic), launches by `step_launches`;
+   plain versions', not held: it is chaotic), launches by `step_launches`,
+   and for img_transformer, film and cross_attention `attention_gate`:
+   each kernel attention's output and q / k / v gradients under a fixed
+   cotangent, on the inputs the CPU forward gives it, card kernels vs
+   CPU within PLAIN_LOOSE_FACTOR times the plain versions' distance on
+   the card (or ATTN_GATE_FLOOR), rejecting Q1's output scaled by
+   ATTN_CONTROL_SCALE and Q1 with the last valid key of every row masked;
    (c) a graphed epoch from a `DeviceCache` of what the
    variant reads: 4 graphed steps against 4 eager ones, then 32-step
    epochs, steps/s, busy share and launches per replay. (d)
@@ -228,7 +237,27 @@ imports nothing of JAX or of the JAX package. Phases:
    `cli.ingest`'s embed stage, the text caches over random ids and the
    contrastive caches (`cli.preprocess`'s stages), read back by
    `load_tcga`. No kernel launches.
-16. Prints the most sentinel records a profiler window lost, one
+16. The rest of the single-device port. (a) `viz.tsne_2d` on the card
+   (`utils/tsne.py`): TSNE_CLUSTERS x TSNE_PER seeded Gaussian cluster
+   points at the gene width, perplexity 30: seconds, final exact KL, the
+   10-NN label agreement (at least TSNE_MIN_AGREEMENT); TSNE_SUBSET of the
+   points on the card and on the CPU, final exact KLs within TSNE_KL_RTOL.
+   (b) The flagship generator with `use_batchnorm=True` from seeded
+   Flax-layout trees (params and `batch_stats`): its eval forward served
+   card vs CPU in f32 (BN_EVAL_TOL) and bf16 (BF16_E2E_TOL), Q1 launches
+   by `kernel_attentions`; one `train=True` forward card vs CPU, output
+   and updated running buffers within BN_TRAIN_TOL. (c)
+   `train.hoist_fakes=True`: the hoisted fakes against the per-update ones
+   (card) and the CPU's; one dropout-free f32 step card vs CPU under phase
+   5's gates with phase 5's draws (at most MAX_LOOSE params beyond
+   PARAM_ATOL) and against the same step without the hoist on the card;
+   phase 9
+   (c)'s graphed bf16 flagship without and with the hoist in HOIST_TURNS
+   turns each (steps/s, a replay's device ms and events, Q1 / Q2 launches
+   a replay gated at `step_launches`). (d) `gemm_gan_tpu_torch.bench`
+   (the torch step measurement) in bf16 and f32 at BENCH_SCAN_LEN rows:
+   its JSON line, prefixed, and its launches.
+17. Prints the most sentinel records a profiler window lost, one
    `{"kernels": [...]}` JSON line (each kernel with its tile),
    the card's line, then the contract line `{"ok": true, "device": {...}}`
    last.
@@ -401,6 +430,9 @@ F32_EPS = 2 ** -23  # float32's machine epsilon
 PARAM_ATOL = 5e-5  # 1% of RMSprop's largest single update (10 lr, lr 5e-4)
 NEGLIGIBLE_GRAD = 1e-4
 MAX_LOOSE = 200
+# the params whose exact gradient is 0: an attention's k projection bias
+# adds q . b_k to every score of a softmax row, which the softmax cancels
+ZERO_GRAD_SUFFIX = "k_proj.bias"
 # The whole-slide step (phase 6), kernels vs use_pallas=False on the card:
 # there the critic's first-layer q/k projections get gradients that are
 # mostly rounding (a near-uniform softmax over 4,097 keys), and any f32
@@ -410,6 +442,19 @@ MAX_LOOSE = 200
 # PLAIN_LOOSE_FACTOR times as many entries as the plain versions do on the
 # same step (or MAX_LOOSE, if more), besides the metrics and bound gates.
 PLAIN_LOOSE_FACTOR = 2
+# phase 11 (b)'s attention gate (f32): a kernel attention's output or input
+# gradient may lie from the CPU's at most PLAIN_LOOSE_FACTOR times as far
+# (relative norm) as the plain versions' on the card, or ATTN_GATE_FLOOR if
+# more: phase 2 holds every f32 kernel to its plain version within
+# KERNEL_RTOL of each entry, so a distance below it is one that phase 2
+# already accepts. The kernels multiply in 3xTF32 (each operand split into
+# two TF32 terms, 22 of f32's 24 bits, the lo x lo product dropped): about
+# 2^-21 a product, 8 times f32's unit roundoff, so they land a few times as
+# far from the CPU as the f32 plain versions do. Its controls: Q1's output
+# scaled by ATTN_CONTROL_SCALE (2.4 times the floor), and the last valid
+# key of every row masked out
+ATTN_GATE_FLOOR = KERNEL_RTOL
+ATTN_CONTROL_SCALE = 1 + 2 ** -12
 
 
 # (kernel template, its bool template arguments[, its product mode when
@@ -1224,9 +1269,9 @@ def fusion_grads(cfg, device, g_params, d_params, batch, cot) -> dict:
     return grads
 
 
-def _relative(got, want) -> float:
-    """||got - want|| / ||want||; 0 where both are 0."""
-    diff, scale = float((got - want).norm()), float(want.norm())
+def _relative(got, want, floor: float = 0.0) -> float:
+    """||got - want|| / max(||want||, floor); 0 where both are 0."""
+    diff, scale = float((got - want).norm()), max(float(want.norm()), floor)
     return diff / scale if scale else (0.0 if diff == 0 else float("inf"))
 
 
@@ -1240,9 +1285,20 @@ def grad_distances(grads: dict, ref: dict) -> dict:
 
 
 def tensor_distances(grads: dict, ref: dict) -> dict:
-    """Per net and param, ||g - g_ref|| / ||g_ref||."""
-    return {net: {n: _relative(g, ref[net][n]) for n, g in by_name.items()}
-            for net, by_name in grads.items()}
+    """Per net and param, ||g - g_ref|| / ||g_ref||; for a param whose
+    exact gradient is 0 (ZERO_GRAD_SUFFIX: the k projections' biases, which
+    add one constant to every score of a softmax row), over NEGLIGIBLE_GRAD
+    times the net's ||g_ref|| where that is more, since both gradients are
+    then rounding (the softmax's normalisation error) and their distance
+    relative to either says nothing."""
+    import torch
+
+    out = {}
+    for net, by_name in grads.items():
+        floor = NEGLIGIBLE_GRAD * float(torch.cat([r.flatten() for r in ref[net].values()]).norm())
+        out[net] = {n: _relative(g, ref[net][n], floor if n.endswith(ZERO_GRAD_SUFFIX) else 0.0)
+                    for n, g in by_name.items()}
+    return out
 
 
 def drop_last_valid_key(mask):
@@ -1254,21 +1310,21 @@ def drop_last_valid_key(mask):
 class perturbed_forward:
     """Within this context forward wrapper `name` of `fa` is wrong on
     purpose, a negative control of the gradient gate: "scaled", its output
-    o times Q1_SCALE; "last_key_masked", its kernel run with the last valid
+    o times `scale`; "last_key_masked", its kernel run with the last valid
     key of every row masked out (the backward keeps the whole mask). The
     kernel itself still runs and counts its launches."""
 
-    def __init__(self, fa, name: str, how: str):
-        self.fa, self.name, self.how = fa, name, how
+    def __init__(self, fa, name: str, how: str, scale: float = Q1_SCALE):
+        self.fa, self.name, self.how, self.scale = fa, name, how, scale
 
     def __enter__(self):
-        kernel, how = getattr(self.fa, self.name), self.how
+        kernel, how, scale = getattr(self.fa, self.name), self.how, self.scale
 
         def wrong(q, k, v, mask, *rest):
             if how == "last_key_masked":
                 mask = drop_last_valid_key(mask)
             o, lse = kernel(q, k, v, mask, *rest)
-            return (o * Q1_SCALE if how == "scaled" else o), lse
+            return (o * scale if how == "scaled" else o), lse
 
         self.saved = kernel
         setattr(self.fa, self.name, wrong)
@@ -1553,7 +1609,9 @@ def device_breakdown(server, batch) -> dict:
 def flax_param_tree(m, seed: int, critic: bool = False) -> dict:
     """Random generator (or critic) params in the Flax layout, with the
     paths that `gemm_gan_tpu.models.gan.Generator.init` (`Critic.init`)
-    gives them for model config `m`'s fusion kind."""
+    gives them for model config `m`'s fusion kind (and, with
+    `m.use_batchnorm`, each trunk block's BatchNorm `scale` and `bias`;
+    `flax_batch_stats` gives its statistics)."""
     from gemm_gan_tpu_torch.fusion.modules import cond_dim_of
 
     rng = np.random.RandomState(seed)
@@ -1619,10 +1677,24 @@ def flax_param_tree(m, seed: int, critic: bool = False) -> dict:
         dims, out = [m.n_genes + C, *m.disc_dims], 1
     else:
         dims, out = [m.latent_dim + C, *m.gen_dims], m.n_genes
-    trunk = {f"LinearBlock_{i}": {"Dense_0": dense(a, b)}
-             for i, (a, b) in enumerate(zip(dims[:-1], dims[1:]))}
+    trunk = {}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        trunk[f"LinearBlock_{i}"] = {"Dense_0": dense(a, b)}
+        if m.use_batchnorm:
+            trunk[f"LinearBlock_{i}"]["BatchNorm_0"] = norm(b)
     trunk["Dense_0"] = dense(dims[-1], out)
     return {"trunk": trunk} if fusion is None else {"fusion": fusion, "trunk": trunk}
+
+
+def flax_batch_stats(m, seed: int, critic: bool = False) -> dict:
+    """Random BatchNorm statistics of a `use_batchnorm` trunk in Flax's
+    `batch_stats` layout: each block's `mean` ~ 0.1 N(0, 1) and `var` in
+    [0.5, 1.5)."""
+    rng = np.random.RandomState(seed)
+    dims = m.disc_dims if critic else m.gen_dims
+    return {"trunk": {f"LinearBlock_{i}": {"BatchNorm_0": {
+        "mean": (0.1 * rng.randn(h)).astype(np.float32),
+        "var": (0.5 + rng.rand(h)).astype(np.float32)}} for i, h in enumerate(dims)}}
 
 
 def train_cfg(cfg, **fusion):
@@ -2387,6 +2459,80 @@ def variant_serving(fa, cfg, params, batches, label) -> dict:
     return launches
 
 
+def attention_gate(fa, cfg, device, g_params, d_params, batch) -> dict:
+    """11 (b)'s gate, ahead of the ReLUs that make whole-net gradients jump:
+    each kernel attention (Q1 / Q2) of both nets' fusions at the step's
+    starting params (dropout 0), on the inputs that the CPU forward gives
+    it (q, k, v, mask), under a fixed seeded cotangent of its output: the
+    output and the gradients w.r.t. q, k and v computed by the kernels on
+    `device` (the card; "cpu" in the tests), by the plain versions there
+    (`plain_kernels`, the yardstick) and by the plain versions on the CPU. Each tensor may lie
+    from the CPU's (||x - x_cpu|| / ||x_cpu||) at most PLAIN_LOOSE_FACTOR
+    times as far as the yardstick's, or ATTN_GATE_FLOOR if more; the gate
+    must reject two negative controls (`perturbed_forward`): Q1's output
+    scaled by ATTN_CONTROL_SCALE, and the last valid key of every row
+    masked out. Raises otherwise; returns the distances' largest ratios to
+    their limits (the kernels', the controls'), the attentions gated and
+    the kernels' launches."""
+    import torch
+
+    from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
+
+    engine = WGANGPEngine(cfg, steps_per_epoch=1, device="cpu")
+    state = engine.state_from_flax(g_params, d_params)
+    _, cond = engine._tensors(batch)
+    calls, kernel_call = [], fa.flash_mha_ble
+
+    def record(q, k, v, kv_mask=None, scale=None, num_heads=4, mxu_bf16=False):
+        calls.append((q.detach().clone(), k.detach().clone(), v.detach().clone(),
+                      kv_mask, scale, num_heads, mxu_bf16))
+        return kernel_call(q, k, v, kv_mask, scale=scale, num_heads=num_heads,
+                           mxu_bf16=mxu_bf16)
+
+    fa.flash_mha_ble = record
+    try:
+        with torch.no_grad():
+            for net in (state.critic, state.gen):
+                net.fusion(cond)
+    finally:
+        fa.flash_mha_ble = kernel_call
+    assert calls, "no kernel attention in the fusions"
+    g = torch.Generator().manual_seed(61)
+    cots = [torch.randn(q.shape, generator=g) for q, *_ in calls]
+
+    def run(device):
+        out = []
+        for (q, k, v, mask, scale, heads, mxu), cot in zip(calls, cots):
+            q, k, v = (t.to(device).requires_grad_() for t in (q, k, v))
+            o = fa.flash_mha_ble(q, k, v, None if mask is None else mask.to(device),
+                                 scale=scale, num_heads=heads, mxu_bf16=mxu)
+            grads = torch.autograd.grad(o, (q, k, v), cot.to(device))
+            out.append({n: t.detach().double().cpu()
+                        for n, t in zip(("o", "dq", "dk", "dv"), (o, *grads))})
+        return out
+
+    cpu = run("cpu")
+    with plain_kernels(fa):
+        plain = run(device)
+    fa.reset_launch_counts()
+    runs = {"kernels": run(device)}
+    launches = {k: n for k, n in fa.launch_counts().items() if n}
+    for how in ("scaled", "last_key_masked"):
+        with perturbed_forward(fa, "flash_fwd_ble", how, ATTN_CONTROL_SCALE):
+            runs[how] = run(device)
+    summary = {"attentions": len(calls), "launches": launches,
+               "plain_largest": max(_relative(p[n], c[n]) for p, c in zip(plain, cpu) for n in c)}
+    for label, got in runs.items():
+        summary[label] = max(
+            (_relative(x[n], c[n]) / max(PLAIN_LOOSE_FACTOR * _relative(p[n], c[n]),
+                                         ATTN_GATE_FLOOR), f"attention {i} {n}")
+            for i, (x, p, c) in enumerate(zip(got, plain, cpu)) for n in c)
+    assert summary["kernels"][0] <= 1, ("the attention gate rejects the kernels", summary)
+    for how in ("scaled", "last_key_masked"):
+        assert summary[how][0] > 1, (f"the attention gate accepts the {how} control", summary)
+    return summary
+
+
 def variant_step(fa, exp, params, d_params, batch, label) -> dict:
     """11 (b): one dropout-free f32 step on the card against the same step
     on the CPU: metrics within STEP_RTOL / STEP_ATOL and every param within
@@ -2399,8 +2545,9 @@ def variant_step(fa, exp, params, d_params, batch, label) -> dict:
     can miss PARAM_ATOL on a few hundred entries or on a hundred thousand;
     and an f32 ReLU whose input is within rounding of 0 flips one way or
     the other, moving the first gradients in a jump (PERF.md gives both).
-    A variant with no kernel attention runs the same ops either way.
-    Returns the launches."""
+    A variant with no kernel attention runs the same ops either way; one
+    that has some is held by `attention_gate` at its kernel attentions'
+    outputs and input gradients. Returns the launches."""
     import torch
 
     cfg0 = train_cfg(exp, dropout=0.0)
@@ -2430,6 +2577,14 @@ def variant_step(fa, exp, params, d_params, batch, label) -> dict:
           f"gradients' distances from the CPU's (not held): kernels "
           f"{json.dumps(grad_distances(grads('cuda'), cpu_grads))}, plain versions "
           f"{json.dumps(plain_grads)}; launches {launches}", flush=True)
+    if n_fwd:
+        gate = attention_gate(fa, cfg0, "cuda", params, d_params, batch)
+        print(f"    ({label}) attention gate (each kernel attention's output and q / k / v "
+              f"gradients under a fixed cotangent, card kernels vs CPU, at most "
+              f"{PLAIN_LOOSE_FACTOR} x the plain versions' distance on the card or "
+              f"{ATTN_GATE_FLOOR}; largest ratio to its limit): {json.dumps(gate)}; the "
+              f"controls scale flash_fwd_ble's output by {ATTN_CONTROL_SCALE} or mask the last "
+              f"valid key of every row", flush=True)
     return launches
 
 
@@ -3412,6 +3567,288 @@ def encoders_phase(fa, card, root: str) -> dict:
     return counts
 
 
+# phase 16: the rest of the single-device port (t-SNE on the card, BatchNorm
+# trunks, hoist_fakes, the torch step measurement). (a): TSNE_CLUSTERS
+# seeded Gaussian clusters of TSNE_PER points at the gene width, the
+# 10-NN label agreement of the embedding at least TSNE_MIN_AGREEMENT, and
+# TSNE_SUBSET of the points on the card and on the CPU with final exact
+# KLs within TSNE_KL_RTOL of each other (two float32 runs of the same
+# schedule, other summation orders)
+TSNE_CLUSTERS, TSNE_PER, TSNE_SUBSET, TSNE_NEIGHBORS = 8, 256, 512, 10
+TSNE_MIN_AGREEMENT, TSNE_KL_RTOL = 0.9, 0.05
+# (b): card vs CPU, the eval forward in f32 within BN_EVAL_TOL of the
+# output's largest entry (phase 3's serving gate), in bf16 within
+# BF16_E2E_TOL (phase 9's); one train=True forward, its output and its
+# updated running buffers each within BN_TRAIN_TOL of their largest entry
+BN_EVAL_TOL, BN_TRAIN_TOL = 1e-4, 1e-5
+# (c): the hoist A/B on a bank of HOIST_BANK_CASES (64 graphed steps an
+# epoch), HOIST_TURNS epochs each way in turns
+HOIST_BANK_CASES, HOIST_TURNS = 512, 3
+# (d): the bench function's calls
+BENCH_SCAN_LEN, BENCH_CALLS = 100, 4
+
+
+def label_agreement(y, labels, k: int = TSNE_NEIGHBORS) -> float:
+    """The share of each point's k nearest neighbours in the embedding `y`
+    [n, 2] that carry its label, averaged over the points."""
+    y = np.asarray(y, np.float64)
+    d = ((y[:, None] - y[None]) ** 2).sum(-1)
+    np.fill_diagonal(d, np.inf)
+    labels = np.asarray(labels)
+    return float((labels[np.argsort(d, 1)[:, :k]] == labels[:, None]).mean())
+
+
+def tsne_phase(card) -> dict:
+    """16 (a): `viz.tsne_2d` on the card (`utils.tsne`): TSNE_CLUSTERS x
+    TSNE_PER points of PRODUCT_GENES dims (seeded Gaussian clusters, centers
+    N(0, 1), points N(0, 1) around them), perplexity 30; seconds, the final
+    exact KL, the iterations and the 10-NN label agreement (gated at
+    TSNE_MIN_AGREEMENT); then TSNE_SUBSET of the points (every cluster
+    alike) on the card and on the CPU, their final exact KLs within
+    TSNE_KL_RTOL. Returns the launches (none)."""
+    import torch
+
+    from gemm_gan_tpu_torch import viz
+    from gemm_gan_tpu_torch.kernels import flash_attention as fa
+    from gemm_gan_tpu_torch.utils import tsne as tsne_lib
+
+    rng = np.random.RandomState(16)
+    centers = rng.randn(TSNE_CLUSTERS, PRODUCT_GENES).astype(np.float32)
+    x = np.concatenate([c + rng.randn(TSNE_PER, PRODUCT_GENES).astype(np.float32)
+                        for c in centers])
+    labels = np.repeat(np.arange(TSNE_CLUSTERS), TSNE_PER)
+    fa.reset_launch_counts()
+    viz.tsne_2d(x[:64])  # warm-up: cuSOLVER, cuBLAS in float64
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tsne_lib.tsne(x, 30.0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fa.launch_counts()
+    agreement = label_agreement(res.embedding, labels)
+    assert res.embedding.shape == (len(x), 2) and np.isfinite(res.embedding).all()
+    print(f"[16] (a) t-SNE on the card: {len(x)} points x {PRODUCT_GENES} dims "
+          f"({TSNE_CLUSTERS} clusters), perplexity 30: {seconds:.3f} s on {card}; final exact KL "
+          f"{res.kl_divergence:.6f} after {res.n_iter + 1} iterations; {TSNE_NEIGHBORS}-NN label "
+          f"agreement {agreement:.4f} (at least {TSNE_MIN_AGREEMENT})", flush=True)
+    assert agreement >= TSNE_MIN_AGREEMENT, agreement
+    sub = x.reshape(TSNE_CLUSTERS, TSNE_PER, -1)[:, :TSNE_SUBSET // TSNE_CLUSTERS].reshape(
+        TSNE_SUBSET, -1)
+    kls, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        kls[device] = tsne_lib.tsne(sub, 30.0, device=device).kl_divergence
+        secs[device] = round(time.perf_counter() - t0, 3)
+    rel = abs(kls["cuda"] - kls["cpu"]) / kls["cpu"]
+    print(f"    (a) {TSNE_SUBSET} of the points, card vs CPU: final exact KL {kls['cuda']:.6f} / "
+          f"{kls['cpu']:.6f} (relative {rel:.2e}, at most {TSNE_KL_RTOL}); seconds {secs}",
+          flush=True)
+    assert rel <= TSNE_KL_RTOL, kls
+    assert not any(launches.values()), launches
+    return launches
+
+
+def batchnorm_phase(fa, card, exp, batch) -> dict:
+    """16 (b): the flagship generator with `use_batchnorm=True` at the
+    published widths, from seeded Flax-layout trees (`flax_param_tree`,
+    `flax_batch_stats`) through `convert.py`: its eval forward served by
+    `GeneratorServer` card vs CPU in f32 (BN_EVAL_TOL) and bf16
+    (BF16_E2E_TOL) of the output's largest entry, with Q1 launched
+    `kernel_attentions` times a forward; one `train=True` forward card vs
+    CPU, its output and its updated running buffers within BN_TRAIN_TOL of
+    their largest entry. Returns the f32 eval forward's launches."""
+    import torch
+
+    from gemm_gan_tpu_torch.convert import flax_to_state_dict
+    from gemm_gan_tpu_torch.models.gan import Generator
+    from gemm_gan_tpu_torch.serving import GeneratorServer, cond_keys_for, to_device
+
+    cfg = dataclasses.replace(exp.model, use_batchnorm=True)
+    sd = flax_to_state_dict(flax_param_tree(cfg, seed=60), flax_batch_stats(cfg, seed=61))
+    z = torch.randn(BATCH, cfg.latent_dim, generator=torch.Generator().manual_seed(62))
+    n_q1 = kernel_attentions(cfg)["ble"]
+    out = {}
+    for dtype, kernel, tol in (("float32", "flash_fwd_ble", BN_EVAL_TOL),
+                               ("bfloat16", "flash_fwd_ble_bf16", BF16_E2E_TOL)):
+        cfg_ = dataclasses.replace(cfg, compute_dtype=dtype)
+        server = GeneratorServer(cfg_, sd)
+        server(z, batch)  # warm-up
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        on_card = server(z, batch).cpu()
+        torch.cuda.synchronize()
+        launches = fa.launch_counts()
+        on_cpu = GeneratorServer(cfg_, sd, device="cpu")(z, batch)
+        err, scale = float((on_card - on_cpu).abs().max()), float(on_cpu.abs().max())
+        print(f"    (b) BatchNorm generator, eval forward in {dtype}, card vs CPU: max|err| "
+              f"{err:.3e} (max|out| {scale:.3f}; at most {tol} x max|out|); launches "
+              f"{nonzero(launches)}", flush=True)
+        assert np.isfinite(on_card.numpy()).all() and err <= tol * scale, (dtype, err, scale)
+        assert launches == {**dict.fromkeys(KERNELS, 0), kernel: n_q1}, launches
+        out[dtype] = launches
+    nets = {}
+    for device in ("cuda", "cpu"):
+        gen = Generator(cfg, device=device)
+        gen.load_state_dict(sd)
+        gen.eval()  # dropout off; the trunk's BatchNorm follows `train`
+        cond = {k: to_device(batch[k], torch.device(device)) for k in cond_keys_for(cfg.fusion)}
+        with torch.no_grad():
+            y = gen(z.to(device), cond, train=True).cpu()
+        nets[device] = (y, {k: b.cpu() for k, b in gen.named_buffers()})
+    errs = {}
+    for name, got, want in (("output", nets["cuda"][0], nets["cpu"][0]),
+                            *((k, nets["cuda"][1][k], b) for k, b in nets["cpu"][1].items())):
+        errs[name] = float((got - want).abs().max()) / float(want.abs().max())
+        assert errs[name] <= BN_TRAIN_TOL, (name, errs)
+    moved = any(not torch.equal(b, sd[k]) for k, b in nets["cpu"][1].items())
+    print(f"    (b) one train=True forward (batch statistics, running buffers updated), card "
+          f"vs CPU, max|err| / max|ref| (at most {BN_TRAIN_TOL}): {json.dumps(errs)}; the "
+          f"buffers moved: {moved}", flush=True)
+    assert moved
+    return out["float32"]
+
+
+def hoist_phase(fa, card, exp, params, d_params, batch) -> dict:
+    """16 (c): `train.hoist_fakes=True`. The hoisted fakes (one generator
+    trunk forward over [n_critic * B] rows) against the per-update ones on
+    the card and against the CPU's, within E2E_RTOL / E2E_ATOL. One
+    dropout-free f32 step with the hoist card vs CPU under phase 5's gates
+    with phase 5's draws (`step_diff`: metrics, RMSprop's bound, at most
+    MAX_LOOSE params beyond PARAM_ATOL), the same step without the hoist
+    printed beside it; and the step with the hoist against without it on
+    the card (metrics within STEP_RTOL / STEP_ATOL, counts printed). Then phase 9
+    (c)'s graphed bf16 flagship (dropout 0.1) on a bank of
+    HOIST_BANK_CASES, without and with the hoist in HOIST_TURNS turns each:
+    steps/s (host clock), a replay's device ms and events (`replay_busy`
+    over a SMALL_CASES cache) and Q1 / Q2 launches a replay, gated
+    unchanged at `step_launches`. Returns the hoisted bank epochs'
+    launches."""
+    import torch
+
+    from gemm_gan_tpu_torch.data.device_cache import DeviceCache
+    from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
+
+    cfg0 = with_train(train_cfg(exp, dropout=0.0), hoist_fakes=True)
+    cfg_u = with_train(cfg0, hoist_fakes=False)
+    draws = random_draws(cfg0, seed=5)  # phase 5's
+    fakes = {}
+    for device in ("cuda", "cpu"):
+        engine = WGANGPEngine(cfg0, device=device)
+        state = engine.state_from_flax(params, d_params)
+        _, cond = engine._tensors(batch)
+        z = torch.as_tensor(draws["z"], device=device)
+        with torch.no_grad():
+            g_cvec = engine.embed_generator(state, cond)
+            fakes[device] = (engine.hoisted_fakes(state, g_cvec, z).cpu(),
+                             torch.stack([state.gen.score(zi, g_cvec) for zi in z]).cpu())
+        del engine, state
+    errs = {"card: hoisted vs per-update": float((fakes["cuda"][0] - fakes["cuda"][1]).abs().max()),
+            "hoisted: card vs CPU": float((fakes["cuda"][0] - fakes["cpu"][0]).abs().max())}
+    print(f"    (c) hoist_fakes' fakes [{cfg0.train.n_critic}, {BATCH}, {exp.model.n_genes}], "
+          f"max|err| (rtol {E2E_RTOL}, atol {E2E_ATOL}; max|fake| "
+          f"{float(fakes['cpu'][1].abs().max()):.3f}): {json.dumps(errs)}", flush=True)
+    torch.testing.assert_close(fakes["cuda"][0], fakes["cuda"][1], rtol=E2E_RTOL, atol=E2E_ATOL)
+    torch.testing.assert_close(fakes["cuda"][0], fakes["cpu"][0], rtol=E2E_RTOL, atol=E2E_ATOL)
+    args = (params, d_params, batch, draws)
+    unhoisted = run_step(cfg_u, "cuda", *args)
+    base = step_diff(unhoisted, run_step(cfg_u, "cpu", *args), max_loose={})
+    fa.reset_launch_counts()
+    hoisted = run_step(cfg0, "cuda", *args)
+    step_launch = fa.launch_counts()
+    cmp = step_diff(hoisted, run_step(cfg0, "cpu", *args))
+    print(f"    (c) hoist_fakes, one f32 step at dropout 0 with phase 5's draws, card vs CPU: "
+          f"{json.dumps(cmp)} (metrics rtol {STEP_RTOL}, atol {STEP_ATOL}; at most {MAX_LOOSE} "
+          f"params beyond atol {PARAM_ATOL}; the same step without the hoist, card vs CPU, "
+          f"misses it on {base['beyond_atol_by_net']}); launches {nonzero(step_launch)}",
+          flush=True)
+    n_fwd, n_bwd = step_launches(cfg0)
+    assert step_launch == {**dict.fromkeys(KERNELS, 0), "flash_fwd_ble": n_fwd,
+                           "flash_bwd_ble": n_bwd}, step_launch
+    cmp = step_diff(hoisted, unhoisted, max_loose={})
+    print(f"    (c) the same step with the hoist vs without, both on the card: {json.dumps(cmp)} "
+          f"(metrics rtol {STEP_RTOL}, atol {STEP_ATOL})", flush=True)
+
+    exp16 = dataclasses.replace(exp, model=dataclasses.replace(exp.model,
+                                                               compute_dtype="bfloat16"))
+    data = bank_data(exp.model, HOIST_BANK_CASES, seed=64)
+    cache_kw = dict(batch_size=BATCH, num_patches=NUM_PATCHES, seed=0,
+                    embedding_store_dtype=torch.bfloat16)
+    bank = DeviceCache(data, **cache_kw)
+    small = DeviceCache({k: v[:SMALL_CASES] for k, v in data.items()}, **cache_kw)
+    del data
+    K = bank.n_full_batches
+    n_fwd, n_bwd = step_launches(train_cfg(exp16))
+    want = {"flash_fwd_ble_bf16": n_fwd, "flash_bwd_ble_bf16": n_bwd}
+    runs = {}
+    for hoist in (False, True):
+        cfg_ = with_train(train_cfg(exp16), hoist_fakes=hoist)
+        engine = WGANGPEngine(cfg_, steps_per_epoch=K)
+        state = engine.state_from_flax(params, d_params, seed=0)
+        assert engine.hoist is hoist
+        engine.step_many_cached(state, bank, 0)  # warm-up step and capture
+        engine.step_many_cached(state, small, 0)
+        busy = replay_busy(engine, state, small, 1)
+        recorded = engine._cached_graphs[bank].recorded
+        assert recorded == want, (hoist, recorded)
+        runs[hoist] = {"engine": engine, "state": state, "sps": [], "busy": busy,
+                       "recorded": recorded}
+    launches = None
+    for turn in range(HOIST_TURNS):
+        for hoist in (False, True):
+            r = runs[hoist]
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, metrics = r["engine"].step_many_cached(r["state"], bank, 1 + turn)
+            torch.cuda.synchronize()
+            r["sps"].append(K / (time.perf_counter() - t0))
+            got = fa.launch_counts()
+            assert all(np.isfinite(v) for v in floats(metrics).values()), metrics
+            assert got == {**dict.fromkeys(KERNELS, 0),
+                           **{k: n * K for k, n in want.items()}}, got
+            if hoist:
+                launches = got
+    for hoist in (False, True):
+        r = runs[hoist]
+        busy = r["busy"] or {}
+        print(f"    (c) graphed bf16 flagship, hoist_fakes={hoist}: steps/s per turn "
+              f"{[round(v, 2) for v in r['sps']]} ({K}-step epochs, host clock) on {card}; a "
+              f"replay: {busy.get('device_ms', 'not measured')} ms of device time, "
+              f"{busy.get('device_events', 'not measured')} device events "
+              f"({busy.get('readings')} readings); launches a replay {r['recorded']}",
+              flush=True)
+    gain = np.median(runs[True]["sps"]) / np.median(runs[False]["sps"])
+    print(f"    (c) hoisted / not, median steps/s: {gain:.4f} on {card}", flush=True)
+    del runs, bank, small
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bench_phase(fa, card) -> dict:
+    """16 (d): `gemm_gan_tpu_torch.bench.measure` in bf16 and f32 at
+    BENCH_SCAN_LEN rows, BENCH_CALLS calls: its JSON line (prefixed),
+    launches of Q1 / Q2 equal every step's `step_launches`. Returns
+    {"bench_bf16": launches, "bench_f32": launches}."""
+    import torch
+
+    from gemm_gan_tpu_torch import bench
+
+    out = {}
+    for dtype, label, mode in (("bfloat16", "bench_bf16", "_bf16"), ("float32", "bench_f32", "")):
+        fa.reset_launch_counts()
+        record = bench.measure(dtype, BENCH_SCAN_LEN, BENCH_CALLS)
+        torch.cuda.synchronize()
+        out[label] = fa.launch_counts()
+        print(f"    (d) gemm_gan_tpu_torch.bench {dtype}: {json.dumps(record)}", flush=True)
+        assert np.isfinite(record["value"]) and record["value"] > 0, record
+        n_fwd, n_bwd = step_launches(bench.bench_config(dtype))
+        steps = BENCH_SCAN_LEN * BENCH_CALLS
+        assert out[label] == {**dict.fromkeys(KERNELS, 0), f"flash_fwd_ble{mode}": n_fwd * steps,
+                              f"flash_bwd_ble{mode}": n_bwd * steps}, out[label]
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3630,6 +4067,14 @@ def main(argv=None) -> int:
     print(f"    card vs CPU, one step at dropout 0: {json.dumps(cmp)} (metrics rtol "
           f"{STEP_RTOL}, atol {STEP_ATOL}; at most {MAX_LOOSE} params beyond atol "
           f"{PARAM_ATOL})", flush=True)
+    gate = grad_gate(fa, train_cfg(exp, dropout=0.0), "cuda", step_args, "flash_fwd_ble")
+    assert gate["launches"].get("flash_fwd_ble") and gate["launches"].get("flash_bwd_ble"), gate
+    print(f"    f32 gradient gate at the same step's starting params (||g - g_cpu|| / ||g_cpu|| "
+          f"of the fusions' params' gradients under the CPU step's cotangents; per param at "
+          f"most {PLAIN_LOOSE_FACTOR} x the plain versions' on the card or {GRAD_GATE_FLOOR}; "
+          f"whole nets and the largest ratio to its limit printed, the controls' too): "
+          f"{json.dumps(gate)}; the controls scale flash_fwd_ble's output by {Q1_SCALE} or mask "
+          f"the last valid key of every row", flush=True)
 
     # ---- 6. whole-slide training
     engine = WGANGPEngine(tcfg, steps_per_epoch=1)
@@ -3958,7 +4403,16 @@ def main(argv=None) -> int:
         launches["encoders"] = encoders_phase(fa, card, root)
     torch.cuda.empty_cache()
 
-    # ---- 16. report
+    # ---- 16. t-SNE on the card, BatchNorm trunks, hoist_fakes, the bench
+    t0 = time.perf_counter()
+    launches["tsne"] = tsne_phase(card)
+    launches["batchnorm_serving"] = batchnorm_phase(fa, card, exp, batches[0])
+    launches["hoist_epoch_loop"] = hoist_phase(fa, card, exp, params, d_params, batches[0])
+    launches.update(bench_phase(fa, card))
+    print(f"    phase 16 took {time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 17. report
     paths = {"flash_fwd_ble": "serving", "flash_fwd_bhld": "whole_slide_serving",
              "flash_bwd_ble": "training", "flash_bwd_dq": "whole_slide_training",
              "flash_bwd_dkv": "whole_slide_training",
@@ -3973,7 +4427,7 @@ def main(argv=None) -> int:
              "flash_bwd_dq_mxu": "mxu_whole_slide_epoch_loop",
              "flash_bwd_dkv_mxu": "mxu_whole_slide_epoch_loop",
              "flash_bwd_bhld_fused_mxu": "mxu_bhld_training"}
-    print(f"[16] torch.profiler over the run: at most {PROFILER_READINGS['most_sentinels_lost']} "
+    print(f"[17] torch.profiler over the run: at most {PROFILER_READINGS['most_sentinels_lost']} "
           f"sentinel records lost at a window's start; lead-in now "
           f"{PROFILER_LEAD_IN['n']} sentinels", flush=True)
     kernels = []

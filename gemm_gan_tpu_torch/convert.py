@@ -20,17 +20,24 @@ Mapping (Flax path -> torch key), applied to any subtree:
   MaskedMultiHeadAttention_0          -> self_attn
   (in a layer) LayerNorm_0/1, Dense_0/1 -> norm1/2, linear1/2
   LinearBlock_{i}/Dense_0             -> blocks.{i}.linear
+  LinearBlock_{i}/BatchNorm_0         -> blocks.{i}.norm (`scale` -> `weight`)
   (trunk head) Dense_0                -> head
   (VAE / CVAE) encoder/Dense_{i}      -> encoder.dense.{i}
   (VAE / CVAE) decoder/Dense_{i}      -> decoder.dense.{i}
 The VAE's heads (`mu_head`, `logvar_head`, `out_head`, `out_logvar`) and
 the CVAE's tables (`disease_embed`, `site_embed`) keep their names.
+
+A BatchNorm trunk's statistics are Flax's `batch_stats` collection
+(`LinearBlock_{i}/BatchNorm_0/{mean,var}`), the modules' buffers
+`blocks.{i}.norm.running_{mean,var}`: `flax_to_state_dict(params,
+batch_stats)` takes them, `state_dict_to_batch_stats(sd)` gives them back
+(`state_dict_to_flax` gives the params only).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -48,6 +55,7 @@ _TO_TORCH = [
     (_LAYER + r"Dense_0/", r"layers/\1/linear1/"),
     (_LAYER + r"Dense_1/", r"layers/\1/linear2/"),
     (r"(^|/)LinearBlock_(\d+)/Dense_0/", r"\1blocks/\2/linear/"),
+    (r"(^|/)LinearBlock_(\d+)/BatchNorm_0/", r"\1blocks/\2/norm/"),
     (r"(^|/)Dense_0/(kernel|bias)$", r"\1head/\2"),
 ]
 _LAYERS = r"layers/(\d+)/"
@@ -61,10 +69,14 @@ _TO_FLAX = [
     (_LAYERS + r"linear1/", r"TransformerEncoderLayer_\1/Dense_0/"),
     (_LAYERS + r"linear2/", r"TransformerEncoderLayer_\1/Dense_1/"),
     (r"(^|/)blocks/(\d+)/linear/", r"\1LinearBlock_\2/Dense_0/"),
+    (r"(^|/)blocks/(\d+)/norm/", r"\1LinearBlock_\2/BatchNorm_0/"),
     (r"(^|/)head/", r"\1Dense_0/"),
 ]
 # the modules whose 2-D `weight` is an embedding table, not a Linear's
 _EMBEDDINGS = ("disease_embed", "site_embed")
+# batch_stats leaf -> buffer name, and back
+_STATS = {"mean": "running_mean", "var": "running_var"}
+_STATS_BACK = {v: k for k, v in _STATS.items()}
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -96,8 +108,11 @@ def _rewrite(path: str, rules) -> str:
     return path
 
 
-def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax param tree (nested or "/"-flattened numpy) -> torch state_dict."""
+def flax_to_state_dict(params: Mapping,
+                       batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """Flax param tree (nested or "/"-flattened numpy) -> torch state_dict;
+    with `batch_stats` (the `batch_stats` collection of a BatchNorm trunk),
+    its `mean` / `var` become the `running_mean` / `running_var` buffers."""
     sd = {}
     for path, val in flatten_params(params).items():
         path = _rewrite(path, _TO_TORCH)
@@ -108,15 +123,24 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             leaf = "weight"
         sd[".".join([*parents, leaf])] = torch.tensor(np.asarray(val),
                                                       dtype=torch.float32)
+    for path, val in flatten_params(batch_stats or {}).items():
+        *parents, leaf = _rewrite(path, _TO_TORCH).split("/")
+        if leaf not in _STATS:
+            raise ValueError(f"batch_stats entry {path!r} is not a BatchNorm mean or var")
+        sd[".".join([*parents, _STATS[leaf]])] = torch.tensor(np.asarray(val),
+                                                              dtype=torch.float32)
     return sd
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
-    """Inverse of :func:`flax_to_state_dict`: a nested Flax-layout dict of
-    numpy arrays."""
+    """Inverse of :func:`flax_to_state_dict` for the params: a nested
+    Flax-layout dict of numpy arrays (BatchNorm running buffers left out:
+    :func:`state_dict_to_batch_stats`)."""
     flat = {}
     for key, val in state_dict.items():
         *parents, leaf = key.split(".")
+        if leaf in _STATS_BACK:
+            continue
         arr = val.detach().cpu().numpy()
         if leaf == "weight" and parents and parents[-1] in _EMBEDDINGS:
             leaf = "embedding"
@@ -125,6 +149,19 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
         path = _rewrite("/".join([*parents, leaf]), _TO_FLAX)
         flat[path] = np.ascontiguousarray(arr)
     return unflatten_params(flat)
+
+
+def state_dict_to_batch_stats(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The BatchNorm running buffers of a state dict as Flax's
+    `batch_stats` collection (nested, numpy); the inverse of
+    :func:`flax_to_state_dict`'s `batch_stats` argument."""
+    stats = {}
+    for key, val in state_dict.items():
+        *parents, leaf = key.split(".")
+        if leaf in _STATS_BACK:
+            path = _rewrite("/".join([*parents, _STATS_BACK[leaf]]), _TO_FLAX)
+            stats[path] = val.detach().cpu().numpy().copy()
+    return unflatten_params(stats)
 
 
 def save_params_npz(params: Mapping, path: str) -> None:

@@ -14,13 +14,16 @@ scales, a truncated-normal(0.02) CLS token, and embedding tables from
 `default_embed_init` (an untruncated normal, std sqrt(1/features)).
 
 Params stay f32. `compute_dtype="bfloat16"` runs the fusion and the
-trunks' hidden Linears in bf16 (the trunks' heads, LayerNorms and the
-condition vector `embed_cond` returns stay f32), as the JAX modules with
-`dtype=jnp.bfloat16`; `fusion.flash_mxu_bf16` rounds the flash kernels'
-product operands to bf16. Every fusion kind of the JAX package is served;
+trunks' hidden Linears (and BatchNorms, `use_batchnorm`) in bf16 (the
+trunks' heads, LayerNorms and the condition vector `embed_cond` returns
+stay f32), as the JAX modules with `dtype=jnp.bfloat16`;
+`fusion.flash_mxu_bf16` rounds the flash kernels' product operands to
+bf16. Every fusion kind of the JAX package is served;
 `fusion.sequence_parallel=True` raises `NotImplementedError`.
 Modules are built in train mode (dropout active), as `nn.Module`s are;
-`GeneratorServer` switches its generator to eval mode.
+`GeneratorServer` switches its generator to eval mode. Dropout follows the
+module's mode (JAX's `deterministic`); BatchNorm follows the `train`
+argument of `score` / `forward` (JAX's `train`), False by default.
 """
 
 from __future__ import annotations
@@ -98,14 +101,17 @@ class _Conditioned(nn.Module):
                 f"(batch keys like 'tokens'/'patches'), got none")
         return self.fusion(cond).float()
 
-    def score(self, x: torch.Tensor, cvec: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Trunk half: [B, in_features] (+ fixed cond vector) -> [B, out_dim]."""
+    def score(self, x: torch.Tensor, cvec: Optional[torch.Tensor] = None,
+              train: bool = False) -> torch.Tensor:
+        """Trunk half: [B, in_features] (+ fixed cond vector) -> [B, out_dim].
+        `train` is JAX's flag: a BatchNorm trunk (`use_batchnorm`) then
+        normalizes by the batch's statistics and updates its running ones."""
         h = x if cvec is None else torch.cat([x, cvec], dim=-1)
-        return self.trunk(h)
+        return self.trunk(h, train)
 
-    def forward(self, x: torch.Tensor,
-                cond: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        return self.score(x, self.embed_cond(cond))
+    def forward(self, x: torch.Tensor, cond: Optional[Dict[str, torch.Tensor]] = None,
+                train: bool = False) -> torch.Tensor:
+        return self.score(x, self.embed_cond(cond), train)
 
 
 class Generator(_Conditioned):

@@ -9,7 +9,11 @@ the JAX run's `config.json` and the generator's Flax params as
 The server is the pure function ``(z, cond) -> profiles`` of the JAX
 artifact: the caller draws z, or hands a `torch.Generator` to
 :meth:`GeneratorServer.sample`. Everything runs under
-`torch.inference_mode()`.
+`torch.inference_mode()`. A BatchNorm trunk (`model.use_batchnorm`) is
+served from its running statistics, which the weights must carry: the JAX
+serving path applies params alone and fails without them, so
+`from_flax(cfg, params)` and `load(run_dir)` raise `ValueError` for such a
+generator, as does a state dict without them.
 
 Serving artifacts (`export_generator`, `export_vae_decoder`,
 `GeneratorArtifact`), the counterparts of the JAX package's `jax.export`
@@ -99,6 +103,17 @@ class GeneratorServer:
     def __init__(self, cfg: ModelConfig, state_dict: Mapping[str, torch.Tensor],
                  device: DeviceLike = None):
         gen = Generator(cfg, device=device)
+        stats = [k for k, _ in gen.named_buffers() if k.endswith(("running_mean", "running_var"))]
+        missing = [k for k in stats if k not in state_dict]
+        if missing:
+            # JAX's serving applies {"params": ...} alone, which a BatchNorm
+            # trunk refuses for want of its batch_stats collection
+            raise ValueError(
+                f"model.use_batchnorm=True: the generator's BatchNorm statistics (Flax's "
+                f"batch_stats collection) are missing from its weights: {missing}; JAX's "
+                f"serving applies the params alone and fails without them. Pass them "
+                f"(convert.flax_to_state_dict(params, batch_stats)) rather than serving the "
+                f"initial statistics")
         gen.load_state_dict(state_dict)
         self._wrap(cfg, gen)
 
@@ -112,7 +127,8 @@ class GeneratorServer:
     @classmethod
     def for_module(cls, gen: Generator) -> "GeneratorServer":
         """Serve an existing generator (a training run's) as it stands,
-        sharing its weights. Switches it to eval mode."""
+        sharing its weights (and a BatchNorm trunk's running statistics).
+        Switches it to eval mode."""
         server = cls.__new__(cls)
         server._wrap(gen.cfg, gen)
         return server

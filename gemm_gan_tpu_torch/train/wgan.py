@@ -67,10 +67,19 @@ summation order. The microbatches are a loop inside the step, so a CUDA
 graph captures them all; a batch that M does not divide raises
 `ValueError`.
 
-Not ported (raise `NotImplementedError`): `hoist_fakes=True` on the
-per_update batched path, and what `models.gan.check_supported` refuses
-(sequence parallelism, other fusions). `critic_scan` changes nothing here:
-the critic updates are a Python loop either way.
+`train.hoist_fakes=True` on the per_update batched path (and
+`grad_accum` 1; elsewhere it changes nothing, as in JAX) makes all
+n_critic fake batches in one generator trunk forward over [n_critic * B]
+rows, from the same per-update z rows (`draws["z"][i]`) and the tiled
+generator embedding, before the critic loop; each update takes its slice
+(and its instance noise, as before). The trunk is dropout-free, so the
+fakes are those of the per-update path up to the product's summation
+order. It is part of `_fused_step`, so `step`, `step_many` and
+`step_many_cached` (and their CUDA graphs) all take it.
+
+Not ported (raise `NotImplementedError`): what `models.gan.check_supported`
+refuses (sequence parallelism). `critic_scan` changes nothing here: the
+critic updates are a Python loop either way.
 """
 
 from __future__ import annotations
@@ -206,8 +215,8 @@ class WGANGPEngine:
         self.reuse = t.cond_embed_reuse == "per_update"
         if t.grad_accum < 1:
             raise ValueError(f"train.grad_accum must be >= 1, got {t.grad_accum}")
-        if t.hoist_fakes and self.reuse and t.batched_scores:
-            raise NotImplementedError("train.hoist_fakes=True is not ported")
+        self.hoist = (t.hoist_fakes and self.reuse and t.batched_scores
+                      and t.grad_accum == 1)
         self.cfg = cfg
         self.steps_per_epoch = steps_per_epoch
         self.device = resolve_device(device)
@@ -318,9 +327,19 @@ class WGANGPEngine:
         gp = losses.gradient_penalty(lambda x: critic.score(x, cvec), real, fake, alpha)
         return d_real, d_fake, gp
 
+    def hoisted_fakes(self, state: GANTrainState, g_cvec, z) -> torch.Tensor:
+        """`hoist_fakes`: the fakes of every critic update, [n_critic, B,
+        n_genes], from one generator trunk forward over the stacked z
+        [n_critic, B, latent] and the embedding tiled to match (no grad)."""
+        n, B = z.shape[:2]
+        cv = None if g_cvec is None else g_cvec.repeat(n, 1)
+        with torch.no_grad():
+            return state.gen.score(z.reshape(n * B, -1), cv).reshape(n, B, -1)
+
     def critic_update(self, state: GANTrainState, real, cond, g_cvec, z, alpha,
-                      noise=None):
-        """One critic update on fakes made from `z`; returns the detached
+                      noise=None, fake=None):
+        """One critic update on fakes made from `z` (or on `fake`, already
+        made: `hoisted_fakes`); returns the detached
         (Wasserstein loss E[D(fake)] - E[D(real)], gp, mean D(real), mean
         D(fake)). The update descends that loss + gp_weight * gp (+ drift).
         `noise` = (gate, noise_real, noise_fake) adds instance noise, gate *
@@ -336,14 +355,16 @@ class WGANGPEngine:
         grads = aux = None
         for m in range(M):
             real_m, cond_m, g_cvec_m, z_m = (_micro(x, m, M) for x in (real, cond, g_cvec, z))
-            with torch.no_grad():
-                fake = (state.gen.score(z_m, g_cvec_m) if g_cvec_m is not None
-                        else state.gen(z_m, cond_m))
+            fake_m = _micro(fake, m, M)
+            if fake_m is None:
+                with torch.no_grad():
+                    fake_m = (state.gen.score(z_m, g_cvec_m) if g_cvec_m is not None
+                              else state.gen(z_m, cond_m))
             if noise is not None:
                 gate, noise_real, noise_fake = noise
-                fake = fake + gate * (_micro(noise_fake, m, M) * t.norm_scale)
+                fake_m = fake_m + gate * (_micro(noise_fake, m, M) * t.norm_scale)
                 real_m = real_m + gate * (_micro(noise_real, m, M) * t.norm_scale)
-            d_real, d_fake, gp = self._critic_scores(state.critic, real_m, fake, cond_m,
+            d_real, d_fake, gp = self._critic_scores(state.critic, real_m, fake_m, cond_m,
                                                      _micro(alpha, m, M))
             loss = losses.d_loss(d_real, d_fake)[0]
             total = loss + t.gp_weight * gp
@@ -403,12 +424,14 @@ class WGANGPEngine:
         state.gen.train()
         state.critic.train()
         g_cvec = self.embed_generator(state, cond)
+        fakes = self.hoisted_fakes(state, g_cvec, draws["z"]) if self.hoist else None
         aux = None
         for i in range(t.n_critic):
             noise = (None if t.p_aug <= 0 else
                      (draws["gate"][i], draws["noise_real"][i], draws["noise_fake"][i]))
             aux = self.critic_update(state, real, cond, g_cvec, draws["z"][i],
-                                     draws["alpha"][i], noise)
+                                     draws["alpha"][i], noise,
+                                     None if fakes is None else fakes[i])
         gl = self.generator_update(state, cond, draws["z_gen"])
         if state.g_ema is not None:
             self._update_ema(state)

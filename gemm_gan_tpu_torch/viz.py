@@ -8,8 +8,9 @@ a figure asked for without it raises an `ImportError` that names it. Every
 figure takes an `out_path` and draws with the Agg backend.
 
 `umap_2d` runs the from-scratch UMAP of `utils/umap_lite.py` (umap-learn is
-not among either machine's packages). `tsne_2d` needs scikit-learn's TSNE,
-which the port does not use: it raises `NotImplementedError`.
+not among either machine's packages). `tsne_2d` runs `utils/tsne.py`, scikit-
+learn's TSNE (Barnes-Hut's affinities, PCA init, its schedule) with the
+exact gradient, on the card unless `device="cpu"` is asked for.
 """
 
 from __future__ import annotations
@@ -20,8 +21,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-TSNE_NOT_PORTED = ("tsne_2d needs scikit-learn's TSNE, which the port does not use: "
-                   "ROADMAP queue 1, item 3 (t-SNE); use method='umap'")
+from gemm_gan_tpu_torch.utils.device import DeviceLike
 
 
 def matplotlib_available() -> bool:
@@ -60,9 +60,17 @@ def plot_curves(history: Dict[str, Sequence[float]], out_path: Optional[str] = N
     return _save(plt, fig, out_path)
 
 
-def tsne_2d(data: np.ndarray, perplexity: float = 30.0, seed: int = 42) -> np.ndarray:
-    """Not ported: it raises (`TSNE_NOT_PORTED`)."""
-    raise NotImplementedError(TSNE_NOT_PORTED)
+def tsne_2d(data: np.ndarray, perplexity: float = 30.0, seed: int = 42,
+            device: DeviceLike = None) -> np.ndarray:
+    """t-SNE embedding [n, 2] float32 (`utils.tsne.tsne`) with the JAX
+    package's perplexity clamp, min(perplexity, max(2, (n - 1) / 3)).
+    `seed` is kept for the JAX signature: the PCA init draws nothing, so
+    the embedding does not depend on it."""
+    from gemm_gan_tpu_torch.utils.tsne import tsne
+
+    n = np.asarray(data).shape[0]
+    perplexity = min(perplexity, max(2.0, (n - 1) / 3.0))
+    return tsne(data, perplexity, device=device).embedding
 
 
 def umap_2d(data: np.ndarray, n_neighbors: int = 15, seed: int = 42) -> np.ndarray:
@@ -77,13 +85,14 @@ def umap_2d(data: np.ndarray, n_neighbors: int = 15, seed: int = 42) -> np.ndarr
 def plot_embedding_panels(real: np.ndarray, fake: np.ndarray,
                           labels: Optional[np.ndarray] = None,
                           method: str = "umap", out_path: Optional[str] = None,
-                          label_names: Optional[Sequence[str]] = None):
-    """A real / generated panel of one joint 2-D embedding, and beside it
+                          label_names: Optional[Sequence[str]] = None,
+                          device: DeviceLike = None):
+    """A real / generated panel of one joint 2-D embedding (`method`
+    "umap", or any other for t-SNE on `device`, as in JAX), and beside it
     the real points coloured by label when `labels` are given."""
-    if method != "umap":
-        raise NotImplementedError(TSNE_NOT_PORTED)
     plt = _plt()
-    both = umap_2d(np.concatenate([real, fake], axis=0))
+    both = np.concatenate([real, fake], axis=0)
+    both = umap_2d(both) if method == "umap" else tsne_2d(both, device=device)
     er, ef = both[: len(real)], both[len(real):]
 
     ncols = 2 if labels is not None else 1

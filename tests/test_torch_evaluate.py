@@ -5,7 +5,8 @@ the figures of `viz.py`.
 
 Tolerances: retrieval indices equal and scores within 1e-5; the privacy
 shares equal (counts) and their means within 1e-5; TF-TG and
-`umap_embed` bit for bit (numpy copies); both `cli.evaluate.main`s on one
+`umap_embed` bit for bit (numpy copies), `tsne_2d` bit for bit with
+`utils.tsne` at JAX's clamped perplexity; both `cli.evaluate.main`s on one
 dump directory with the same keys, Γ within 1e-5, the exact Wasserstein
 distances within 1e-12 relative, the MMDs within 1e-5 relative, DCR / NNDR
 equal, the utility reports' keys equal. The figures are written where
@@ -17,6 +18,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from gemm_gan_tpu import viz as jviz
 from gemm_gan_tpu.cli.evaluate import main as jax_evaluate
@@ -28,6 +30,7 @@ from gemm_gan_tpu_torch import viz
 from gemm_gan_tpu_torch.cli import evaluate as cli_evaluate
 from gemm_gan_tpu_torch.eval import gamma as tgamma
 from gemm_gan_tpu_torch.eval import privacy as tpriv
+from gemm_gan_tpu_torch.utils.tsne import tsne
 from gemm_gan_tpu_torch.utils.umap_lite import umap_embed
 
 CPU = "cpu"
@@ -143,11 +146,27 @@ def test_umap_embed_matches_jax_bit_for_bit():
                                   jviz.umap_2d(data[:25], n_neighbors=5, seed=3))
 
 
-def test_tsne_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        viz.tsne_2d(np.zeros((5, 2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        viz.plot_embedding_panels(np.zeros((5, 2)), np.zeros((5, 2)), method="tsne")
+def test_tsne_is_not_ported(tmp_path):
+    """Named when t-SNE raised; it is ported now: `tsne_2d` is `utils.tsne`
+    with JAX's perplexity clamp (held against scikit-learn in
+    tests/test_torch_tsne.py), on the card unless device="cpu"; the
+    panels' t-SNE takes it too."""
+    rng = np.random.RandomState(8)
+    real, fake = rng.randn(12, 6), rng.randn(12, 6) + 3.0
+    both = np.concatenate([real, fake])
+    got = viz.tsne_2d(both, device=CPU)
+    assert got.shape == (24, 2) and got.dtype == np.float32 and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, tsne(both, (24 - 1) / 3.0, device=CPU).embedding)
+    if viz.matplotlib_available():
+        out = str(tmp_path / "tsne.png")
+        assert viz.plot_embedding_panels(real, fake, method="tsne", out_path=out,
+                                         device=CPU) == out and os.path.exists(out)
+    else:
+        with pytest.raises(ImportError, match="matplotlib"):
+            viz.plot_embedding_panels(real, fake, method="tsne", device=CPU)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            viz.tsne_2d(both)
 
 
 @needs_matplotlib

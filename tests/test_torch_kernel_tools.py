@@ -229,6 +229,88 @@ def test_bf16_gradient_gate_accepts_plain_versions_and_rejects_both_controls():
     assert tfa.flash_fwd_ble_bf16.__name__ == "flash_fwd_ble_bf16"  # the wrapper is back
 
 
+def test_attention_gate_accepts_plain_versions_and_rejects_its_control():
+    """Phase 11 (b)'s attention gate, run on the CPU at the f32 flagship's
+    tiny widths: the plain versions land exactly on the CPU's outputs and
+    gradients (ratio 0); Q1's output scaled by 1 + 2^-12, 2.4 times the
+    floor, and Q1 with the last valid key of every row masked out are
+    rejected."""
+    import dataclasses
+
+    from gemm_gan_tpu_torch.data.synthetic import synthetic_dataset
+
+    cfg = _gate_model()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                             compute_dtype="float32"))
+    d = synthetic_dataset(n=chip_smoke.BATCH, n_genes=24, num_patches=130, patch_dim=16,
+                          num_tokens=6, text_dim=12, seed=1)
+    batch = {k: d[k] for k in ("genes", "tokens", "token_mask", "patches", "patch_mask")}
+    gate = chip_smoke.attention_gate(tfa, cfg, "cpu", chip_smoke.flax_param_tree(cfg.model, 0),
+                                     chip_smoke.flax_param_tree(cfg.model, 1, critic=True),
+                                     batch)
+    assert gate["attentions"] == 2 and gate["launches"] == {}  # one layer in each net
+    assert gate["plain_largest"] == 0.0 and gate["kernels"][0] == 0.0, gate
+    for how in ("scaled", "last_key_masked"):
+        assert gate[how][0] > 1, (how, gate)
+    assert tfa.flash_mha_ble.__name__ == "flash_mha_ble"  # the recorder is gone
+
+
+def test_batchnorm_trees_have_the_jax_paths():
+    """`flax_param_tree` / `flax_batch_stats` of a `use_batchnorm` model
+    give the paths and shapes of the JAX generator's and critic's init."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from gemm_gan_tpu import config as jconfig
+    from gemm_gan_tpu.models.gan import Critic, Generator
+
+    exp = jconfig.variant_config("film_cross_attention", n_genes=24, fusion_kw=dict(
+        cond_dim=16, text_dim=12, patch_dim=16, ff_dim=32, num_heads=2, num_layers=1))
+    m = dataclasses.replace(exp.model, gen_dims=(32, 16), disc_dims=(16,), latent_dim=8,
+                            use_batchnorm=True)
+    cond = {"tokens": jnp.zeros((2, 6, 12)), "token_mask": jnp.ones((2, 6), bool),
+            "patches": jnp.zeros((2, 8, 16)), "patch_mask": jnp.ones((2, 8), bool)}
+    for net, x, critic in ((Generator(m), jnp.zeros((2, 8)), False),
+                           (Critic(m), jnp.zeros((2, 24)), True)):
+        want = jax.tree.map(jnp.shape, net.init(jax.random.key(0), x, cond))
+        got = jax.tree.map(jnp.shape, {"params": chip_smoke.flax_param_tree(m, 0, critic),
+                                       "batch_stats": chip_smoke.flax_batch_stats(m, 0, critic)})
+        assert got == want
+    stats = chip_smoke.flax_batch_stats(m, 0)
+    assert all(v["BatchNorm_0"]["var"].min() >= 0.5 for v in stats["trunk"].values())
+
+
+def test_tensor_distances_hold_zero_gradient_params_to_their_net():
+    """A k projection's bias (exact gradient 0: ZERO_GRAD_SUFFIX) is measured
+    against NEGLIGIBLE_GRAD of its net's norm when its own gradient is
+    smaller; any other param, however small its gradient, against its own."""
+    import math
+
+    import torch
+
+    ref = {"D": {"w": torch.ones(100, dtype=torch.float64),
+                 "attn.k_proj.bias": torch.full((3,), 1e-9, dtype=torch.float64),
+                 "attn.q_proj.bias": torch.full((3,), 1e-9, dtype=torch.float64)}}
+    got = {"D": {"w": ref["D"]["w"] * (1 + 1e-3),
+                 **{n: -ref["D"][n] for n in ("attn.k_proj.bias", "attn.q_proj.bias")}}}
+    d = chip_smoke.tensor_distances(got, ref)["D"]
+    net = math.sqrt(100 + 6 * 1e-18)
+    assert d["w"] == pytest.approx(1e-3)
+    assert d["attn.k_proj.bias"] == pytest.approx(
+        2e-9 * math.sqrt(3) / (chip_smoke.NEGLIGIBLE_GRAD * net))
+    assert d["attn.q_proj.bias"] == pytest.approx(2.0)
+
+
+def test_label_agreement():
+    import numpy as np
+
+    y = np.array([[0.0, 0.0], [0.1, 0.0], [0.0, 0.1], [5.0, 5.0], [5.1, 5.0], [5.0, 5.1]])
+    assert chip_smoke.label_agreement(y, np.array([0, 0, 0, 1, 1, 1]), 2) == 1.0
+    assert chip_smoke.label_agreement(y, np.array([0, 1, 0, 1, 0, 1]), 2) == pytest.approx(1 / 3)
+
+
 def test_drop_last_valid_key():
     import torch
 

@@ -88,8 +88,17 @@ def test_mlp_trunk_matches_flax(negative_slope):
 
 
 def test_mlp_trunk_batchnorm_not_ported():
-    with pytest.raises(NotImplementedError):
-        MLPTrunk(4, (8,), 2, use_batchnorm=True)
+    """Named when `use_batchnorm=True` raised; BatchNorm trunks are ported
+    now, so this holds the smallest one (eval mode, Flax's initial
+    statistics) to its Flax twin. tests/test_torch_batchnorm.py holds
+    train mode, bf16 and moved statistics."""
+    rng = np.random.RandomState(2)
+    x = _randn(rng, 6, 4)
+    jm = JMLPTrunk(hidden_dims=(8,), out_dim=2, use_batchnorm=True)
+    v = jm.init(jax.random.key(2), x)
+    tm = MLPTrunk(4, (8,), 2, use_batchnorm=True)
+    tm.load_state_dict(flax_to_state_dict(v["params"], v["batch_stats"]))
+    _close(tm(_t(x)), jm.apply(v, x))
 
 
 @pytest.mark.parametrize("Lq,Lk,use_pallas,layout", [

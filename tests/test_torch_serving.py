@@ -272,7 +272,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gemm_gan_tpu', 'sklearn', "
         "'matplotlib')]\n"
-        "assert len(mods) >= 68, mods\n"
+        "assert len(mods) >= 72, mods\n"
         "new = {'gemm_gan_tpu_torch.' + m for m in "
         "('data.splits', 'data.loader', 'data.tcga', 'data.device_cache', "
         "'train.checkpoint', 'utils.metrics', 'eval.gamma', 'eval.knn_pr', 'eval.prdc', "
@@ -282,7 +282,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'cli.evaluate', 'models.vae', 'train.vae', 'cli.vae_experiment', 'cli.export', "
         "'encoders', 'encoders.vit', 'encoders.modernbert', 'encoders.contrastive', "
         "'encoders.cache', 'cli.convert_encoders', 'cli.preprocess', 'cli.ingest', "
-        "'data.tiles', 'data.ingest', 'data.descriptions', 'data.gdc')}\n"
+        "'data.tiles', 'data.ingest', 'data.descriptions', 'data.gdc', 'utils.prng', "
+        "'utils.tsne', 'ops.batchnorm', 'bench')}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n"
         "assert not bad, bad\n"
         "from gemm_gan_tpu_torch.native import forest, ot\n"

@@ -362,7 +362,6 @@ def test_fit_trains_and_each_optimizer_keys_its_own_schedule():
 
 @pytest.mark.parametrize("train_kw,error", [
     (dict(grad_accum=3), ValueError),  # batch 4 in 3 microbatches
-    (dict(hoist_fakes=True), NotImplementedError),
     (dict(optimizer="sgd"), ValueError),
     (dict(n_critic=0), ValueError),
     (dict(cond_embed_reuse="sometimes"), ValueError),
