@@ -257,7 +257,20 @@ imports nothing of JAX or of the JAX package. Phases:
    a replay gated at `step_launches`). (d) `gemm_gan_tpu_torch.bench`
    (the torch step measurement) in bf16 and f32 at BENCH_SCAN_LEN rows:
    its JSON line, prefixed, and its launches.
-17. Prints the most sentinel records a profiler window lost, one
+17. Multi-device at world size 1 (`mesh_phase`): (a) `distributed_init`
+   over NCCL (one rank, a free localhost port) and `make_mesh(1, 1)`; (b)
+   one flagship f32 per_update step (dropout 0) on the mesh against the
+   unmeshed step from the same params and draws, bitwise (params, moments,
+   metrics; two unmeshed steps bitwise first), Q1 / Q2 launches equal; (c)
+   phase 9 (c)'s graphed bf16 `step_many_cached` on and off the mesh over a
+   MESH_BANK_CASES bank (the NCCL all-reduces captured in the graph):
+   median steps/s of MESH_TURNS epochs each in turns, a replay's device ms
+   and events and the per-kernel difference, launches a replay; (d)
+   `Experiment` with `data.shard_bank` (a `ShardedDeviceCache`, S = 1) for
+   one epoch of phase 10's RESUME_CASES layout, then `evaluate("last")`;
+   (e) `destroy_process_group`. Several ranks need a card each: NCCL
+   refuses two ranks on one card.
+18. Prints the most sentinel records a profiler window lost, one
    `{"kernels": [...]}` JSON line (each kernel with its tile),
    the card's line, then the contract line `{"ok": true, "device": {...}}`
    last.
@@ -2005,7 +2018,9 @@ def replay_busy(engine, state, cache, epoch) -> dict:
             "host_ms": host_s[-1] * 1e3 / steps, "readings": readings,
             "device_events": sum(e.count for e in events) / steps,
             "top": [(e.key[:60], e.count / steps, e.self_device_time_total / 1e3 / steps)
-                    for e in events[:5]]}
+                    for e in events[:5]],
+            "by_name": {e.key: (e.count / steps, e.self_device_time_total / 1e3 / steps)
+                        for e in events}}
 
 
 def graph_pool_bytes():
@@ -3849,6 +3864,214 @@ def bench_phase(fa, card) -> dict:
     return out
 
 
+# phase 17, multi-device at world size 1: the bank of (c)'s graphed epochs,
+# and the turns of its steps/s
+MESH_BANK_CASES, MESH_TURNS = 256, 4
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _net_tensors(state) -> dict:
+    """Every parameter and buffer of a GAN state, the optimizers' moments
+    and counts, detached copies."""
+    out = {}
+    for net in ("gen", "critic"):
+        for k, v in getattr(state, net).state_dict().items():
+            out[f"{net}.{k}"] = v.detach().clone()
+    for name in ("g_opt", "d_opt"):
+        opt = getattr(state, name)
+        out[f"{name}.count_t"] = opt.count_t.clone()
+        for i, t in enumerate(opt.nu):
+            out[f"{name}.nu.{i}"] = t.clone()
+    return out
+
+
+def mesh_phase(fa, card, exp, params, d_params, batch, runs: str, layout: str) -> dict:
+    """Phase 17: the mesh paths at world size 1 on the card. (a)
+    `distributed_init` over NCCL (a one-rank group on a free localhost port)
+    and `make_mesh(1, 1)`; (b) the flagship f32 per_update + batched_scores
+    step (dropout 0) on the mesh against the unmeshed step from the same
+    params and draws: params, moments and metrics bitwise equal (a one-rank
+    all-reduce and one-rank shards change no value; two unmeshed steps are
+    held bitwise first, the control), Q1 / Q2 launches equal; (c) the graphed
+    bf16 `step_many_cached` (phase 9 (c)'s setting) on the mesh and off it
+    over a MESH_BANK_CASES bank: median steps/s of MESH_TURNS epochs each,
+    in turns, a replay's device ms and events (`replay_busy`) and their
+    difference by kernel, launches a replay equal (the NCCL all-reduces are
+    captured in the graph); (d) `Experiment` with `data.shard_bank=True` on
+    the mesh (a `ShardedDeviceCache` with S = 1) for one epoch of phase 10's
+    RESUME_CASES layout with the product run's config, then
+    `evaluate("last")`; (e) the process group destroyed. Returns the mesh
+    paths' launches."""
+    import torch
+    import torch.distributed as dist
+
+    from gemm_gan_tpu_torch.cli.experiment import Experiment
+    from gemm_gan_tpu_torch.config import load_config
+    from gemm_gan_tpu_torch.data.device_cache import DeviceCache, ShardedDeviceCache
+    from gemm_gan_tpu_torch.data.tcga import load_tcga
+    from gemm_gan_tpu_torch.parallel.mesh import distributed_init, make_mesh
+    from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
+
+    t_phase = time.perf_counter()
+    launches = {}
+    # (a)
+    port = _free_port()
+    assert distributed_init(f"127.0.0.1:{port}", 1, 0)
+    backend = dist.get_backend()
+    assert backend == "nccl", backend
+    mesh = make_mesh(1, 1)
+    print(f"[17] multi-device at world size 1: (a) process group {backend} (tcp://127.0.0.1:"
+          f"{port}, world {dist.get_world_size()}), mesh {mesh.shape} on {mesh.device}",
+          flush=True)
+    try:
+        # (b)
+        cfg0 = with_train(train_cfg(exp, dropout=0.0), batch_size=BATCH)
+        draws = random_draws(cfg0, seed=17)
+        steps = {}
+        for label, m in (("plain", None), ("plain again", None), ("mesh", mesh)):
+            engine = WGANGPEngine(cfg0, steps_per_epoch=1, mesh=m)
+            state = engine.state_from_flax(params, d_params)
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            state, metrics = engine.step(state, batch, draws=draws)
+            torch.cuda.synchronize()
+            steps[label] = (_net_tensors(state), floats(metrics), fa.launch_counts())
+            del engine, state
+        n_fwd, n_bwd = step_launches(cfg0)
+        want = {**dict.fromkeys(KERNELS, 0), "flash_fwd_ble": n_fwd, "flash_bwd_ble": n_bwd}
+        for label in ("plain again", "mesh"):
+            tensors, metrics, counts = steps[label]
+            differ = [k for k, v in tensors.items() if not torch.equal(v, steps["plain"][0][k])]
+            assert not differ, (label, differ[:5])
+            assert metrics == steps["plain"][1], (label, metrics, steps["plain"][1])
+            assert counts == want, (label, counts, want)
+        launches["mesh_step"] = steps["mesh"][2]
+        print(f"    (b) one f32 flagship step (per_update, batched_scores, dropout 0) on the 1x1 "
+              f"mesh vs unmeshed from the same params and draws: {len(steps['mesh'][0])} "
+              f"tensors (params, buffers, moments, counts) and the metrics bitwise equal (two "
+              f"unmeshed steps bitwise equal too); launches {nonzero(steps['mesh'][2])} both "
+              f"ways = step_launches {(n_fwd, n_bwd)}; metrics {json.dumps(steps['mesh'][1])}",
+              flush=True)
+        del steps
+
+        # (c)
+        exp16 = dataclasses.replace(exp, model=dataclasses.replace(exp.model,
+                                                                   compute_dtype="bfloat16"))
+        tcfg16 = train_cfg(exp16)
+        data = bank_data(exp.model, MESH_BANK_CASES, seed=71)
+        cache_kw = dict(batch_size=BATCH, num_patches=NUM_PATCHES, seed=0,
+                        embedding_store_dtype=torch.bfloat16)
+        bank = DeviceCache(data, **cache_kw)
+        small = DeviceCache({k: v[:SMALL_CASES] for k, v in data.items()}, **cache_kw)
+        del data
+        K = bank.n_full_batches
+        n_fwd, n_bwd = step_launches(tcfg16)
+        want = {"flash_fwd_ble_bf16": n_fwd, "flash_bwd_ble_bf16": n_bwd}
+        runs_c = {}
+        for label, m in (("unmeshed", None), ("mesh", mesh)):
+            engine = WGANGPEngine(tcfg16, steps_per_epoch=K, mesh=m)
+            state = engine.state_from_flax(params, d_params, seed=0)
+            torch.manual_seed(0)
+            engine.step_many_cached(state, bank, 0)  # warm-up step and capture
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            _, metrics = engine.step_many_cached(state, bank, 1)
+            torch.cuda.synchronize()
+            got = fa.launch_counts()
+            recorded = engine._cached_graphs[bank].recorded
+            assert recorded == want, (label, recorded)
+            assert got == {**dict.fromkeys(KERNELS, 0), **{k: n * K for k, n in want.items()}}, got
+            metrics = floats(metrics)
+            assert all(np.isfinite(v) for v in metrics.values()), metrics
+            engine.step_many_cached(state, small, 0)
+            busy = replay_busy(engine, state, small, 1) or {}
+            runs_c[label] = {"engine": engine, "state": state, "sps": [], "busy": busy,
+                             "metrics": metrics}
+            if m is not None:
+                launches["mesh_bf16_epoch_loop"] = got
+        # steps/s in turns (unmeshed, mesh, mesh, unmeshed, ...): the host
+        # clock of one call moves by several % between epochs
+        for turn in range(MESH_TURNS):
+            order = ("unmeshed", "mesh") if turn % 2 == 0 else ("mesh", "unmeshed")
+            for label in order:
+                r = runs_c[label]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r["engine"].step_many_cached(r["state"], bank, 2 + turn)
+                torch.cuda.synchronize()
+                r["sps"].append(K / (time.perf_counter() - t0))
+        for r in runs_c.values():
+            r["sps"] = float(np.median(r["sps"])), [round(v, 2) for v in r["sps"]]
+            del r["engine"], r["state"]
+        for label, r in runs_c.items():
+            print(f"    (c) graphed bf16 flagship {label}: median {r['sps'][0]:.2f} steps/s of "
+                  f"{MESH_TURNS} {K}-step epochs of replays in turns {r['sps'][1]} (host "
+                  f"clock) on {card}; a replay: "
+                  f"{r['busy'].get('device_ms', 'not measured')} ms of device time, "
+                  f"{r['busy'].get('device_events', 'not measured')} device events "
+                  f"({r['busy'].get('readings')} readings); launches a replay {want}; top "
+                  f"kernels a step (name, calls, ms) {json.dumps(r['busy'].get('top'))}; "
+                  f"metrics {json.dumps(r['metrics'])}", flush=True)
+        extra_ms = (runs_c["mesh"]["busy"].get("device_ms", float("nan"))
+                    - runs_c["unmeshed"]["busy"].get("device_ms", float("nan")))
+        print(f"    (c) mesh / unmeshed median steps/s: "
+              f"{runs_c['mesh']['sps'][0] / runs_c['unmeshed']['sps'][0]:.4f}; device time a "
+              f"replay {extra_ms:+.4f} ms on the mesh, on {card}", flush=True)
+        names = (runs_c["mesh"]["busy"].get("by_name"), runs_c["unmeshed"]["busy"].get("by_name"))
+        if all(names):
+            diff = {k: (names[0].get(k, (0, 0))[0] - names[1].get(k, (0, 0))[0],
+                        names[0].get(k, (0, 0))[1] - names[1].get(k, (0, 0))[1])
+                    for k in set(names[0]) | set(names[1])}
+            grown = sorted(diff.items(), key=lambda kv: -abs(kv[1][1]))[:8]
+            print(f"    (c) mesh minus unmeshed a replay, by kernel (name, calls, ms): "
+                  f"{json.dumps([(k[:90], round(c, 2), round(ms, 4)) for k, (c, ms) in grown])}",
+                  flush=True)
+        del bank, small, runs_c
+        torch.cuda.empty_cache()
+
+        # (d)
+        cfg = load_config(os.path.join(runs, "product", "config.json"))
+        cfg = dataclasses.replace(
+            cfg, output_dir=runs, run_name="mesh",
+            train=dataclasses.replace(cfg.train, epochs=1),
+            data=dataclasses.replace(cfg.data, data_dir=layout, shard_bank=True))
+        splits = load_tcga(layout, schema="multi_token", num_patches=cfg.data.num_patches,
+                           normalization=cfg.data.normalization, seed=cfg.data.seed,
+                           patch_bank=True)
+        t0 = time.perf_counter()
+        experiment = Experiment(cfg, splits, mesh=mesh)
+        assert isinstance(experiment.loaders["train"], ShardedDeviceCache)
+        fa.reset_launch_counts()
+        fit = experiment.fit()
+        launches["mesh_experiment"] = fa.launch_counts()
+        fit_s = time.perf_counter() - t0
+        ev = experiment.evaluate("last")
+        assert np.isfinite(fit["gamma_mean"]) and np.isfinite(ev["gamma_mean"]), (fit, ev)
+        dumps = sorted(os.listdir(os.path.join(runs, "mesh", "test_0_epoch_1")))
+        assert "data_gen.npy" in dumps and "test_gen.npy" in dumps, dumps
+        print(f"    (d) Experiment on the 1x1 mesh with data.shard_bank (a ShardedDeviceCache, "
+              f"S = 1, {len(experiment.loaders['train'])} steps an epoch) over phase 10's "
+              f"{RESUME_CASES}-case layout: fit (1 epoch, the test block) {fit_s:.1f} s, "
+              f"gamma_mean {fit['gamma_mean']:.4f}; evaluate('last') gamma_mean "
+              f"{ev['gamma_mean']:.4f}; launches {nonzero(launches['mesh_experiment'])}; dumps "
+              f"{dumps} on {card}", flush=True)
+        del experiment, splits
+    finally:
+        # (e)
+        dist.destroy_process_group()
+    print(f"    (e) process group destroyed; phase 17 took {time.perf_counter() - t_phase:.1f} s "
+          f"on {card}", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4387,6 +4610,7 @@ def main(argv=None) -> int:
     # ---- 11. the variants; (e) trains on phase 10's layout
     # ---- 12. the post-hoc evaluator over phase 10's run
     # ---- 13. the VAE family; (d), (e) train on phase 10's layout
+    # the layout and the runs stay until phase 17 has read them
     with tempfile.TemporaryDirectory() as root:
         runs = os.path.join(root, "runs")
         launches["product_fit"], layout = product_path(fa, card, root)
@@ -4401,18 +4625,22 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         # ---- 15. the encoders and the ingest path
         launches["encoders"] = encoders_phase(fa, card, root)
+        torch.cuda.empty_cache()
+
+        # ---- 16. t-SNE on the card, BatchNorm trunks, hoist_fakes, the bench
+        t0 = time.perf_counter()
+        launches["tsne"] = tsne_phase(card)
+        launches["batchnorm_serving"] = batchnorm_phase(fa, card, exp, batches[0])
+        launches["hoist_epoch_loop"] = hoist_phase(fa, card, exp, params, d_params, batches[0])
+        launches.update(bench_phase(fa, card))
+        print(f"    phase 16 took {time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        torch.cuda.empty_cache()
+
+        # ---- 17. multi-device at world size 1 (NCCL), over phase 10's layout
+        launches.update(mesh_phase(fa, card, exp, params, d_params, batches[0], runs, layout))
     torch.cuda.empty_cache()
 
-    # ---- 16. t-SNE on the card, BatchNorm trunks, hoist_fakes, the bench
-    t0 = time.perf_counter()
-    launches["tsne"] = tsne_phase(card)
-    launches["batchnorm_serving"] = batchnorm_phase(fa, card, exp, batches[0])
-    launches["hoist_epoch_loop"] = hoist_phase(fa, card, exp, params, d_params, batches[0])
-    launches.update(bench_phase(fa, card))
-    print(f"    phase 16 took {time.perf_counter() - t0:.1f} s on {card}", flush=True)
-    torch.cuda.empty_cache()
-
-    # ---- 17. report
+    # ---- 18. report
     paths = {"flash_fwd_ble": "serving", "flash_fwd_bhld": "whole_slide_serving",
              "flash_bwd_ble": "training", "flash_bwd_dq": "whole_slide_training",
              "flash_bwd_dkv": "whole_slide_training",
@@ -4427,7 +4655,7 @@ def main(argv=None) -> int:
              "flash_bwd_dq_mxu": "mxu_whole_slide_epoch_loop",
              "flash_bwd_dkv_mxu": "mxu_whole_slide_epoch_loop",
              "flash_bwd_bhld_fused_mxu": "mxu_bhld_training"}
-    print(f"[17] torch.profiler over the run: at most {PROFILER_READINGS['most_sentinels_lost']} "
+    print(f"[18] torch.profiler over the run: at most {PROFILER_READINGS['most_sentinels_lost']} "
           f"sentinel records lost at a window's start; lead-in now "
           f"{PROFILER_LEAD_IN['n']} sentinels", flush=True)
     kernels = []

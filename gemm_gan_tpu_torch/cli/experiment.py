@@ -1,7 +1,6 @@
-"""The experiment protocol around the fused engine, single-process.
+"""The experiment protocol around the fused engine, on one device or a mesh.
 
-Counterpart of `gemm_gan_tpu/cli/experiment.py::Experiment` (one process,
-one device):
+Counterpart of `gemm_gan_tpu/cli/experiment.py::Experiment`:
 
   * `fit`: training epochs, validation every `freq_compute_test` epochs (not
     after the last) on train vs val regeneration (the on-device kNN + PRDC
@@ -29,8 +28,28 @@ state.
 `eval.scan_sampling` takes the engine's graphed sampling path
 (`generate_samples_all(scan=True)`, the same profiles bit for bit).
 
-Not ported: multi-process runs and a mesh or a sharded bank (`mesh`,
-`data.shard_bank` raise).
+Under a mesh (`mesh`: every rank constructs the Experiment with the SAME
+full `splits` and its `parallel.mesh.Mesh`), as the JAX multi-process
+contract:
+
+  * training is sharded by batch: each data rank feeds its contiguous
+    block of every global batch (`Batches(shard_mode="batch",
+    process_index=data index, process_count=D)`), or, under
+    `data.shard_bank`, gathers from its shard of a `ShardedDeviceCache`;
+    the ranks of one `model` group feed the same rows;
+  * validation and test generation run on host loaders of the full splits
+    on every rank (under `data.shard_bank` the train split trimmed to the
+    cases the bank trained, and a one-time host patch subsample to
+    `num_patches`); each batch's rows are split over `data` and gathered
+    (`WGANGPEngine.generate_samples_all`), so every rank holds them all;
+  * the host metric suites, npy dumps, curves, logs and JSON files are
+    rank 0's: `fit()` / `evaluate()` return the results there and `{}`
+    elsewhere; checkpoint save / restore is collective (`train.checkpoint`)
+    and the gate-best decision is rank 0's, broadcast; the post-hoc suites
+    read rank 0's dumps and are rank 0's to call;
+  * dropout draws from the device's default generator seeded with
+    `train.seed` + the data index (the ranks of a `model` group draw the
+    same masks).
 """
 
 from __future__ import annotations
@@ -47,7 +66,7 @@ import numpy as np
 import torch
 
 from gemm_gan_tpu_torch.config import ExperimentConfig
-from gemm_gan_tpu_torch.data.device_cache import DeviceCache, epoch_seed
+from gemm_gan_tpu_torch.data.device_cache import DeviceCache, ShardedDeviceCache, epoch_seed
 from gemm_gan_tpu_torch.data.loader import Batches
 from gemm_gan_tpu_torch.eval.detection import (compute_evaluation_metrics, detection,
                                                knn_detection)
@@ -57,16 +76,13 @@ from gemm_gan_tpu_torch.eval.prdc import compute_prdc
 from gemm_gan_tpu_torch.eval.privacy import dcr, nndr
 from gemm_gan_tpu_torch.eval.utility import (UtilityEvaluator, UtilityEvaluatorPrimary,
                                              save_run_artifacts)
+from gemm_gan_tpu_torch.parallel.comm import broadcast_object
 from gemm_gan_tpu_torch.train.checkpoint import (dropout_generator, resolve_ckpt_dir,
                                                  restore_state, resume_or_fresh, save_state)
 from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
 from gemm_gan_tpu_torch.utils.device import DeviceLike, resolve_device
 from gemm_gan_tpu_torch.utils.metrics import EpochProfileWindow, MetricLogger
 from gemm_gan_tpu_torch.viz import matplotlib_available, plot_curves
-
-NOT_PORTED = ("multi-device runs (a mesh, data.shard_bank) are not ported yet: "
-              "ROADMAP item M14")
-
 
 def _host_subsample_patches(split: Dict, num_patches: int, seed: int) -> Dict:
     """One-time seeded host subsample of a full-width patch bank to
@@ -120,17 +136,23 @@ def _store_dtype(name: Optional[str]) -> Optional[torch.dtype]:
 
 class Experiment:
     """The experiment protocol of one run on one device (`device`: the CUDA
-    card unless "cpu")."""
+    card unless "cpu"), or on this rank's share of a mesh (`mesh`)."""
 
     def __init__(self, cfg: ExperimentConfig, splits: Dict, mesh=None,
                  device: DeviceLike = None):
-        if mesh is not None or cfg.data.shard_bank:
-            raise NotImplementedError(NOT_PORTED)
-        self.device = resolve_device(device)
+        if cfg.data.shard_bank and mesh is None:
+            raise ValueError("data.shard_bank shards the training bank over a mesh's data "
+                             "axis and needs a mesh; on one device use the replicated "
+                             "DeviceCache (data.cache_on_device)")
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        self.is_main = mesh is None or mesh.rank == 0
         self.cfg = cfg
         self.splits = splits
         t = cfg.train
-        if cfg.data.cache_on_device:
+        if mesh is not None:
+            self._mesh_loaders(cfg, splits)
+        elif cfg.data.cache_on_device:
             # the banks on the device: gathers and fresh per-step patch
             # subsampling there
             def make(name):
@@ -145,14 +167,49 @@ class Experiment:
                 # drop_remainder=False: ragged tails train and evaluate
                 return Batches(splits[name], t.batch_size, seed=t.seed,
                                shuffle=(name == "train"), drop_remainder=False)
-        self.loaders = {name: make(name) for name in ("train", "val", "test") if name in splits}
+        if mesh is None:
+            self.loaders = {name: make(name) for name in ("train", "val", "test")
+                            if name in splits}
+            self.gen_loaders = self.loaders
         self.engine = WGANGPEngine(cfg, steps_per_epoch=len(self.loaders["train"]),
-                                   device=self.device)
+                                   device=self.device, mesh=mesh)
         self.out_dir = os.path.join(cfg.output_dir, cfg.run_name)
         os.makedirs(self.out_dir, exist_ok=True)
-        self.logger = MetricLogger(self.out_dir, cfg.run_name)
+        self.logger = MetricLogger(self.out_dir, cfg.run_name) if self.is_main else None
         self.val_metrics_history = []
         self._best = None  # {score, epoch, eval_epoch, step} of ckpt_best
+
+    def _mesh_loaders(self, cfg: ExperimentConfig, splits: Dict) -> None:
+        """This rank's training loader and the generation loaders of a mesh
+        run (the class docstring)."""
+        t, mesh = cfg.train, self.mesh
+        D = mesh.shape["data"]
+        if t.batch_size % D:
+            raise ValueError(f"global batch_size {t.batch_size} must divide evenly across "
+                             f"the data axis ({D})")
+        if cfg.data.shard_bank:
+            train = ShardedDeviceCache(
+                splits["train"], t.batch_size, mesh, num_patches=cfg.data.num_patches,
+                seed=t.seed, embedding_store_dtype=_store_dtype(cfg.data.embedding_store_dtype))
+        else:
+            train = Batches(splits["train"], t.batch_size // D, seed=t.seed, shuffle=True,
+                            drop_remainder=False, process_index=mesh.index("data"),
+                            process_count=D, shard_mode="batch")
+        self.loaders = {"train": train}
+
+        def gen_split(name):
+            s = splits[name]
+            if cfg.data.shard_bank:
+                if name == "train":
+                    keep = (len(s["genes"]) // D) * D
+                    s = {k: v[:keep] for k, v in s.items()}
+                s = _host_subsample_patches(s, cfg.data.num_patches, t.seed)
+            return s
+
+        self.gen_loaders = {
+            name: Batches(gen_split(name), t.batch_size, seed=t.seed,
+                          shuffle=(name == "train"), drop_remainder=False)
+            for name in ("train", "val", "test") if name in splits}
 
     def _generate_all(self, state, generator: torch.Generator, loader, epoch: int,
                       device_out: bool = False, batches=None):
@@ -182,14 +239,15 @@ class Experiment:
         eng = self.engine
         train = self.loaders["train"]
         state = eng.init_state(t.seed, next(iter(train.epoch(0))))
-        dropout_generator(self.device).manual_seed(t.seed)
+        dropout_generator(self.device).manual_seed(
+            t.seed + (0 if self.mesh is None else self.mesh.index("data")))
 
         # whole epochs as one call need >= 1 full batch: a DeviceCache goes
         # through the graphed step_many_cached, host batches through
         # step_many on the stacked epoch; tiny splits take the per-batch path
         scan_cache = stacked_fn = None
         if train.n_full_batches:
-            if isinstance(train, DeviceCache):
+            if isinstance(train, (DeviceCache, ShardedDeviceCache)):
                 scan_cache = train
             else:
                 stacked_fn = train.stacked_epoch
@@ -198,7 +256,7 @@ class Experiment:
 
         start_epoch = 0
         ckpt_dir = os.path.join(self.out_dir, "ckpt")
-        if not resume:
+        if not resume and self.is_main:
             # a fresh fit into a used out_dir must not inherit the old run's
             # gate-best state
             best_ckpt = os.path.join(self.out_dir, "ckpt_best")
@@ -207,7 +265,7 @@ class Experiment:
             best_json = os.path.join(self.out_dir, "best.json")
             if os.path.exists(best_json):
                 os.remove(best_json)
-        else:
+        elif resume:
             state, start_epoch = resume_or_fresh(ckpt_dir, state, steps_per_epoch,
                                                  t.epochs, loader=train)
             if start_epoch:
@@ -256,7 +314,7 @@ class Experiment:
         capped at `eval.validation_max_cases` cases (None: the whole split)."""
         ev = self.cfg.eval
         gen = self._generator(self.cfg.train.seed + 1, epoch)
-        train_loader, val_loader = self.loaders["train"], self.loaders["val"]
+        train_loader, val_loader = self.gen_loaders["train"], self.gen_loaders["val"]
         train_batches = None
         if ev.validation_max_cases is not None:
             n_b = max(1, ev.validation_max_cases // train_loader.batch_size)
@@ -265,6 +323,8 @@ class Experiment:
         train_out = self._generate_all(state, gen, train_loader, epoch,
                                        device_out=on_device, batches=train_batches)
         val_out = self._generate_all(state, gen, val_loader, epoch, device_out=on_device)
+        if not self.is_main:
+            return None
         if on_device:
             det = knn_detection(train_out["real"], train_out["fake"],
                                 val_out["real"], val_out["fake"])
@@ -294,19 +354,20 @@ class Experiment:
         strictly above the best so far (`val_score`; ties keep the earliest
         peak). "epoch" counts the epochs completed, the number `evaluate`
         names its dumps by; "eval_epoch" is the 0-based validation epoch."""
-        score = val_score(rec)
+        score = broadcast_object(None if rec is None else val_score(rec), self.mesh)
         if self._best is not None and score <= self._best["score"]:
             return
         step = save_state(os.path.join(self.out_dir, "ckpt_best"), state)
         self._best = {"score": float(score), "epoch": int(epoch) + 1,
                       "eval_epoch": int(epoch), "step": int(step)}
-        with open(os.path.join(self.out_dir, "best.json"), "w") as f:
-            json.dump(self._best, f, indent=2)
+        if self.is_main:
+            with open(os.path.join(self.out_dir, "best.json"), "w") as f:
+                json.dump(self._best, f, indent=2)
 
     def _plot_val_curves(self) -> None:
         """`validation_metrics.png`; without matplotlib none is written (the
         curves are in `val_metrics.json`) and stderr says so."""
-        if not self.val_metrics_history:
+        if not self.val_metrics_history or not self.is_main:
             return
         if not matplotlib_available():
             print("matplotlib is not installed: validation_metrics.png not written "
@@ -332,8 +393,10 @@ class Experiment:
         has_labels = "disease" in self.splits["train"]
         for run in range(ev.n_runs):
             gen = self._generator(t.seed + 2, run)
-            train_out = self._generate_all(state, gen, self.loaders["train"], run)
-            test_out = self._generate_all(state, gen, self.loaders["test"], run)
+            train_out = self._generate_all(state, gen, self.gen_loaders["train"], run)
+            test_out = self._generate_all(state, gen, self.gen_loaders["test"], run)
+            if not self.is_main:
+                continue
             run_dir = os.path.join(self.out_dir, f"test_{run}_epoch_{epoch}")
             arrays = {"data_real": train_out["real"], "data_gen": train_out["fake"],
                       "test_real": test_out["real"], "test_gen": test_out["fake"]}
@@ -380,6 +443,8 @@ class Experiment:
                     n_components=min(ev.pca_components, train_out["real"].shape[0] - 1),
                     device=self.device),
             })
+        if not self.is_main:
+            return {}
         return {"gamma_mean": float(np.mean([r["gamma"] for r in all_results])),
                 "gamma_std": float(np.std([r["gamma"] for r in all_results])),
                 "runs": all_results}

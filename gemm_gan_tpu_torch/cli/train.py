@@ -1,4 +1,4 @@
-"""Train entry point of the port: the experiment protocol on one card.
+"""Train entry point of the port: the experiment protocol on one card or a mesh.
 
     python -m gemm_gan_tpu_torch.cli.train --variant film_cross_attention \\
         --data_dir DIR [--output_path outputs] [--run_name run] [--resume]
@@ -18,9 +18,19 @@ the VAE's own settings (`vae_*`) keep the variant's preset. Writes
 `config.json` and `results.json` into `<output_path>/<run_name>/`. Runs on
 the CUDA card unless `--device cpu`.
 
-Not ported: `--mesh_model` > 1 and `--shard_bank` raise
-`NotImplementedError` (with a VAE variant, `--shard_bank` raises the JAX
-package's `ValueError`).
+Several ranks, one per card (NCCL), under torchrun:
+
+    torchrun --nproc_per_node=N -m gemm_gan_tpu_torch.cli.train \
+        --variant film_cross_attention --data_dir DIR --mesh_data D \
+        --mesh_model M [--shard_bank]
+
+(or gloo ranks on the CPU with `--device cpu`). `distributed_init()` reads
+torchrun's variables; a mesh of (`--mesh_data`, `--mesh_model`) is built
+when there is more than one rank or `--mesh_model` > 1, and `Experiment`
+runs on it (rank 0 writes the run dir). As in the JAX package,
+`--shard_bank` without a mesh raises `ValueError`, and so does
+`--shard_bank` with `vae` / `cvae`; the VAE family is single-process
+(`VAEExperiment`) and raises on more than one rank.
 """
 
 from __future__ import annotations
@@ -67,7 +77,8 @@ def build_parser():
     p.add_argument("--n_runs", type=int, default=None,
                    help="test-block repetitions (default: the variant's preset)")
     p.add_argument("--shard_bank", action="store_true",
-                   help="shard the training bank over a mesh (not ported)")
+                   help="shard the training bank's cases over the mesh's data axis "
+                        "(a ShardedDeviceCache; needs a mesh)")
     p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--cond_embed_reuse", default="per_call",
                    choices=["per_call", "per_update"],
@@ -106,24 +117,38 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
-    from gemm_gan_tpu_torch.cli.experiment import NOT_PORTED, Experiment
+    import torch.distributed as dist
+
+    from gemm_gan_tpu_torch.cli.experiment import Experiment
     from gemm_gan_tpu_torch.cli.vae_experiment import VAEExperiment
     from gemm_gan_tpu_torch.config import save_config, variant_config
     from gemm_gan_tpu_torch.data.tcga import load_tcga
+    from gemm_gan_tpu_torch.parallel.mesh import distributed_init, make_mesh
 
     if args.shard_bank and args.variant in VAE_VARIANTS:
         raise ValueError("--shard_bank is not supported for the VAE variants (they "
                          "train through VAEExperiment's stacked scan)")
-    if args.mesh_model > 1 or args.shard_bank:
-        raise NotImplementedError(NOT_PORTED)
+    distributed_init(device=args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = None
+    if world > 1 or args.mesh_model > 1:
+        mesh = make_mesh(args.mesh_data, args.mesh_model, device=args.device)
+    if args.shard_bank and mesh is None:
+        raise ValueError(
+            "--shard_bank shards the bank over a mesh data axis and needs more than one "
+            "rank; on a single device use the replicated DeviceCache (default) with "
+            "--num_patches / bf16 bank storage")
 
     schema = {"vanilla": "genes", "vae": "genes", "benchmark": "labels", "cvae": "labels",
               "cross_attention": "multi_token",
               "film_cross_attention": "multi_token"}.get(args.variant, "multi_patch")
-    # the full padded patch bank: the device cache draws a fresh subset per step
+    # the full padded patch bank when a device cache draws a fresh subset per
+    # step (one device, or a sharded bank); a mesh's host batches carry a
+    # one-time host subsample, as the JAX package's
+    use_device_cache = mesh is None or args.shard_bank
     splits = load_tcga(args.data_dir, schema=schema, num_patches=args.num_patches,
                        normalization=args.normalization, seed=args.seed,
-                       patch_bank=schema in ("multi_patch", "multi_token"))
+                       patch_bank=use_device_cache and schema in ("multi_patch", "multi_token"))
     meta = splits["meta"]
 
     fusion_kw = {}
@@ -158,16 +183,20 @@ def main(argv=None):
         data=dataclasses.replace(
             cfg.data, data_dir=args.data_dir, num_patches=args.num_patches,
             normalization=args.normalization, seed=args.seed,
-            embedding_store_dtype=args.bank_dtype),
+            embedding_store_dtype=args.bank_dtype, shard_bank=args.shard_bank),
         eval=dataclasses.replace(
             cfg.eval, validation_max_cases=args.validation_max_cases,
             on_device_validation=args.on_device_validation,
             n_runs=cfg.eval.n_runs if args.n_runs is None else args.n_runs),
     )
-    family = VAEExperiment if args.variant in VAE_VARIANTS else Experiment
-    exp = family(cfg, splits, device=args.device)
+    if args.variant in VAE_VARIANTS:
+        exp = VAEExperiment(cfg, splits, device=args.device)
+    else:
+        exp = Experiment(cfg, splits, mesh=mesh, device=None if mesh else args.device)
+    main_rank = mesh is None or mesh.rank == 0  # rank 0 writes the run dir
     # the resolved config first, so an interrupted run dir describes itself
-    save_config(cfg, os.path.join(exp.out_dir, "config.json"))
+    if main_rank:
+        save_config(cfg, os.path.join(exp.out_dir, "config.json"))
 
     if args.evaluate_only:
         results = exp.evaluate(which=args.evaluate_which)
@@ -187,11 +216,15 @@ def main(argv=None):
             else:
                 print(f"no steady-state trace captured under {args.profile_dir} (the "
                       "window opens after the first epoch: the run needs >= 2 epochs)")
+        if not main_rank:
+            return {}
         # TSTR utility needs label dumps: conditional variants only
         if "disease" in splits["train"]:
             results["utility"] = exp.posthoc_utility()
         results["privacy"] = exp.posthoc_privacy()
 
+    if not main_rank:
+        return {}
     out_file = os.path.join(exp.out_dir, "results.json")
     with open(out_file, "w") as f:
         json.dump(results, f, indent=2, default=float)

@@ -53,6 +53,12 @@ class VAEExperiment:
     card unless "cpu")."""
 
     def __init__(self, cfg: ExperimentConfig, splits: Dict, device: DeviceLike = None):
+        import torch.distributed as dist
+
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            # single-process by design, as the JAX package's VAEExperiment
+            raise ValueError(f"VAEExperiment runs on one process; got "
+                             f"{dist.get_world_size()} ranks")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.splits = splits

@@ -1,6 +1,8 @@
-"""Device-resident dataset cache with batch assembly on the card.
+"""Device-resident dataset caches with batch assembly on the card.
 
-Counterpart of `gemm_gan_tpu/data/device_cache.py::DeviceCache`. The whole
+Counterpart of `gemm_gan_tpu/data/device_cache.py`: `DeviceCache` (the
+whole bank on one device) and `ShardedDeviceCache` (the bank sharded over a
+mesh's `data` axis, and optionally its patch axis over `model`; below). The whole
 (padded) bank lives on the device once; every batch is a gather by index,
 and the per-item patch subsampling runs on the device: fresh subsets every
 step, as the reference's per-item resampling, with no host work.
@@ -31,6 +33,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from gemm_gan_tpu_torch.utils import threefry
 from gemm_gan_tpu_torch.utils.device import DeviceLike, resolve_device
 
 NARROWABLE = ("patches", "tokens", "text_emb")
@@ -189,3 +192,159 @@ class DeviceCache:
         batches = [self.assemble_fn(self.arrays, idx[k], None if scores is None else scores[k])
                    for k in range(len(idx))]
         return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+class ShardedDeviceCache:
+    """`DeviceCache` with the bank SHARDED over the mesh's `data` axis.
+
+    Counterpart of `gemm_gan_tpu/data/device_cache.py::ShardedDeviceCache`.
+    Every rank passes the same global `data`; the case axis is cut into
+    `data`-axis shards of n // S cases (surplus cases dropped, as JAX's
+    equal shards), and each rank keeps its own shard on its device: per-rank
+    residency is bank / S, and every gather is local to the shard.
+
+    Sampling contract (the JAX package's, bit for bit: `utils.threefry`
+    gives `jax.random`'s streams): each data shard draws a fresh
+    without-replacement permutation of ITS OWN cases per epoch (key =
+    fold_in(fold_in(key(seed), epoch), shard)), so a global batch is S
+    stacked per-shard blocks of batch_size / S cases; batch k's patch
+    subsampling draws U(0, 1) scores with key fold_in(fold_in(epoch key,
+    k), shard) (then folded with the `model` index under
+    `shard_patches`).
+
+    `shard_patches=True` also shards the PATCH axis of `patches` /
+    `patch_mask` over the mesh's `model` axis: each rank keeps its W / M
+    slots, subsamples num_patches / M of them with its own key (a
+    stratified-by-shard subset, as JAX's), and the batch's patches are
+    all-gathered over `model` after the gather, so a batch leaves the cache
+    as the engine consumes it: this rank's rows, every patch slot.
+
+    `epoch(e)` yields this rank's batches; `epoch_spec(e)` the epoch's
+    local index table and scores for `WGANGPEngine.step_many_cached`, whose
+    graph gathers with `assemble_fn`."""
+
+    def __init__(self, data: Dict[str, object], batch_size: int, mesh,
+                 num_patches: Optional[int] = None, seed: int = 42,
+                 embedding_store_dtype: Optional[torch.dtype] = None,
+                 shard_patches: bool = False):
+        self.mesh = mesh
+        self.device = mesh.device
+        S = int(mesh.shape["data"])
+        M = int(mesh.shape["model"]) if shard_patches else 1
+        self.shard_patches = shard_patches and M > 1
+        if shard_patches:
+            if "patches" not in data:
+                raise ValueError("shard_patches=True needs a 'patches' array")
+            W = data["patches"].shape[1]
+            if W % M:
+                raise ValueError(
+                    f"patch width {W} not divisible by model axis {M}; pad "
+                    "the bank (patch_mask False on the padding)")
+            if num_patches is not None and num_patches % M:
+                raise ValueError(
+                    f"num_patches {num_patches} not divisible by model "
+                    f"axis {M} (shard-local subsampling draws "
+                    "num_patches/M per shard)")
+        if batch_size % S:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"data axis size {S}")
+        self.batch_size = batch_size
+        self.b_shard = batch_size // S
+        self.num_patches = num_patches
+        self.seed = seed
+        self._epoch = 0
+        self._key = threefry.key(seed)
+        n_in = len(next(iter(data.values())))
+        for k, v in data.items():
+            if len(v) != n_in:
+                raise ValueError(f"length mismatch for {k}: {len(v)} vs {n_in}")
+        self.n = (n_in // S) * S
+        self.n_shard = self.n // S
+        if self.n_shard < self.b_shard:
+            raise ValueError(
+                f"{self.n_shard} cases per shard < per-shard batch "
+                f"{self.b_shard} (n={self.n}, data={S})")
+        self._narrowed = frozenset(k for k in NARROWABLE if k in data
+                                   and embedding_store_dtype is not None)
+        d, m = mesh.index("data"), mesh.index("model")
+        rows = slice(d * self.n_shard, (d + 1) * self.n_shard)
+
+        def prep(k, v):
+            t = torch.as_tensor(v[rows])
+            if self.shard_patches and k in ("patches", "patch_mask"):
+                w = t.shape[1] // M
+                t = t[:, m * w:(m + 1) * w]
+            t = t.to(self.device)
+            if k in self._narrowed:
+                return t.to(embedding_store_dtype)
+            return t.float() if t.is_floating_point() else t
+
+        self.arrays = {k: prep(k, v) for k, v in data.items()}
+        self.resample = (num_patches is not None and "patches" in data
+                         and data["patches"].shape[1] > num_patches)
+        self.local_num_patches = (num_patches // M if (self.resample and self.shard_patches)
+                                  else num_patches)
+        self.assemble_fn = functools.partial(
+            _assemble_sharded, num_patches=self.local_num_patches,
+            narrowed=self._narrowed, mesh=mesh if self.shard_patches else None)
+
+    def seek(self, epoch: int):
+        self._epoch = epoch
+
+    def _next_epoch(self, epoch: Optional[int]) -> int:
+        e = self._epoch if epoch is None else epoch
+        if epoch is None:
+            self._epoch += 1
+        return e
+
+    def epoch_base_key(self, epoch: int):
+        """The epoch's key (drives the per-shard permutations and the
+        subsampling keys)."""
+        return threefry.fold_in(self._key, epoch)
+
+    def __len__(self):
+        return self.n_shard // self.b_shard
+
+    @property
+    def n_full_batches(self) -> int:
+        return len(self)
+
+    def epoch_spec(self, epoch: Optional[int] = None):
+        """(idx [K, b_shard] int64 into this rank's bank, scores [K,
+        b_shard, local patch width] or None), on the device: this rank's
+        part of every batch of the epoch."""
+        e = self._next_epoch(epoch)
+        ekey = self.epoch_base_key(e)
+        d = self.mesh.index("data")
+        K, b = len(self), self.b_shard
+        perm = threefry.permutation(threefry.fold_in(ekey, d), self.n_shard)
+        idx = perm[:K * b].reshape(K, b)
+        scores = None
+        if self.resample:
+            width = self.arrays["patches"].shape[1]
+            keys = [threefry.fold_in(threefry.fold_in(ekey, k), d) for k in range(K)]
+            if self.shard_patches:
+                keys = [threefry.fold_in(bk, self.mesh.index("model")) for bk in keys]
+            scores = torch.from_numpy(np.stack([threefry.uniform(bk, (b, width))
+                                                for bk in keys])).to(self.device)
+        return torch.as_tensor(idx, device=self.device), scores
+
+    def epoch(self, epoch: Optional[int] = None) -> Iterator[Dict[str, torch.Tensor]]:
+        idx, scores = self.epoch_spec(epoch)
+        for k in range(len(idx)):
+            yield self.assemble_fn(self.arrays, idx[k], None if scores is None else scores[k])
+
+    def __iter__(self):
+        return self.epoch()
+
+
+def _assemble_sharded(arrays, idx, scores, num_patches, narrowed, mesh):
+    """`assemble_batch` on this rank's shard; with `mesh` (shard_patches)
+    the patches and their mask are then all-gathered over `model`."""
+    batch = assemble_batch(arrays, idx, scores, num_patches, narrowed)
+    if mesh is not None:
+        from gemm_gan_tpu_torch.parallel import comm
+
+        for k in ("patches", "patch_mask"):
+            batch[k] = comm.all_gather(batch[k], mesh, "model", dim=1)
+    return batch

@@ -18,8 +18,15 @@ trunks' hidden Linears (and BatchNorms, `use_batchnorm`) in bf16 (the
 trunks' heads, LayerNorms and the condition vector `embed_cond` returns
 stay f32), as the JAX modules with `dtype=jnp.bfloat16`;
 `fusion.flash_mxu_bf16` rounds the flash kernels' product operands to
-bf16. Every fusion kind of the JAX package is served;
-`fusion.sequence_parallel=True` raises `NotImplementedError`.
+bf16. Every fusion kind of the JAX package is served.
+
+`mesh` (a `parallel.mesh.Mesh`) places the module on this rank's share of
+a (data, model) mesh, as the JAX modules' `mesh`: the gene-dimension
+Linears hold their `model` blocks (`parallel.sharding.shard_module_`),
+BatchNorms take the global batch's statistics over `data`, and with
+`fusion.sequence_parallel` the patch self-attention runs as ring attention
+over `model`. The random init is drawn full-size first, so a sharded module
+holds the blocks of the unsharded one from the same generator.
 Modules are built in train mode (dropout active), as `nn.Module`s are;
 `GeneratorServer` switches its generator to eval mode. Dropout follows the
 module's mode (JAX's `deterministic`); BatchNorm follows the `train`
@@ -44,11 +51,9 @@ _TRUNCATED_STD = 0.87962566103423978
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` for settings the port does not serve."""
+    """Raise for settings the port does not serve."""
     if cfg.compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r} not in {sorted(DTYPES)}")
-    if cfg.fusion.sequence_parallel:
-        raise NotImplementedError("fusion.sequence_parallel=True is not ported")
 
 
 def init_flax_like_(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
@@ -70,6 +75,19 @@ def init_flax_like_(module: nn.Module, generator: Optional[torch.Generator] = No
                 nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=generator)
 
 
+def _place_on_mesh_(module: nn.Module, cfg: ModelConfig, mesh) -> None:
+    from gemm_gan_tpu_torch.ops.attention import MaskedMultiHeadAttention
+    from gemm_gan_tpu_torch.ops.batchnorm import BatchNorm
+    from gemm_gan_tpu_torch.parallel.sharding import shard_module_
+
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
+        elif isinstance(m, MaskedMultiHeadAttention) and cfg.fusion.sequence_parallel:
+            m.mesh = mesh
+    shard_module_(module, mesh, cfg.n_genes)
+
+
 class _Conditioned(nn.Module):
     """Shared base: a fusion module and an MLP trunk over [x ∥ cond], built
     on `device` (CUDA unless "cpu" is asked for) with Flax-like random
@@ -78,10 +96,10 @@ class _Conditioned(nn.Module):
 
     def __init__(self, cfg: ModelConfig, in_features: int, hidden_dims, out_dim: int,
                  device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         check_supported(cfg)
-        dev = resolve_device(device)
+        dev = resolve_device(device) if mesh is None else mesh.device
         self.cfg = cfg
         dtype = DTYPES[cfg.compute_dtype]
         self.fusion = build_fusion(cfg.fusion, dtype)
@@ -89,6 +107,9 @@ class _Conditioned(nn.Module):
                               out_dim, negative_slope=cfg.negative_slope,
                               use_batchnorm=cfg.use_batchnorm, dtype=dtype)
         init_flax_like_(self, generator)
+        self.mesh = mesh
+        if mesh is not None:
+            _place_on_mesh_(self, cfg, mesh)
         self.to(dev)
 
     def embed_cond(self, cond: Optional[Dict[str, torch.Tensor]]) -> Optional[torch.Tensor]:
@@ -118,9 +139,9 @@ class Generator(_Conditioned):
     """z [B, latent] (+ cond dict) -> gene-expression vector [B, n_genes]."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__(cfg, cfg.latent_dim, cfg.gen_dims, cfg.n_genes,
-                         device=device, generator=generator)
+                         device=device, generator=generator, mesh=mesh)
 
 
 class Critic(_Conditioned):
@@ -131,6 +152,6 @@ class Critic(_Conditioned):
     the trunk is differentiated twice."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__(cfg, cfg.n_genes, cfg.disc_dims, 1,
-                         device=device, generator=generator)
+                         device=device, generator=generator, mesh=mesh)

@@ -14,7 +14,12 @@ the residual sums, as JAX's `nn.LayerNorm(dtype=jnp.float32)`.
 Dropout sits where the JAX modules put it (the attention output, after the
 FFN ReLU and after the FFN output) and is active in `train()` mode, as the
 JAX modules' `deterministic=False`; the serving path runs in `eval()` mode.
-Ring (sequence-parallel) attention is not ported.
+
+`mesh` (set by `models.gan` under `fusion.sequence_parallel`) routes a
+self-attention (Lq == Lk) through ring attention
+(`kernels.ring_attention.ring_mha`, the sequence sharded over `model`)
+when the mesh has a `model` axis of more than one rank, as the JAX module
+does; otherwise `masked_mha` and its kernels serve it.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from gemm_gan_tpu_torch.kernels.flash_attention import masked_mha
+from gemm_gan_tpu_torch.kernels.ring_attention import ring_mha
 from gemm_gan_tpu_torch.ops.linear import Linear
 
 LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
@@ -54,12 +60,27 @@ class MaskedMultiHeadAttention(nn.Module):
         self.v_proj = Linear(embed_dim, embed_dim, dtype)
         self.out_proj = Linear(embed_dim, embed_dim, dtype)
         self.dropout = nn.Dropout(dropout)
+        self.mesh = None  # ring (sequence-parallel) self-attention over `model`
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         q, k, v = self.q_proj(q_in), self.k_proj(kv_in), self.v_proj(kv_in)
         H = self.num_heads
-        if self.flash_layout == "ble":
+        mesh = self.mesh
+        if mesh is not None and q.shape[1] == k.shape[1] and mesh.shape["model"] > 1:
+            B, Lq, E = q.shape
+
+            def split(x):
+                return x.reshape(B, x.shape[1], H, E // H).transpose(1, 2)
+
+            # JAX shards the batch over `data` only when it divides evenly;
+            # here each rank already holds its rows
+            data_ax = mesh.shape["data"]
+            batch_axis = "data" if data_ax > 1 and B % data_ax == 0 else None
+            out = ring_mha(split(q), split(k), split(v), kv_mask, mesh=mesh,
+                           axis="model", batch_axis=batch_axis)
+            out = out.transpose(1, 2).reshape(B, Lq, E)
+        elif self.flash_layout == "ble":
             out = masked_mha(q, k, v, kv_mask, use_pallas=self.use_pallas,
                              layout="ble", num_heads=H, mxu_bf16=self.mxu_bf16)
         else:

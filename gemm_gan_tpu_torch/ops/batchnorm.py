@@ -16,6 +16,12 @@ cast to the module's dtype at the end. `torch.nn.BatchNorm1d` is not a
 drop-in: it updates the running variance with the unbiased variance.
 The buffers (`running_mean`, `running_var`) are Flax's `batch_stats`
 collection (`mean`, `var`); `convert.py` maps both ways.
+
+Under a mesh with a `data` axis of more than one rank (`mesh`, set by
+`models.gan`), each rank holds its rows of the batch, and the statistics
+are the global batch's, as JAX's over its global arrays: each rank's sums
+of x and x² and its row count are all-reduced over `data` (one call,
+differentiable) before the f32 E[x²] - E[x]².
 """
 
 from __future__ import annotations
@@ -35,13 +41,27 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.mesh = None  # batch statistics over the mesh's `data` axis
+
+    def _moments(self, xf: torch.Tensor):
+        """(E[x], E[x²]) over every axis but the last, in f32."""
+        axes = tuple(range(xf.dim() - 1))
+        mesh = self.mesh
+        if mesh is None or mesh.shape["data"] == 1:
+            return xf.mean(axes), xf.square().mean(axes)
+        from gemm_gan_tpu_torch.parallel import comm
+
+        rows = xf.new_full((1,), float(xf.numel() // xf.shape[-1]))
+        sums = comm.all_reduce_sum(torch.cat([xf.sum(axes), xf.square().sum(axes), rows]),
+                                   mesh, "data")
+        F = xf.shape[-1]
+        return sums[:F] / sums[-1], sums[F:2 * F] / sums[-1]
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = x.float()
         if train:
-            axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp(xf.square().mean(axes) - mean.square(), min=0.0)
+            mean, mean_sq = self._moments(xf)
+            var = torch.clamp(mean_sq - mean.square(), min=0.0)
             with torch.no_grad():
                 m = MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -15,6 +15,15 @@ what the layer computes in:
   trunks), then one fused `addmm`.
 
 `nn.Linear` itself rejects a bf16 input with f32 weights.
+
+Under a mesh with a `model` axis (`parallel.sharding.shard_module_`) a
+Linear may hold one rank's block of its parameters (`parallel`):
+
+* "column": the rows of `weight` and `bias` (its outputs); each rank
+  computes its outputs, which are all-gathered;
+* "row": the columns of `weight` (its inputs); each rank multiplies its
+  slice of the input, the partial products are all-reduced, then the
+  (replicated) bias is added, in the compute dtype.
 """
 
 from __future__ import annotations
@@ -33,9 +42,26 @@ class Linear(nn.Linear):
                  dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features)
         self.compute_dtype = dtype
+        self.parallel = None  # ("column" | "row", mesh) on a model-sharded mesh
+
+    def _dense(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        dtype = self.compute_dtype
+        b = self.bias if bias else None
+        if dtype == torch.float32:
+            return F.linear(x.float(), self.weight, b)
+        y = F.linear(x.to(dtype), self.weight.to(dtype))
+        return y if b is None else y + b.to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.compute_dtype
-        if dtype == torch.float32:
-            return F.linear(x.float(), self.weight, self.bias)
-        return F.linear(x.to(dtype), self.weight.to(dtype)) + self.bias.to(dtype)
+        if self.parallel is None:
+            return self._dense(x)
+        from gemm_gan_tpu_torch.parallel import comm
+
+        mode, mesh = self.parallel
+        x = comm.copy_to(x, mesh)
+        if mode == "column":
+            return comm.gather(self._dense(x), mesh, dim=-1)
+        k = self.weight.shape[1]
+        x = x.narrow(-1, mesh.index("model") * k, k)
+        y = comm.reduce_from(self._dense(x, bias=False), mesh)
+        return y + self.bias.to(y.dtype)

@@ -120,6 +120,7 @@ class GeneratorServer:
     def _wrap(self, cfg: ModelConfig, gen: Generator) -> None:
         self.cfg = cfg
         self.gen = gen.eval()
+        self.mesh = gen.mesh
         self.device = next(gen.parameters()).device
         self.keys = cond_keys_for(cfg.fusion)
         self._graphs: Dict[tuple, "_SampleGraph"] = {}  # sample_all(scan=True)
@@ -128,10 +129,40 @@ class GeneratorServer:
     def for_module(cls, gen: Generator) -> "GeneratorServer":
         """Serve an existing generator (a training run's) as it stands,
         sharing its weights (and a BatchNorm trunk's running statistics).
-        Switches it to eval mode."""
+        Switches it to eval mode. A generator on a mesh (a training run's
+        under a mesh, `gen.mesh`) is served by every rank at once, on the
+        same batches and z generator: each batch's rows are split over the
+        mesh's `data` axis (padded to a multiple of it with copies of the
+        last row) and the profiles all-gathered, so every rank returns
+        them all, as JAX's sharded sampling."""
         server = cls.__new__(cls)
         server._wrap(gen.cfg, gen)
         return server
+
+    def _split(self, c: Optional[Dict[str, torch.Tensor]], zs):
+        """This rank's rows of a batch's conditioning and z draws."""
+        D = 1 if self.mesh is None else self.mesh.shape["data"]
+        if D == 1:
+            return c, zs
+        from gemm_gan_tpu_torch.parallel.sharding import batch_rows
+
+        def rows(x):
+            pad = -len(x) % D
+            if pad:
+                x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+            return batch_rows(x, self.mesh)
+
+        return (None if c is None else {k: rows(v) for k, v in c.items()},
+                [rows(z) for z in zs])
+
+    def _gather(self, f: torch.Tensor, n: int) -> torch.Tensor:
+        """Every rank's profiles [..., rows, n_genes] of one batch, the
+        first `n` rows."""
+        if self.mesh is None or self.mesh.shape["data"] == 1:
+            return f
+        from gemm_gan_tpu_torch.parallel import comm
+
+        return comm.all_gather(f, self.mesh, "data", dim=-2).narrow(-2, 0, n)
 
     @classmethod
     def from_flax(cls, cfg: ModelConfig, params: Mapping,
@@ -181,7 +212,8 @@ class GeneratorServer:
                 if c is None:
                     raise ValueError("unconditional generator: pass n")
                 n = next(iter(c.values())).shape[0]
-            return self.gen(self._z(n, generator), c)
+            c, (z,) = self._split(c, [self._z(n, generator)])
+            return self._gather(self.gen(z, c), n)
 
     def sample_all(self, batches, num_repeats: int, generator: torch.Generator,
                    device_out: bool = False, scan: bool = False,
@@ -229,13 +261,14 @@ class GeneratorServer:
                 n = (next(iter(c.values())).shape[0] if c is not None
                      else batch["genes"].shape[0])
                 full = n if full is None else full
-                zs = [self._z(n, generator) for _ in range(num_repeats)]
+                c_rank, zs = self._split(c, [self._z(n, generator)
+                                             for _ in range(num_repeats)])
                 if scan and n == full:
-                    f = self._sample_graph(c, zs).run(c, zs)
+                    f = self._sample_graph(c_rank, zs).run(c_rank, zs)
                 else:
-                    cvec = self.gen.embed_cond(c)
+                    cvec = self.gen.embed_cond(c_rank)
                     f = torch.stack([self.gen.score(z, cvec) for z in zs])  # [R, n, n_genes]
-                fakes.append(fetch(f))
+                fakes.append(fetch(self._gather(f, n)))
                 if "genes" in batch:
                     extras["real"].append(
                         torch.as_tensor(batch["genes"], dtype=torch.float32, device=self.device)

@@ -20,6 +20,14 @@ exists is replaced; the newest `MAX_TO_KEEP` (5, as Orbax keeps) are kept.
 A restore copies every tensor into the target state in place, so the target
 keeps its tensors' addresses.
 
+Under a mesh (the nets' `mesh`) every rank calls `save_state` and
+`restore_state`: the save gathers the full state (the `model`-sharded
+parameters and their moments all-gathered, a collective) and rank 0 writes
+it, with every rank's dropout generator state; a restore reads the full
+state on every rank and each keeps its shards. So a checkpoint does not
+depend on the mesh: one saved on a 2x2 mesh restores on one rank, and the
+reverse.
+
 The state a save sees after graphed epochs is what the replays left: the
 parameters and moments are updated in place by each replay, the host counts
 are advanced by the engine, and each replay advances the host offsets of the
@@ -36,7 +44,11 @@ import tempfile
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from gemm_gan_tpu_torch.parallel.sharding import (gather_state_dict, gather_tensor,
+                                                  load_full_state_dict_, shard_tensor,
+                                                  tp_specs)
 from gemm_gan_tpu_torch.train.schedules import ScheduledOptimizer
 from gemm_gan_tpu_torch.train.state import GANTrainState, TrainState, VAETrainState
 
@@ -56,18 +68,45 @@ def _device_of(state: GANTrainState) -> torch.device:
     return next(state.gen.parameters()).device
 
 
-def _opt_state(opt: ScheduledOptimizer) -> dict:
-    return {"count": opt.count, "count_t": opt.count_t, "nu": opt.nu, "mu": opt.mu}
+def _mesh_of(state: TrainState):
+    return getattr(state.gen, "mesh", None) if isinstance(state, GANTrainState) else None
 
 
-def _load_opt(opt: ScheduledOptimizer, saved: dict) -> None:
+def _param_specs(module, mesh):
+    """The spec of each of `module.parameters()`, in order (None without a
+    mesh)."""
+    if mesh is None:
+        return None
+    specs = tp_specs(module)
+    return [specs[name] for name, _ in module.named_parameters()]
+
+
+def _moments(xs, specs, mesh, fn):
+    return xs if specs is None or xs is None else [fn(x, s, mesh) for x, s in zip(xs, specs)]
+
+
+def _opt_state(opt: ScheduledOptimizer, specs=None, mesh=None) -> dict:
+    return {"count": opt.count, "count_t": opt.count_t,
+            "nu": _moments(opt.nu, specs, mesh, gather_tensor),
+            "mu": _moments(opt.mu, specs, mesh, gather_tensor)}
+
+
+def _load_opt(opt: ScheduledOptimizer, saved: dict, specs=None, mesh=None) -> None:
     opt.count = int(saved["count"])
     opt.count_t.copy_(saved["count_t"])
-    for dst, src in zip(opt.nu, saved["nu"]):
+    for dst, src in zip(opt.nu, _moments(saved["nu"], specs, mesh, shard_tensor)):
         dst.copy_(src)
     if opt.mu is not None:
-        for dst, src in zip(opt.mu, saved["mu"]):
+        for dst, src in zip(opt.mu, _moments(saved["mu"], specs, mesh, shard_tensor)):
             dst.copy_(src)
+
+
+def _module_state(module, mesh) -> dict:
+    return module.state_dict() if mesh is None else gather_state_dict(module, mesh)
+
+
+def _load_module(module, full: dict, mesh) -> None:
+    load_full_state_dict_(module, full, mesh)
 
 
 def _steps(path: str) -> list:
@@ -81,24 +120,41 @@ def _payload(state: TrainState) -> dict:
     if isinstance(state, VAETrainState):
         return {"step": int(state.step), "model": state.model.state_dict(),
                 "opt": _opt_state(state.opt), "rng": state.rng.get_state()}
-    return {
+    mesh = _mesh_of(state)
+    dropout = dropout_generator(_device_of(state)).get_state()
+    payload = {
         "step": int(state.step),
-        "gen": state.gen.state_dict(),
-        "critic": state.critic.state_dict(),
-        "g_ema": None if state.g_ema is None else state.g_ema.state_dict(),
-        "g_opt": _opt_state(state.g_opt),
-        "d_opt": _opt_state(state.d_opt),
+        "gen": _module_state(state.gen, mesh),
+        "critic": _module_state(state.critic, mesh),
+        "g_ema": None if state.g_ema is None else _module_state(state.g_ema, mesh),
+        "g_opt": _opt_state(state.g_opt, _param_specs(state.gen, mesh), mesh),
+        "d_opt": _opt_state(state.d_opt, _param_specs(state.critic, mesh), mesh),
         "rng": state.rng.get_state(),
-        "dropout_rng": dropout_generator(_device_of(state)).get_state(),
+        "dropout_rng": dropout,
     }
+    if mesh is not None and dist.is_initialized():
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, dropout)
+        payload["dropout_rng_ranks"] = ranks
+    return payload
 
 
 def save_state(path: str, state: TrainState, step: Optional[int] = None) -> int:
     """Write `state` as checkpoint `step` (default: `state.step`) under
     `path`; returns the step."""
     step = int(state.step if step is None else step)
-    os.makedirs(path, exist_ok=True)
     payload = _payload(state)
+    if dist.is_initialized() and _mesh_of(state) is not None:
+        if dist.get_rank() == 0:
+            _write(path, payload, step)
+        dist.barrier()  # the checkpoint is on disk before any rank reads it
+        return step
+    _write(path, payload, step)
+    return step
+
+
+def _write(path: str, payload: dict, step: int) -> None:
+    os.makedirs(path, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=path)
     try:
         torch.save(payload, os.path.join(tmp, STATE_FILE))
@@ -111,7 +167,6 @@ def save_state(path: str, state: TrainState, step: Optional[int] = None) -> int:
             shutil.rmtree(tmp)
     for old in _steps(path)[:-MAX_TO_KEEP]:
         shutil.rmtree(os.path.join(path, str(old)))
-    return step
 
 
 def restore_state(path: str, target: TrainState, step: Optional[int] = None
@@ -137,19 +192,24 @@ def restore_state(path: str, target: TrainState, step: Optional[int] = None
         target.step = int(saved["step"])
         target.rng.set_state(saved["rng"])
         return target
+    mesh = _mesh_of(target)
     with torch.no_grad():
-        target.gen.load_state_dict(saved["gen"])
-        target.critic.load_state_dict(saved["critic"])
+        _load_module(target.gen, saved["gen"], mesh)
+        _load_module(target.critic, saved["critic"], mesh)
         if (saved["g_ema"] is None) != (target.g_ema is None):
             raise ValueError("the checkpoint and the target state disagree on the EMA "
                              "generator (train.ema_decay)")
         if target.g_ema is not None:
-            target.g_ema.load_state_dict(saved["g_ema"])
-        _load_opt(target.g_opt, saved["g_opt"])
-        _load_opt(target.d_opt, saved["d_opt"])
+            _load_module(target.g_ema, saved["g_ema"], mesh)
+        _load_opt(target.g_opt, saved["g_opt"], _param_specs(target.gen, mesh), mesh)
+        _load_opt(target.d_opt, saved["d_opt"], _param_specs(target.critic, mesh), mesh)
     target.step = int(saved["step"])
     target.rng.set_state(saved["rng"])
-    dropout_generator(_device_of(target)).set_state(saved["dropout_rng"])
+    dropout = saved["dropout_rng"]
+    ranks = saved.get("dropout_rng_ranks")
+    if ranks is not None and dist.is_initialized() and len(ranks) == dist.get_world_size():
+        dropout = ranks[dist.get_rank()]  # the same world: each rank its own stream
+    dropout_generator(_device_of(target)).set_state(dropout)
     return target
 
 

@@ -24,6 +24,12 @@ replays) advances it.
 * Clipping is optax's `clip_by_global_norm`: the gradients are scaled by
   max/‖g‖ only when ‖g‖ >= max. `torch.nn.utils.clip_grad_norm_` adds
   1e-6 to the norm and is not used.
+* Under a mesh (`mesh`), `update` first averages the gradients over the
+  `data` axis (one all-reduce), and the global norm counts the squares of
+  the `model`-sharded parameters (`sharded`) summed over `model` and each
+  replicated parameter once: JAX's global norm over its global arrays.
+  The moments are made like the parameters, so a sharded parameter's are
+  its shard's.
 * `schedule` replaces the halving schedule by any function of the update
   count that takes a device tensor, such as `warmup_exp_decay` (the VAE's
   linear warmup, then exponential decay, per epoch of updates).
@@ -66,10 +72,20 @@ def warmup_exp_decay(base_lr: float, steps_per_epoch: int, warmup_epochs: int,
     return schedule
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Optional[List[bool]] = None, mesh=None) -> None:
     """Scale `grads` in place by max_norm / ‖grads‖ when the global norm is
-    at least `max_norm` (no host synchronisation)."""
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    at least `max_norm` (no host synchronisation). `sharded[i]`: grads[i]
+    is this rank's block of a parameter sharded over the mesh's `model`
+    axis, whose squares are summed over it."""
+    if sharded is None or not any(sharded):
+        norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    else:
+        from gemm_gan_tpu_torch.parallel import comm
+
+        part = comm.all_reduce_(sum((g * g).sum() for g, s in zip(grads, sharded) if s),
+                                mesh, "model")
+        norm = torch.sqrt(sum((g * g).sum() for g, s in zip(grads, sharded) if not s) + part)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(scale)
@@ -86,7 +102,8 @@ class ScheduledOptimizer:
 
     def __init__(self, params: Iterable[torch.nn.Parameter], cfg: TrainConfig,
                  lr: float, steps_per_epoch: int, clip_grad: Optional[float] = None,
-                 schedule: Optional[Callable] = None):
+                 schedule: Optional[Callable] = None, mesh=None,
+                 sharded: Optional[List[bool]] = None):
         if cfg.optimizer not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
         self.kind = cfg.optimizer
@@ -96,6 +113,8 @@ class ScheduledOptimizer:
         self.halve_every_epochs = cfg.lr_halve_every_epochs
         self.clip_grad = clip_grad
         self.schedule = schedule
+        self.mesh = mesh
+        self.sharded = sharded
         self.b1, self.b2, self.weight_decay = cfg.adam_b1, cfg.adam_b2, cfg.weight_decay
         self.count = 0
         device = self.params[0].device
@@ -125,8 +144,12 @@ class ScheduledOptimizer:
         grads = list(grads)
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
+        if self.mesh is not None:
+            from gemm_gan_tpu_torch.parallel import comm
+
+            grads = comm.mean_over(grads, self.mesh, "data")
         if self.clip_grad is not None:
-            clip_by_global_norm_(grads, self.clip_grad)
+            clip_by_global_norm_(grads, self.clip_grad, self.sharded, self.mesh)
         if self.kind == "rmsprop":
             torch._foreach_mul_(self.nu, RMSPROP_ALPHA)
             torch._foreach_addcmul_(self.nu, grads, grads, value=1 - RMSPROP_ALPHA)

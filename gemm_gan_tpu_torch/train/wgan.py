@@ -77,9 +77,26 @@ fakes are those of the per-update path up to the product's summation
 order. It is part of `_fused_step`, so `step`, `step_many` and
 `step_many_cached` (and their CUDA graphs) all take it.
 
-Not ported (raise `NotImplementedError`): what `models.gan.check_supported`
-refuses (sequence parallelism). `critic_scan` changes nothing here: the
-critic updates are a Python loop either way.
+Under a mesh (`mesh`, a `parallel.mesh.Mesh`: one rank per JAX device),
+each rank runs the step on its share, as JAX's `WGANGPEngine(mesh=...)` on
+its global arrays: the nets are sharded (`models.gan`: the gene matmuls
+over `model`, ring attention with `fusion.sequence_parallel`), each rank
+takes its rows of the batch over `data` (`step` and `step_many` take this
+rank's shard, as from `Batches(process_index=data index, process_count=D,
+shard_mode="batch")`), the draws are made for the GLOBAL batch on every
+rank from the same generator and each rank takes its rows (so they do not
+depend on the mesh), the gradients are averaged over `data` after
+`grad_accum`'s microbatches and before clipping (`ScheduledOptimizer`),
+and the metrics are averaged over `data` (the global batch's). The
+optimizer moments and the EMA are sharded like their parameters.
+`step_many_cached` takes a `DeviceCache` (the bank replicated, each rank
+gathering its rows of every batch) or a `ShardedDeviceCache` on the same
+mesh (each rank gathering from its own shard), and stays one CUDA graph per
+epoch with the collectives captured in it. Sampling splits each batch's
+rows over `data` and all-gathers them (`GeneratorServer`).
+
+`critic_scan` changes nothing here: the critic updates are a Python loop
+either way.
 """
 
 from __future__ import annotations
@@ -95,6 +112,9 @@ from gemm_gan_tpu_torch.config import ExperimentConfig
 from gemm_gan_tpu_torch.convert import flax_to_state_dict
 from gemm_gan_tpu_torch.kernels import flash_attention as fa
 from gemm_gan_tpu_torch.models.gan import Critic, Generator
+from gemm_gan_tpu_torch.parallel import comm
+from gemm_gan_tpu_torch.parallel.sharding import (batch_rows, load_full_state_dict_,
+                                                  place_batch, sharded_flags)
 from gemm_gan_tpu_torch.serving import GeneratorServer, cond_keys_for, to_device
 from gemm_gan_tpu_torch.train import losses
 from gemm_gan_tpu_torch.train.schedules import ScheduledOptimizer
@@ -103,6 +123,8 @@ from gemm_gan_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Batch = Mapping[str, Any]
 Inputs = Callable[[torch.Tensor], tuple]
+# the batch dimension of each of a step's draws (`WGANGPEngine._draws`)
+DRAW_BATCH_DIM = {"z": 1, "alpha": 1, "z_gen": 0, "noise_real": 1, "noise_fake": 1}
 
 
 def _host_tensor(x) -> torch.Tensor:
@@ -201,7 +223,7 @@ class _StepGraph:
 
 class WGANGPEngine:
     def __init__(self, cfg: ExperimentConfig, steps_per_epoch: int = 1,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         t = cfg.train
         if t.n_critic < 1:
             raise ValueError(f"train.n_critic must be >= 1, got {t.n_critic}")
@@ -219,7 +241,10 @@ class WGANGPEngine:
                       and t.grad_accum == 1)
         self.cfg = cfg
         self.steps_per_epoch = steps_per_epoch
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.keys = cond_keys_for(cfg.model.fusion)
         self.history: Dict[str, list] = {"d_loss": [], "g_loss": []}
         # step_many's graph per batch layout; step_many_cached's per cache
@@ -229,11 +254,13 @@ class WGANGPEngine:
 
     # ------------------------------------------------------------------ state
     def _state(self, gen: Generator, critic: Critic, seed: int) -> GANTrainState:
-        t = self.cfg.train
+        t, mesh = self.cfg.train, self.mesh
         g_opt = ScheduledOptimizer(gen.parameters(), t, t.lr_gen, self.steps_per_epoch,
-                                   t.clip_grad_gen)
+                                   t.clip_grad_gen, mesh=mesh,
+                                   sharded=None if mesh is None else sharded_flags(gen))
         d_opt = ScheduledOptimizer(critic.parameters(), t, t.lr_disc, self.steps_per_epoch,
-                                   t.clip_grad_disc)
+                                   t.clip_grad_disc, mesh=mesh,
+                                   sharded=None if mesh is None else sharded_flags(critic))
         rng = torch.Generator(device=self.device).manual_seed(seed)
         g_ema = copy.deepcopy(gen).requires_grad_(False) if t.ema_decay > 0 else None
         return GANTrainState(0, gen, critic, g_opt, d_opt, rng, g_ema)
@@ -244,8 +271,8 @@ class WGANGPEngine:
         self._tensors(sample_batch)
         m = self.cfg.model
         init = torch.Generator().manual_seed(seed)
-        gen = Generator(m, device=self.device, generator=init)
-        critic = Critic(m, device=self.device, generator=init)
+        gen = Generator(m, device=self.device, generator=init, mesh=self.mesh)
+        critic = Critic(m, device=self.device, generator=init, mesh=self.mesh)
         return self._state(gen, critic, seed)
 
     def state_from_flax(self, g_params: Mapping, d_params: Mapping,
@@ -253,11 +280,11 @@ class WGANGPEngine:
         """A state whose nets carry a JAX run's Flax params (numpy trees, e.g.
         `jax.device_get(state.g_params)`), with fresh optimizers; the EMA
         (if on) starts from the generator's params."""
-        m = self.cfg.model
-        gen = Generator(m, device=self.device)
-        gen.load_state_dict(flax_to_state_dict(g_params))
-        critic = Critic(m, device=self.device)
-        critic.load_state_dict(flax_to_state_dict(d_params))
+        m, mesh = self.cfg.model, self.mesh
+        gen = Generator(m, device=self.device, mesh=mesh)
+        load_full_state_dict_(gen, flax_to_state_dict(g_params), mesh)
+        critic = Critic(m, device=self.device, mesh=mesh)
+        load_full_state_dict_(critic, flax_to_state_dict(d_params), mesh)
         return self._state(gen, critic, self.cfg.train.seed if seed is None else seed)
 
     def _advance(self, state: GANTrainState, n: int) -> None:
@@ -278,6 +305,9 @@ class WGANGPEngine:
         if missing:
             raise ValueError(f"batch lacks keys {missing}")
         self._check_batch_size(len(batch["genes"]))
+        if self.mesh is not None:
+            batch = place_batch(self.mesh, batch,
+                                expected_global_rows=self.cfg.train.batch_size)
         real = torch.as_tensor(batch["genes"], dtype=torch.float32, device=self.device)
         cond = ({k: to_device(batch[k], self.device) for k in self.keys}
                 if self.keys else None)
@@ -287,10 +317,24 @@ class WGANGPEngine:
         keys = ("z", "alpha", "z_gen")
         return keys + ("gate", "noise_real", "noise_fake") if self.cfg.train.p_aug > 0 else keys
 
+    def _rows(self, draws: Dict[str, torch.Tensor], stacked: int = 0
+              ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of the global batch's draws (all of them without
+        a mesh); `stacked` leading axes come before each draw's own."""
+        if self.mesh is None:
+            return draws
+        return {k: (v if k not in DRAW_BATCH_DIM else
+                    batch_rows(v, self.mesh, DRAW_BATCH_DIM[k] + stacked))
+                for k, v in draws.items()}
+
     def _draws(self, state: GANTrainState, B: int) -> Dict[str, torch.Tensor]:
         """One step's random draws from `state.rng` (the keys of `step`'s
-        `draws`; the noise unscaled)."""
+        `draws`; the noise unscaled) for a batch of B rows on this rank:
+        drawn for the global batch (B times the data axis) and cut to this
+        rank's rows under a mesh."""
         t, m = self.cfg.train, self.cfg.model
+        if self.mesh is not None:
+            B *= self.mesh.shape["data"]
         g, dev, n = state.rng, self.device, t.n_critic
         draws = {"z": torch.randn(n, B, m.latent_dim, generator=g, device=dev),
                  "alpha": torch.rand(n, B, 1, generator=g, device=dev),
@@ -299,7 +343,7 @@ class WGANGPEngine:
             draws["gate"] = (torch.rand(n, generator=g, device=dev) < t.p_aug).float()
             for k in ("noise_real", "noise_fake"):
                 draws[k] = torch.randn(n, B, m.n_genes, generator=g, device=dev)
-        return draws
+        return self._rows(draws)
 
     def embed_generator(self, state: GANTrainState, cond) -> Optional[torch.Tensor]:
         """per_update: the generator's condition embedding for the step's
@@ -436,8 +480,13 @@ class WGANGPEngine:
         if state.g_ema is not None:
             self._update_ema(state)
         d_loss, gp, d_real, d_fake = aux
-        return {"d_loss": d_loss, "g_loss": gl, "gp": gp,
-                "d_real": d_real, "d_fake": d_fake}
+        metrics = {"d_loss": d_loss, "g_loss": gl, "gp": gp,
+                   "d_real": d_real, "d_fake": d_fake}
+        if self.mesh is not None:
+            # the global batch's means: each rank's over its rows, averaged
+            vals = comm.mean_over([torch.stack(list(metrics.values()))], self.mesh, "data")[0]
+            metrics = dict(zip(metrics, vals.unbind(0)))
+        return metrics
 
     def step(self, state: GANTrainState, batch: Batch,
              draws: Optional[Mapping[str, Any]] = None):
@@ -450,11 +499,13 @@ class WGANGPEngine:
         and "alpha" [n_critic, B, 1] for the critic updates, "z_gen"
         [B, latent] for the generator update, and with `p_aug` > 0 "gate"
         [n_critic] (0/1) and the unscaled N(0, 1) "noise_real" and
-        "noise_fake" [n_critic, B, n_genes]."""
+        "noise_fake" [n_critic, B, n_genes]. Under a mesh `batch` is this
+        rank's shard and `draws` the global batch's (B = the global rows)."""
         real, cond = self._tensors(batch)
         if draws is not None:
-            draws = {k: torch.tensor(np.asarray(draws[k]), dtype=torch.float32,
-                                     device=self.device) for k in self._draw_keys()}
+            draws = self._rows({k: torch.tensor(np.asarray(draws[k]), dtype=torch.float32,
+                                                device=self.device)
+                                for k in self._draw_keys()})
         metrics = self._fused_step(state, real, cond, draws)
         self._advance(state, 1)
         return state, metrics
@@ -480,8 +531,8 @@ class WGANGPEngine:
         state, and reused for any K up to its buffers' rows."""
         arrays = {k: _host_tensor(stacked[k]) for k in ("genes", *self.keys)}
         if draws is not None:
-            arrays.update({f"draw:{k}": _host_tensor(draws[k]).float()
-                           for k in self._draw_keys()})
+            arrays.update({f"draw:{k}": v.float() for k, v in self._rows(
+                {k: _host_tensor(draws[k]) for k in self._draw_keys()}, stacked=1).items()})
         K = len(arrays["genes"])
         if K < 1 or any(len(x) != K for x in arrays.values()):
             raise ValueError(f"step_many needs K >= 1 batches on every key's leading "
@@ -511,7 +562,8 @@ class WGANGPEngine:
         return inputs
 
     def step_many_cached(self, state: GANTrainState, cache, epoch: Optional[int] = None):
-        """One epoch of fused steps streaming batches from a `DeviceCache`:
+        """One epoch of fused steps streaming batches from a `DeviceCache`
+        (or a `ShardedDeviceCache`):
         each step gathers (and patch-subsamples) its batch from the resident
         bank inside the step, as the JAX `step_many_cached` does inside its
         scan. The same training as `step_many(state,
@@ -523,7 +575,18 @@ class WGANGPEngine:
         missing = [k for k in ("genes", *self.keys) if k not in cache.arrays]
         if missing:
             raise ValueError(f"the cache lacks keys {missing}")
+        sharded = getattr(cache, "mesh", None) is not None
+        if sharded and cache.mesh is not self.mesh:
+            raise ValueError(
+                "step_many_cached with a ShardedDeviceCache needs the engine and the "
+                "cache to share one mesh (engine mesh "
+                f"{None if self.mesh is None else self.mesh.shape}, cache mesh "
+                f"{cache.mesh.shape})")
         idx, scores = cache.epoch_spec(epoch)
+        if self.mesh is not None and not sharded:
+            # the bank is replicated: this rank gathers its rows of each batch
+            idx = batch_rows(idx, self.mesh, 1)
+            scores = None if scores is None else batch_rows(scores, self.mesh, 1)
         graph = self._cached_graphs.get(cache)
         if graph is None or graph.state is not state:
             buffers = {"idx": torch.empty_like(idx)}

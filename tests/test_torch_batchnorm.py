@@ -17,6 +17,7 @@ reduced from the bf16 hidden values) within rtol 1e-5 / atol 1e-6. The
 weight bridge's round trip is exact.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
 
 import flax

@@ -5,6 +5,7 @@ power limit; the bench configuration and batch are `bench.py`'s; without a
 card and without `--device cpu` it raises. The rate itself is measured
 only on the card (`chip_smoke.py` phase 16 (d))."""
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
 import json
 

@@ -38,6 +38,7 @@ Tolerances:
   steps: bit for bit.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
 
 import jax

@@ -27,6 +27,7 @@ over all keys), as before the repair, misses 1e-5 on 8,326 of 9,600
 entries there, by up to 1.0e-3.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -29,6 +29,7 @@ from the JAX forward, delta = rowsum(dO * O) in f32 from that forward's o
 passes it so).
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

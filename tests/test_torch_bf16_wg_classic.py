@@ -42,6 +42,7 @@ valid key: that sample's o, dq, dk and dv, and every masked key's dk and
 dv, are exactly 0.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

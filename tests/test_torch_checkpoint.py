@@ -5,6 +5,7 @@ equal to the uninterrupted one: params, optimizer moments and counts, the
 EMA, the step and both generators (z / alpha / noise, and dropout).
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
 import json
 import os

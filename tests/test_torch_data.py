@@ -7,6 +7,7 @@ held bit for bit to the JAX cache's; its subsampling, handed the scores the
 JAX cache draws, selects the same slots. The data dirs are built in tmp.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import os
 import pickle
 import warnings

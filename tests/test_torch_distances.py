@@ -19,6 +19,7 @@ package's MMD² lands up to ≈1e-5 and its ratio up to ≈1e-5 from float64,
 and the two packages up to 1.3e-5 from each other.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import os
 
 import jax

@@ -13,6 +13,7 @@ atol 1e-5 (different summation order through a few layers); bf16 against
 f32 by cosine > 0.99, as the JAX test holds its own.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import os
 
 import jax

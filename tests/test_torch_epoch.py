@@ -10,6 +10,7 @@ index), in a loop. Held to sequential `step`s of the port, bit for bit
 0, with tests/test_torch_train.py's step tolerances.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import collections
 import gc
 

@@ -11,6 +11,7 @@ projections within 1e-5 of `svd_solver="full"`, logistic-regression
 coefficients within 1e-4 relative.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import importlib
 import os
 import subprocess

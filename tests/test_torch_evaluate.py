@@ -13,6 +13,7 @@ equal, the utility reports' keys equal. The figures are written where
 matplotlib is installed; without it they raise, naming it.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import json
 import os
 

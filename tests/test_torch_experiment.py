@@ -9,6 +9,7 @@ tests/test_dynamics_acceptance.py (a statistical bar: TSTR > 0.7 and
 aligned < 0.75 x shuffled).
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
 import glob
 import json
@@ -23,11 +24,14 @@ import torch
 from gemm_gan_tpu.cli.experiment import Experiment as JExperiment
 from gemm_gan_tpu.data.synthetic import synthetic_dataset
 from gemm_gan_tpu.eval.knn_pr import get_precision_recall as j_get_precision_recall
+from _torch_dist_worker import run_ranks
 from gemm_gan_tpu_torch.cli import experiment as expmod
 from gemm_gan_tpu_torch.cli.experiment import Experiment
 from gemm_gan_tpu_torch.cli.train import main as train_main
 from gemm_gan_tpu_torch.config import config_from_dict, variant_config
+from gemm_gan_tpu_torch.data.device_cache import ShardedDeviceCache
 from gemm_gan_tpu_torch.data.loader import Batches
+from gemm_gan_tpu_torch.parallel.mesh import make_mesh
 from gemm_gan_tpu_torch.data.synthetic import structured_dataset
 from gemm_gan_tpu_torch.eval.knn_pr import get_precision_recall
 from gemm_gan_tpu_torch.eval.utility import (UtilityEvaluator, class_mean_alignment,
@@ -226,12 +230,19 @@ def test_evaluate_best_without_validation_raises(tmp_path):
 
 
 def test_multi_device_settings_raise(tmp_path):
+    """`data.shard_bank` needs a mesh (ValueError, as the JAX package's
+    `cli.train`); with a one-rank mesh the Experiment takes host batches
+    and a `ShardedDeviceCache`, as the JAX multi-process one."""
     _, cfg = _cfgs("vanilla", tmp_path, "m")
-    with pytest.raises(NotImplementedError, match="M14"):
-        Experiment(cfg, _splits(_data(), ["genes"]), mesh=object(), device=CPU)
     sharded = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, shard_bank=True))
-    with pytest.raises(NotImplementedError, match="M14"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         Experiment(sharded, _splits(_data(), ["genes"]), device=CPU)
+    mesh = make_mesh(device=CPU)
+    exp = Experiment(cfg, _splits(_data(), ["genes"]), mesh=mesh)
+    assert isinstance(exp.loaders["train"], Batches) and exp.engine.mesh is mesh
+    exp = Experiment(sharded, _splits(_data(), ["genes"]), mesh=mesh)
+    assert isinstance(exp.loaders["train"], ShardedDeviceCache)
+    assert all(isinstance(v, Batches) for v in exp.gen_loaders.values())
 
 
 def test_vanilla_test_block_reports_pr_at_k(tmp_path):
@@ -342,6 +353,30 @@ def test_cli_train_film_cross_attention_end_to_end(data_dir, tmp_path):
     assert os.path.isdir(os.path.join(run_dir, f"test_0_epoch_{best['epoch']}"))
 
 
+def test_cli_train_on_two_ranks_shards_model_and_bank(data_dir, tmp_path):
+    """`cli.train --mesh_model 2 --shard_bank` on two gloo ranks (as under
+    torchrun): the gene matmuls sharded over `model`, the training bank a
+    `ShardedDeviceCache`; fit with validation, the post-hoc suites and the
+    results on rank 0, `{}` on rank 1."""
+    out = str(tmp_path / "out")
+    args = _cli_args("film_cross_attention", data_dir, out, "mesh", "--epochs", "2",
+                     "--num_patches", "8", "--freq_compute_test", "1", "--mesh_data", "1",
+                     "--mesh_model", "2", "--shard_bank")
+    run_ranks("cli_train", 2, tmp_path, argv=args)
+    with open(tmp_path / "cli_0.json") as f:
+        res = json.load(f)
+    with open(tmp_path / "cli_1.json") as f:
+        assert json.load(f) == {}
+    assert np.isfinite(res["gamma_mean"]) and "utility" in res and "privacy" in res
+    run_dir = os.path.join(out, "mesh")
+    with open(os.path.join(run_dir, "config.json")) as f:
+        assert json.load(f)["data"]["shard_bank"] is True
+    with open(os.path.join(run_dir, "results.json")) as f:
+        assert np.isfinite(json.load(f)["gamma_mean"])
+    assert os.path.isdir(os.path.join(run_dir, "test_0_epoch_2"))
+    assert os.listdir(os.path.join(run_dir, "ckpt"))
+
+
 def test_cli_train_evaluate_only(data_dir, tmp_path):
     """--evaluate_only restores the checkpoint a previous run wrote."""
     out = str(tmp_path / "out2")
@@ -353,12 +388,16 @@ def test_cli_train_evaluate_only(data_dir, tmp_path):
         assert np.isfinite(json.load(f)["gamma_mean"])
 
 
-@pytest.mark.parametrize("extra,match", [(["--variant", "vae", "--mesh_model", "2"], "M14"),
-                                         (["--variant", "cvae", "--mesh_model", "2"], "M14"),
-                                         (["--mesh_model", "2"], "M14"),
-                                         (["--shard_bank"], "M14")])
-def test_cli_train_unported_options_raise(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("extra,error,match", [
+    (["--variant", "vae", "--mesh_model", "2"], AssertionError, "not divisible by model=2"),
+    (["--variant", "cvae", "--mesh_model", "2"], AssertionError, "not divisible by model=2"),
+    (["--mesh_model", "2"], AssertionError, "not divisible by model=2"),
+    (["--shard_bank"], ValueError, "needs more than one rank")])
+def test_cli_train_unported_options_raise(tmp_path, extra, error, match):
+    """What the JAX `cli.train` refuses on one device: a model axis wider
+    than the ranks (make_mesh's assert), and `--shard_bank` without a
+    mesh."""
+    with pytest.raises(error, match=match):
         train_main(["--data_dir", str(tmp_path), "--output_path", str(tmp_path),
                     "--device", "cpu", *extra])
 

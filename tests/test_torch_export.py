@@ -16,6 +16,7 @@ summation order); the artifact against the port's eager generator on the
 CPU is bitwise.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
 import json
 import os

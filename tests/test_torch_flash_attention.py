@@ -8,6 +8,7 @@ summation order). The CUDA kernels themselves are held against the same
 plain versions on the card by chip_smoke.py.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import os
 import stat
 from pathlib import Path

@@ -13,6 +13,7 @@ atol 5e-5, the tolerance tests/test_kernels.py holds the Pallas gradients
 to.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -19,6 +19,7 @@ exact. Padded patches and tokens must not move the output (atol 1e-4, the
 JAX twins' in tests/test_fusion.py).
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
 
 import jax

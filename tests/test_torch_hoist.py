@@ -12,6 +12,7 @@ holds whole steps (metrics rtol 2e-3 / atol 2e-4, params atol 5e-5);
 `step_many` against eager steps and the no-op cases bit for bit.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,7 @@ UNI embed stage of `cli.ingest` in the pipeline against `FlaxViT`, and
 checkpoint) into caches that `load_tcga` reads. No test reaches the
 network."""
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import json
 import os
 

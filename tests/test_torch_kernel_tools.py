@@ -11,6 +11,7 @@ substitution of the sources under `csrc/`, so every substitution must
 still find its target there (Q2's and Q4's variants included).
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import importlib.util
 import os
 from pathlib import Path

@@ -9,6 +9,7 @@ different summation order, and Flax's LayerNorm computes its variance as
 E[x^2] - E[x]^2 where torch takes E[(x - mean)^2] (a few ulps apart).
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
 
 import jax

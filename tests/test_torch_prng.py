@@ -4,6 +4,7 @@ independent streams from one seed, one stream per leaf of a tree in JAX's
 leaf order and structure, and a step's stream from (seed, step) alone.
 Exact checks (integers and bitwise draws), no tolerance."""
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import hashlib
 
 import jax

@@ -14,6 +14,7 @@
   / atol 1e-6: the same arithmetic per block, summed in another order).
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
 
 import jax

@@ -7,6 +7,7 @@ device rule and the import boundary. Tolerance atol 1e-5 / rtol 1e-4 (f32,
 different summation order; see tests/test_torch_modules.py).
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
 import os
 import subprocess
@@ -30,6 +31,7 @@ from gemm_gan_tpu_torch.convert import (flax_to_state_dict, load_params_npz,
 from gemm_gan_tpu_torch.data.synthetic import structured_dataset, synthetic_dataset
 from gemm_gan_tpu_torch.kernels import flash_attention as tfa
 from gemm_gan_tpu_torch.models.gan import Generator
+from gemm_gan_tpu_torch.parallel.mesh import make_mesh
 from gemm_gan_tpu_torch.serving import GeneratorServer, cond_keys_for
 from gemm_gan_tpu_torch.utils.device import resolve_device
 
@@ -229,9 +231,15 @@ def test_unsupported_settings_raise():
     `flash_mxu_bf16` (tests/test_torch_bf16.py) and every fusion kind
     (tests/test_torch_fusions.py) are served."""
     m = _port_cfg(_jax_cfg()).model
-    with pytest.raises(NotImplementedError):
-        Generator(dataclasses.replace(m, fusion=dataclasses.replace(
-            m.fusion, sequence_parallel=True)), device="cpu")
+    # sequence parallelism is served: on a one-rank mesh the patch
+    # self-attention keeps masked_mha (ring attention needs model > 1)
+    sp = dataclasses.replace(m, fusion=dataclasses.replace(m.fusion, sequence_parallel=True))
+    ref = Generator(m, device="cpu", generator=torch.Generator().manual_seed(0))
+    gen = Generator(sp, generator=torch.Generator().manual_seed(0), mesh=make_mesh(device="cpu"))
+    attn = gen.fusion.patch_transformer.patches_transformer.layers[0].self_attn
+    assert attn.mesh is not None and gen.trunk.head.parallel is None
+    for a, b in zip(ref.state_dict().values(), gen.state_dict().values()):
+        assert torch.equal(a, b)
     for kind in ("film", "concat", "xattn"):
         fusion = dataclasses.replace(m.fusion, kind=kind)
         gen = Generator(dataclasses.replace(m, fusion=fusion), device="cpu")
@@ -272,7 +280,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gemm_gan_tpu', 'sklearn', "
         "'matplotlib')]\n"
-        "assert len(mods) >= 72, mods\n"
+        "assert len(mods) >= 78, mods\n"
         "new = {'gemm_gan_tpu_torch.' + m for m in "
         "('data.splits', 'data.loader', 'data.tcga', 'data.device_cache', "
         "'train.checkpoint', 'utils.metrics', 'eval.gamma', 'eval.knn_pr', 'eval.prdc', "
@@ -283,7 +291,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'encoders', 'encoders.vit', 'encoders.modernbert', 'encoders.contrastive', "
         "'encoders.cache', 'cli.convert_encoders', 'cli.preprocess', 'cli.ingest', "
         "'data.tiles', 'data.ingest', 'data.descriptions', 'data.gdc', 'utils.prng', "
-        "'utils.tsne', 'ops.batchnorm', 'bench')}\n"
+        "'utils.tsne', 'ops.batchnorm', 'bench', 'parallel', 'parallel.mesh', "
+        "'parallel.sharding', 'parallel.comm', 'kernels.ring_attention', "
+        "'utils.threefry')}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n"
         "assert not bad, bad\n"
         "from gemm_gan_tpu_torch.native import forest, ot\n"

@@ -13,6 +13,7 @@ flips their +-10 lr move; the second step's metrics come from params moved
 apart so: measured 1.3e-3 relative in g_loss).
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
 
 import jax

@@ -42,6 +42,7 @@ accumulator per tile, of the size the kernel at that case uses (CASES),
 and added to the total in f32, as `tf32x3::weight_rows` does.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -22,6 +22,7 @@ of the net's RMS are held only to RMSprop's bound of 10 lr per update, and
 the test asserts they are few.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
 
 import jax

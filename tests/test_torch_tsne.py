@@ -16,6 +16,7 @@ trustworthiness (k 5) at least JAX's - 0.02, its 5-NN label accuracy at
 least JAX's - 0.05.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import numpy as np
 import pytest
 import scipy.sparse as sp

@@ -13,6 +13,7 @@ rules) against the JAX package on the same numpy inputs, at tiny widths:
   the port only, with the same data, budget and bars.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
 import glob
 import json

@@ -8,6 +8,7 @@ ignores them. The flagship's twin is in tests/test_torch_experiment.py,
 the label oracle's in tests/test_torch_variants.py.
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
 
 import pytest

@@ -16,6 +16,7 @@
   (the multi_patch schema, which also reads the text-CLS table).
 """
 
+import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
 import json
 import os
