@@ -1,0 +1,15 @@
+"""Bound of `flash_bwd_fused_kernel<D, kBle, kMode>`: the port's mma.sync fused backward, dq, dk and dv in one launch (Q2 in [B, L, E], Q6 in [B, H, L, D])
+(`gemm_gan_tpu_torch/kernels/csrc/`)."""
+
+from perfbench.kernels import _attention
+
+LAUNCH = "bwd"  # the attention call that launches it (a site's `launches`)
+
+
+def bound_s(site: dict, targs: list, peaks: dict) -> float:
+    """Least seconds of one launch at `site`, given the trace name's
+    template arguments `targs` (D, kBle, kMode)."""
+    D, ble, mode = int(targs[0]), targs[1] == "true", int(targs[2])
+    if D != site["D"]:
+        raise ValueError(f"flash_bwd_fused_kernel at head dim {D}, the site's is {site['D']}")
+    return _attention.bound_s("bwd_fused", mode, site, peaks, ble)
