@@ -81,7 +81,7 @@ from gemm_gan_tpu_torch.train.checkpoint import (dropout_generator, resolve_ckpt
                                                  restore_state, resume_or_fresh, save_state)
 from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
 from gemm_gan_tpu_torch.utils.device import DeviceLike, resolve_device
-from gemm_gan_tpu_torch.utils.metrics import EpochProfileWindow, MetricLogger
+from gemm_gan_tpu_torch.utils.metrics import TRACER, EpochProfileWindow, MetricLogger
 from gemm_gan_tpu_torch.viz import matplotlib_available, plot_curves
 
 def _host_subsample_patches(split: Dict, num_patches: int, seed: int) -> Dict:
@@ -234,7 +234,8 @@ class Experiment:
         EMA, step, generators): the same final state as an uninterrupted run.
         No checkpoint: a fresh start. `profile_dir`: a `torch.profiler` trace
         of `profile_epochs` epochs, opened after the first epoch of this
-        call (needs >= 2 epochs)."""
+        call (needs >= 2 epochs), and the tracer (`utils/metrics.py`) on over
+        the whole fit, its `summary()` kept as `trace_summary`."""
         t = self.cfg.train
         eng = self.engine
         train = self.loaders["train"]
@@ -283,6 +284,9 @@ class Experiment:
                         self._best = json.load(f)
 
         prof = EpochProfileWindow(profile_dir, profile_epochs)
+        if profile_dir is not None:
+            TRACER.reset()
+            TRACER.enable()
 
         def on_epoch_end(engine, state, epoch):
             prof.on_epoch_end(epoch)
@@ -300,7 +304,10 @@ class Experiment:
                             start_epoch=start_epoch)
         finally:
             prof.close()
+            if profile_dir is not None:
+                TRACER.disable()
         self.profile_captured = prof.captured
+        self.trace_summary = TRACER.summary() if profile_dir is not None else None
         self.state = state
         save_state(ckpt_dir, state)
         self._plot_val_curves()

@@ -96,7 +96,8 @@ def build_parser():
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of steady-state epochs (the window "
                         "opens after the first epoch; needs epochs >= 2) and print "
-                        "time tables from it")
+                        "time tables from it, then the tracer's table (the step's stages, "
+                        "the replays' idle share, idle by host span)")
     p.add_argument("--profile_epochs", type=int, default=1,
                    help="how many epochs the --profile_dir trace covers")
     p.add_argument("--evaluate_only", action="store_true")
@@ -207,7 +208,8 @@ def main(argv=None):
         results = exp.fit(resume=args.resume, **fit_kw)
         if fit_kw:
             from gemm_gan_tpu_torch.utils.metrics import (aggregate_device_trace,
-                                                          format_device_table)
+                                                          format_device_table,
+                                                          format_tracer_table)
 
             if exp.profile_captured:
                 agg = aggregate_device_trace(args.profile_dir)
@@ -216,6 +218,8 @@ def main(argv=None):
             else:
                 print(f"no steady-state trace captured under {args.profile_dir} (the "
                       "window opens after the first epoch: the run needs >= 2 epochs)")
+            if getattr(exp, "trace_summary", None) is not None:  # the GAN's Experiment
+                print(format_tracer_table(exp.trace_summary))
         if not main_rank:
             return {}
         # TSTR utility needs label dumps: conditional variants only

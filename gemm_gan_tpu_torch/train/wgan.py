@@ -40,7 +40,10 @@ which also builds and loads the kernels), and replay it; on the CPU they
 run the same body in a loop. Nothing falls back: a capture that fails
 raises. A replay launches no wrapper, so each graph records the kernel
 launches its capture made and adds them to the counters per replay
-(`flash_attention.recorded_launches`, `count_replays`).
+(`flash_attention.recorded_launches`, `count_replays`). With the tracer on
+(`utils/metrics.py`'s `TRACER`), `fit` and the step record spans, each
+replay is timed by events, and a second graph of the step, captured with
+an event at each stage boundary, replays as each run's last step.
 
 Randomness: z, α and the instance noise come from `state.rng`, or from
 `draws` when the caller passes them (the tests rebuild them from the JAX key
@@ -120,6 +123,7 @@ from gemm_gan_tpu_torch.train import losses
 from gemm_gan_tpu_torch.train.schedules import ScheduledOptimizer
 from gemm_gan_tpu_torch.train.state import GANTrainState
 from gemm_gan_tpu_torch.utils.device import DeviceLike, resolve_device
+from gemm_gan_tpu_torch.utils.metrics import TRACER, GraphTiming, StageMarks
 
 Batch = Mapping[str, Any]
 Inputs = Callable[[torch.Tensor], tuple]
@@ -177,9 +181,13 @@ class _StepGraph:
         self.graph = None
         self.outputs = None   # the captured step's metrics, rewritten by each replay
         self.recorded = {}    # kernel launches one replay makes
+        self.timing = None    # what the tracer reads (`utils/metrics.py`), once it is on
 
-    def _body(self) -> Dict[str, torch.Tensor]:
-        metrics = self.engine._fused_step(self.state, *self.inputs(self.step_idx))
+    def _body(self, marks: Optional[StageMarks] = None) -> Dict[str, torch.Tensor]:
+        with TRACER.marking(marks):
+            args = self.inputs(self.step_idx)
+            TRACER.stage("gather")
+            metrics = self.engine._fused_step(self.state, *args)
         self.step_idx.add_(1)
         return metrics
 
@@ -187,37 +195,66 @@ class _StepGraph:
         """Run one step eagerly on a side stream (it warms up the autograd
         engine and cuBLAS on that stream, builds and loads the kernels and
         allocates what the optimizers hold), then capture the next on the
-        same stream. Returns the eager step's metrics."""
+        same stream. Returns the eager step's metrics. With the tracer on,
+        a second graph of the step marks its stages (`_record`)."""
         device = self.engine.device
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            metrics = self._body()
-        torch.cuda.current_stream(device).wait_stream(stream)
+        TRACER.count("captures")
+        with TRACER.span("graph.capture"):
+            stream = torch.cuda.Stream(device)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with TRACER.span("graph.eager_step"), torch.cuda.stream(stream):
+                metrics = self._body()
+            torch.cuda.current_stream(device).wait_stream(stream)
+            self.graph, self.outputs, self.recorded = self._record(stream)
+            if TRACER.on:
+                # an event node costs the step ~5 us, so only each run's
+                # last step replays the graph that holds them
+                marks = StageMarks(device)
+                marked, outputs, _ = self._record(stream, marks)
+                self.timing = GraphTiming(device, marks, marked, outputs)
+        return metrics
+
+    def _record(self, stream, marks: Optional[StageMarks] = None):
+        """Capture one step on `stream`, its stages marked into `marks`:
+        (graph, its metrics, the kernel launches one replay makes)."""
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.state.rng)
-        with fa.recorded_launches() as recorded:
+        with TRACER.span("graph.record"), fa.recorded_launches() as recorded:
             with torch.cuda.graph(graph, stream=stream):
-                self.outputs = self._body()
-        self.graph, self.recorded = graph, recorded
-        return metrics
+                outputs = self._body(marks)
+        return graph, outputs, recorded
 
     def run(self, n: int) -> Dict[str, torch.Tensor]:
         """`n` steps from row 0; returns the last step's metrics."""
         self.step_idx.zero_()
-        if self.engine.device.type == "cpu":
+        device = self.engine.device
+        if device.type == "cpu":
+            if TRACER.on and self.timing is None:
+                self.timing = GraphTiming(device, StageMarks(device))
+            marks = self.timing.marks if TRACER.on else None
             for _ in range(n):
-                metrics = self._body()
+                metrics = self._body(marks)
+            if TRACER.on:
+                TRACER.ran(self.timing, n)
             return metrics
         done = 0
         if self.graph is None:
             metrics = self._capture()
             done = 1
-        for _ in range(n - done):
-            self.graph.replay()
-        fa.count_replays(self.recorded, n - done)
-        if n > done:
-            metrics = {k: v.clone() for k, v in self.outputs.items()}
+        replays, outputs = n - done, self.outputs
+        if TRACER.on:
+            if self.timing is None:  # captured with the tracer off: no stages
+                self.timing = GraphTiming(device)
+            graphs = [self.graph] * replays
+            if replays and self.timing.marked is not None:
+                graphs[-1], outputs = self.timing.marked, self.timing.outputs
+            TRACER.replay(graphs, self.timing)
+        else:
+            for _ in range(replays):
+                self.graph.replay()
+        fa.count_replays(self.recorded, replays)
+        if replays:
+            metrics = {k: v.clone() for k, v in outputs.items()}
         return metrics
 
 
@@ -414,12 +451,15 @@ class WGANGPEngine:
             total = loss + t.gp_weight * gp
             if t.drift_epsilon > 0:
                 total = total + t.drift_epsilon * losses.drift_penalty(d_real, d_fake)
+            TRACER.stage("critic_forward")
             grads = _accumulate(grads, torch.autograd.grad(total, state.d_opt.params))
             aux = _accumulate(aux, (x.detach() for x in (loss, gp, d_real.mean(),
                                                            d_fake.mean())))
+            TRACER.stage("critic_backward")
         if M > 1:
             grads, aux = [g / M for g in grads], [a / M for a in aux]
         state.d_opt.update(grads)
+        TRACER.stage("optimizer")
         return tuple(aux)
 
     def generator_update(self, state: GANTrainState, cond, z) -> torch.Tensor:
@@ -445,6 +485,7 @@ class WGANGPEngine:
             gl = loss.detach() if gl is None else gl + loss.detach()
         if M > 1:
             grads, gl = [g / M for g in grads], gl / M
+        TRACER.stage("generator")
         state.g_opt.update(grads)
         return gl
 
@@ -469,6 +510,7 @@ class WGANGPEngine:
         state.critic.train()
         g_cvec = self.embed_generator(state, cond)
         fakes = self.hoisted_fakes(state, g_cvec, draws["z"]) if self.hoist else None
+        TRACER.stage("embed")
         aux = None
         for i in range(t.n_critic):
             noise = (None if t.p_aug <= 0 else
@@ -479,6 +521,7 @@ class WGANGPEngine:
         gl = self.generator_update(state, cond, draws["z_gen"])
         if state.g_ema is not None:
             self._update_ema(state)
+        TRACER.stage("optimizer")
         d_loss, gp, d_real, d_fake = aux
         metrics = {"d_loss": d_loss, "g_loss": gl, "gp": gp,
                    "d_real": d_real, "d_fake": d_fake}
@@ -582,11 +625,12 @@ class WGANGPEngine:
                 "cache to share one mesh (engine mesh "
                 f"{None if self.mesh is None else self.mesh.shape}, cache mesh "
                 f"{cache.mesh.shape})")
-        idx, scores = cache.epoch_spec(epoch)
-        if self.mesh is not None and not sharded:
-            # the bank is replicated: this rank gathers its rows of each batch
-            idx = batch_rows(idx, self.mesh, 1)
-            scores = None if scores is None else batch_rows(scores, self.mesh, 1)
+        with TRACER.span("fit.epoch_spec"):
+            idx, scores = cache.epoch_spec(epoch)
+            if self.mesh is not None and not sharded:
+                # the bank is replicated: this rank gathers its rows of each batch
+                idx = batch_rows(idx, self.mesh, 1)
+                scores = None if scores is None else batch_rows(scores, self.mesh, 1)
         graph = self._cached_graphs.get(cache)
         if graph is None or graph.state is not state:
             buffers = {"idx": torch.empty_like(idx)}
@@ -595,10 +639,12 @@ class WGANGPEngine:
             graph = _StepGraph(self, state, buffers, self._cached_inputs(
                 cache.arrays, cache.assemble_fn, buffers))
             self._cached_graphs[cache] = graph
-        graph.buffers["idx"].copy_(idx)
-        if scores is not None:
-            graph.buffers["scores"].copy_(scores)
-        metrics = graph.run(len(idx))
+        with TRACER.span("fit.feed"):
+            graph.buffers["idx"].copy_(idx)
+            if scores is not None:
+                graph.buffers["scores"].copy_(scores)
+        with TRACER.span("fit.replays"):
+            metrics = graph.run(len(idx))
         self._advance(state, len(idx))
         return state, metrics
 
@@ -635,21 +681,27 @@ class WGANGPEngine:
             raise ValueError("fit() needs batches_fn, stacked_fn, or scan_cache")
         history = {"d_loss": [], "g_loss": []}
         for epoch in range(start_epoch, epochs):
-            metrics = None
-            if scan_cache is not None:
-                state, metrics = self.step_many_cached(state, scan_cache, epoch)
-            elif stacked_fn is not None:
-                state, metrics = self.step_many(state, stacked_fn(epoch))
-            else:
-                for batch in batches_fn():
-                    state, metrics = self.step(state, batch)
-            if metrics is not None:
-                if logger is not None:
-                    logger.log(state.step, **metrics)
-                history["d_loss"].append(float(metrics["d_loss"]))
-                history["g_loss"].append(float(metrics["g_loss"]))
-            if on_epoch_end is not None:
-                state = on_epoch_end(self, state, epoch) or state
+            with TRACER.span("fit.epoch"):
+                TRACER.count("epochs")
+                metrics = None
+                if scan_cache is not None:
+                    state, metrics = self.step_many_cached(state, scan_cache, epoch)
+                elif stacked_fn is not None:
+                    state, metrics = self.step_many(state, stacked_fn(epoch))
+                else:
+                    for batch in batches_fn():
+                        state, metrics = self.step(state, batch)
+                if metrics is not None:
+                    with TRACER.span("fit.sync"):  # the host waits for the epoch here
+                        history["d_loss"].append(float(metrics["d_loss"]))
+                        history["g_loss"].append(float(metrics["g_loss"]))
+                    TRACER.read()
+                    if logger is not None:
+                        with TRACER.span("fit.log"):
+                            logger.log(state.step, **metrics)
+                if on_epoch_end is not None:
+                    with TRACER.span("fit.on_epoch_end"):
+                        state = on_epoch_end(self, state, epoch) or state
         self.history = history
         return state
 

@@ -38,7 +38,7 @@ from gemm_gan_tpu_torch.eval.utility import (UtilityEvaluator, class_mean_alignm
                                              tstr_transfer_accuracy)
 from gemm_gan_tpu_torch.train.checkpoint import latest_step
 from gemm_gan_tpu_torch.train.wgan import WGANGPEngine
-from gemm_gan_tpu_torch.utils.metrics import aggregate_device_trace
+from gemm_gan_tpu_torch.utils.metrics import TRACER, aggregate_device_trace
 from tests.conftest import tiny_cfg as jax_tiny_cfg
 
 CPU = "cpu"
@@ -289,6 +289,9 @@ def test_fit_profile_window_writes_trace(tmp_path):
     agg = aggregate_device_trace(prof_dir)
     assert os.path.exists(agg["trace_path"])
     assert agg["by_op"] and agg["by_category"]
+    # the tracer was on over the fit, and is off after it
+    assert exp.trace_summary["counters"]["epochs"] == 3 and exp.trace_summary["stage_ms"]
+    assert not TRACER.on
 
 
 # --------------------------------------------------------------- cli.train
