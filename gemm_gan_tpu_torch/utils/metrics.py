@@ -17,7 +17,8 @@ inside (`train/wgan.py`):
   stamped on the clock of `torch.profiler`'s host records (Unix ns) and
   entered as a `record_function` of the same name, so a profiler trace
   shows it too;
-* counters: `replays`, `captures`, `epochs`;
+* counters: `replays`, `captures`, `epochs`, `clip_norms` (the calls of
+  `train/schedules.py`'s multi-tensor global-norm clip);
 * each CUDA graph replay's device interval, from a timing event before and
   after it, put on the span clock at the next `Tracer.read` (an anchor
   event stamped on an idle stream), so the device's idle time between
@@ -182,7 +183,7 @@ class Tracer:
     def reset(self) -> None:
         self.spans: List[list] = []   # [name, parent index or -1, start ns, end ns or None]
         self._stack: List[int] = []
-        self.counters = {"replays": 0, "captures": 0, "epochs": 0}
+        self.counters = {"replays": 0, "captures": 0, "epochs": 0, "clip_norms": 0}
         self.runs: List[Tuple[str, np.ndarray]] = []   # (span, [n, 2] replay ns)
         self.steps: List[List[Tuple[str, float]]] = []  # stages of each read's last step
         self._unread: Dict[GraphTiming, None] = {}

@@ -109,7 +109,10 @@ def test_on_fit_spans_come_in_order_inside_each_epoch():
         for a, b in zip(children, children[1:]):
             assert a[3] <= b[2]  # one after another
         assert start <= children[0][2] and children[-1][3] <= end
-    assert TRACER.counters == {"replays": 0, "captures": 0, "epochs": 3}
+    # three eager epochs of 3 steps, each step clipping its 5 critic updates
+    # and its generator update once
+    assert TRACER.counters == {"replays": 0, "captures": 0, "epochs": 3,
+                               "clip_norms": 3 * 3 * (5 + 1)}
     assert not TRACER._stack
     summary = TRACER.summary()
     assert summary["spans"]["fit.epoch"]["n"] == 3 and summary["graph_capture_s"] == 0.0
@@ -132,6 +135,22 @@ def test_on_a_step_marks_its_stages_in_order(n_critic, grad_accum):
     stage_ms = TRACER.summary()["stage_ms"]
     assert list(stage_ms) == list(metrics.STAGES)
     assert stage_ms["critic_backward"] > 0 and stage_ms["optimizer"] > 0
+
+
+@pytest.mark.parametrize("n_critic,grad_accum", [(5, 1), (2, 2)])
+def test_on_an_eager_step_counts_one_clip_an_update(n_critic, grad_accum):
+    """One eager `_fused_step` clips each of its n_critic critic updates and
+    its generator update once (`clip_norms`), whatever the microbatches."""
+    d = synthetic_dataset(n=4, n_genes=24, num_patches=10, patch_dim=16, num_tokens=6,
+                          text_dim=12, seed=2)
+    batch = {k: d[k] for k in (*KEYS, "genes")}
+    eng = WGANGPEngine(_cfg(n_critic=n_critic, grad_accum=grad_accum), device="cpu")
+    torch.manual_seed(0)
+    state = eng.init_state(0, batch)
+    real, cond = eng._tensors(batch)
+    TRACER.enable()
+    eng._fused_step(state, real, cond)
+    assert TRACER.counters["clip_norms"] == n_critic + 1
 
 
 def test_an_idle_gap_goes_to_the_span_whose_own_time_covers_most_of_it():
@@ -191,6 +210,9 @@ def test_fit_on_the_card_stages_sum_to_the_replay():
     for k in off:
         np.testing.assert_allclose(on[k], off[k], rtol=1e-3, atol=1e-5, err_msg=k)
     assert TRACER.counters["captures"] == 1 and TRACER.counters["replays"] == 2 + 3 + 3
+    # the capture's eager step, its graph and the graph that marks stages
+    # each clip the 5 critic updates and the generator's once
+    assert TRACER.counters["clip_norms"] == 3 * (5 + 1)
     assert len(TRACER.runs) == 3 and len(TRACER.steps) == 3
     for (_, ns), step in zip(TRACER.runs, TRACER.steps):
         replay_ms = (ns[-1, 1] - ns[-1, 0]) / 1e6

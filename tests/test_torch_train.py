@@ -24,6 +24,9 @@ the test asserts they are few.
 
 import _torch_test_threads  # noqa: F401  (one torch thread per test process)
 import dataclasses
+import functools
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -58,6 +61,8 @@ PARAM_ATOL = 5e-5
 NEGLIGIBLE_GRAD = 1e-4
 KEYS = ("tokens", "token_mask", "patches", "patch_mask")
 B, P = 4, 128
+FLAGSHIP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "perfbench", "configs", "film_xattn_bf16.json")
 
 
 def _jax_cfg(reuse="per_update", use_pallas=False, dropout=0.0):
@@ -249,16 +254,92 @@ def test_optimizer_matches_make_optimizer_across_halving_and_clipping():
     assert opt.count == 6
 
 
-def test_clip_and_schedule_follow_optax():
-    for scale in (0.5, 4.0):
-        g = {"w": np.full((4,), scale, np.float32)}
-        want, _ = optax.clip_by_global_norm(2.0).update(g, None)
-        got = [_t(g["w"])]
-        clip_by_global_norm_(got, 2.0)
-        _close(got[0], want["w"], 1e-6, 0)
+@functools.lru_cache(maxsize=None)
+def _flagship_critic_shapes():
+    """The parameter shapes of the critic of the benchmark's flagship
+    configuration (`perfbench/configs/film_xattn_bf16.json`): 61 tensors,
+    8.58 M entries."""
+    with open(FLAGSHIP) as f:
+        spec = json.load(f)
+    cfg = tcfg.variant_config(spec["architecture"], n_genes=spec["model"]["n_genes"],
+                              fusion_kw=dict(spec["fusion"]))
+    model = dataclasses.replace(cfg.model, **{k: tuple(v) if isinstance(v, list) else v
+                                              for k, v in spec["model"].items()})
+    return tuple(tuple(p.shape) for p in Critic(model, device="cpu").parameters())
+
+
+def _grads(shapes, norm, seed):
+    """N(0, 1) gradients of `shapes` scaled to the global norm `norm` (in
+    f64)."""
+    rng = np.random.RandomState(seed)
+    g = [rng.randn(*s).astype(np.float32) for s in shapes]
+    total = np.sqrt(sum(float(np.sum(np.square(x, dtype=np.float64))) for x in g))
+    return [(x * (norm / total)).astype(np.float32) for x in g]
+
+
+def _clip_per_tensor_(grads, max_norm):
+    """The clip one tensor at a time: each tensor's sum of squares, their
+    sum, the same scale, one in-place multiply per tensor."""
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for g in grads:
+        g.mul_(scale)
+
+
+@pytest.mark.parametrize("ratio", (0.5, 1.0, 4.0))  # the global norm over max_norm
+@pytest.mark.parametrize("grads,max_norm", (("constant", 2.0), ("constant", 1e-5),
+                                            ("flagship_critic", 10.0),
+                                            ("flagship_critic", 2.0)))
+def test_clip_and_schedule_follow_optax(grads, max_norm, ratio):
+    """`clip_by_global_norm_` against optax's `clip_by_global_norm` and the
+    per-tensor formula, below, at and above `max_norm`: a constant vector
+    (at a norm of 1e-5 too, where an epsilon added to the norm would show),
+    and gradients of the flagship critic's 61 shapes."""
+    if grads == "constant":
+        g = [np.full((4,), ratio * max_norm / 2, np.float32)]
+    else:
+        g = _grads(_flagship_critic_shapes(), ratio * max_norm, seed=int(10 * ratio + max_norm))
+    want, _ = optax.clip_by_global_norm(max_norm).update(g, None)
+    got = [_t(x) for x in g]
+    clip_by_global_norm_(got, max_norm)
+    per_tensor = [_t(x) for x in g]
+    _clip_per_tensor_(per_tensor, max_norm)
+    for i, (a, w, b) in enumerate(zip(got, want, per_tensor)):
+        _close(a, w, 1e-6, 0, f"optax, tensor {i}")
+        _close(a, b.numpy(), 1e-6, 0, f"per tensor, tensor {i}")
+    if ratio < 1:
+        for a, x in zip(got, g):
+            np.testing.assert_array_equal(a.numpy(), x)
     schedule = halving_schedule(1e-3, 3, 2)
     for count in range(20):
         assert halving_lr(1e-3, count, 3, 2) == pytest.approx(float(schedule(count)))
+
+
+def test_clip_makes_the_same_few_ops_for_any_number_of_tensors():
+    """The ATen ops one `clip_by_global_norm_` dispatches: as many for the
+    first 6 of the flagship critic's tensors as for all 61, and at most 12
+    (each one a launch or a few on the card; the per-tensor formula makes
+    four a tensor)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    shapes = _flagship_critic_shapes()
+    counts = {}
+    for n in (6, 61):
+        grads = [torch.randn(s) for s in shapes[:n]]
+        with Count() as c:
+            clip_by_global_norm_(grads, 1e-3)  # active: every tensor is scaled
+        counts[n] = c.ops
+    assert len(shapes) == 61
+    assert counts[6] == counts[61] and len(counts[61]) <= 12, counts
 
 
 def _jax_draws(jstate, jcfg, batch_size):
